@@ -1,0 +1,48 @@
+"""One front door for the port's launchers: ``python -m repro_torch <subcommand>``.
+
+    python -m repro_torch serve --arch yi-6b --preset full   # on the card
+    python -m repro_torch serve --preset small --device cpu  # on the CPU
+
+Each subcommand resolves to the matching ``repro_torch.launch.<module>``
+main, which parses ``sys.argv`` as rewritten here.
+"""
+from __future__ import annotations
+
+import importlib
+import sys
+
+# subcommand -> (module, one-line help)
+COMMANDS = {
+    "serve": ("repro_torch.launch.serve",
+              "batched prefill+decode serving driver"),
+}
+
+
+def _usage(out=None) -> None:
+    out = out or sys.stdout
+    print("usage: python -m repro_torch <subcommand> [args...]\n", file=out)
+    print("subcommands:", file=out)
+    for name, (_mod, desc) in COMMANDS.items():
+        print(f"  {name:<16} {desc}", file=out)
+    print("\n`python -m repro_torch <subcommand> --help` shows that "
+          "launcher's flags.", file=out)
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help", "help"):
+        _usage()
+        return 0
+    if argv[0] not in COMMANDS:
+        print(f"python -m repro_torch: unknown subcommand {argv[0]!r}",
+              file=sys.stderr)
+        _usage(sys.stderr)
+        return 2
+    module, _desc = COMMANDS[argv[0]]
+    sys.argv = [f"python -m repro_torch {argv[0]}"] + argv[1:]
+    importlib.import_module(module).main()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,153 @@
+"""Shared model layers: norms, rotary embeddings, MLPs, parameter specs.
+
+Layers are plain functions over nested dicts / tuples of tensors, as in the
+JAX package.  Parameter specs (shape + dtype + logical axes) come first so
+weights can be drawn straight onto the target device.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ParamSpec:
+    """Shape/dtype/logical-axes description of one parameter tensor."""
+    shape: tuple
+    axes: tuple                    # logical axis name (or None) per dim
+    dtype: str = "bfloat16"
+    init: str = "normal"           # normal | zeros | ones | ssm_a | ssm_dt
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+
+def map_specs(fn, tree):
+    """Apply ``fn`` to every ParamSpec leaf of a nested dict / tuple tree."""
+    if isinstance(tree, ParamSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(map_specs(fn, v) for v in tree)
+    raise TypeError(f"unexpected spec tree node {type(tree).__name__}")
+
+
+_INIT_CHUNK = 1 << 24             # elements drawn per randn call
+
+
+def init_leaf(spec: ParamSpec, generator: torch.Generator,
+              device: torch.device) -> torch.Tensor:
+    """One weight by the JAX package's rule, drawn on ``device``."""
+    dt = spec.torch_dtype
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dt, device=device)
+    if spec.init != "normal":
+        raise NotImplementedError(
+            f"init {spec.init!r} is not ported yet "
+            "(ROADMAP.md, remaining model families: SSM)")
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    scale = 0.02 if fan_in == 0 else min(0.02, (1.0 / fan_in) ** 0.5)
+    out = torch.empty(spec.shape, dtype=dt, device=device)
+    flat = out.view(-1)
+    # draw in fp32 a chunk at a time, so the fp32 copy of a multi-GB stacked
+    # weight never exists whole
+    for start in range(0, flat.numel(), _INIT_CHUNK):
+        n = min(_INIT_CHUNK, flat.numel() - start)
+        w = torch.randn(n, generator=generator, dtype=torch.float32, device=device)
+        flat[start:start + n] = w.mul_(scale).to(dt)
+    return out
+
+
+def init_param_tree(tree, generator: torch.Generator, device: torch.device):
+    """Materialize a ParamSpec tree into weights on ``device``.
+
+    The generator must live on ``device`` too, so full-width weights never
+    pass through the host.
+    """
+    return map_specs(lambda s: init_leaf(s, generator, device), tree)
+
+
+# ---------------------------------------------------------------------------
+# Primitive layers
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies [head_dim//2] in fp32."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / torch.pow(theta, exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Split-half rotary embedding.  x: [..., T, H, d]; positions: [..., T]."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, device=x.device)                 # [d/2]
+    ang = positions[..., None].float() * inv                    # [..., T, d/2]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def activation(name: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_spec(d_model: int, d_ff: int, dtype: str, stacked: int | None = None):
+    lead = () if stacked is None else (stacked,)
+    lax = () if stacked is None else ("layers",)
+    return {
+        "wi": ParamSpec(lead + (d_model, d_ff), lax + ("embed", "ffn"), dtype),
+        "wg": ParamSpec(lead + (d_model, d_ff), lax + ("embed", "ffn"), dtype),
+        "wo": ParamSpec(lead + (d_ff, d_model), lax + ("ffn", "embed_out"), dtype),
+    }
+
+
+def mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = activation(act)(x @ params["wg"]) * (x @ params["wi"])
+    return h @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Masks
+# ---------------------------------------------------------------------------
+
+def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+                       n_always_visible: int = 0) -> torch.Tensor:
+    """Boolean [.., Tq, Tk] mask: causal, optionally sliding-window.
+
+    ``window`` 0 means global.  ``n_always_visible`` prefix positions (hymba
+    meta tokens) are exempt from the window.
+    """
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
+    mask = diff >= 0
+    if window > 0:
+        always = k_pos[..., None, :] < n_always_visible
+        mask = mask & ((diff < window) | always)
+    return mask

@@ -1,0 +1,274 @@
+"""Generic decoder, dense attention-only subset (Yi-6B, deepseek-7b).
+
+The layer sequence is decomposed into *stages*, maximal periodic runs of a
+repeating unit of layer descriptors, exactly as in the JAX package, so the
+stacked per-stage weights keep their leading ``[R, ...]`` axis.  Where JAX
+runs a ``lax.scan`` over that axis, this port runs a Python loop over it.
+
+Parameters and caches are nested dicts / tuples of tensors in the JAX
+layout.  MoE, MLA, SSM and hybrid layers, sliding-window ring caches, meta
+tokens, tied or scaled embeddings, multi-token prediction and the vision /
+audio frontends raise ``NotImplementedError`` naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import ParamSpec, mlp, mlp_spec, rms_norm
+
+
+# ---------------------------------------------------------------------------
+# What the port runs
+# ---------------------------------------------------------------------------
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for the first part of ``cfg`` not ported yet."""
+    families = "ROADMAP.md, remaining model families"
+    gaps = [
+        (cfg.moe is not None or any(cfg.layer_moe),
+         f"mixture-of-experts FFNs ({families}: MoE)"),
+        (cfg.mla is not None, f"MLA attention ({families}: MLA)"),
+        (any(k != "attn" for k in cfg.kinds),
+         f"SSM and hybrid layers ({families}: SSM)"),
+        (any(cfg.layer_windows) or cfg.meta_tokens > 0,
+         "sliding-window layers and meta tokens "
+         f"({families}: sliding-window ring caches and meta tokens)"),
+        (cfg.tie_embeddings or cfg.scale_embeddings,
+         "tied or scaled embeddings "
+         f"({families}: sliding-window ring caches and meta tokens)"),
+        (cfg.frontend != "none" or cfg.n_codebooks > 1,
+         f"the {cfg.frontend} frontend ({families}: frontends)"),
+        (cfg.mtp_depth > 0, "multi-token prediction (ROADMAP.md, training)"),
+    ]
+    for missing, what in gaps:
+        if missing:
+            raise NotImplementedError(f"{cfg.name}: {what} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Stage decomposition
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LayerDesc:
+    kind: str                      # attn | ssm | hybrid
+    window: int                    # 0 = global
+    moe: bool
+    theta: float
+
+
+@dataclass(frozen=True)
+class Stage:
+    unit: tuple                    # tuple[LayerDesc]
+    repeat: int
+
+
+def layer_descs(cfg: ModelConfig):
+    kinds, wins, moes = cfg.kinds, cfg.layer_windows, cfg.layer_moe
+    out = []
+    for i in range(cfg.n_layers):
+        theta = cfg.rope_theta
+        if wins[i] > 0 and cfg.local_rope_theta:
+            theta = cfg.local_rope_theta
+        out.append(LayerDesc(kinds[i], wins[i], moes[i], theta))
+    return out
+
+
+def build_stages(cfg: ModelConfig, max_unit: int = 8):
+    """Greedy periodic decomposition of the layer sequence."""
+    descs = layer_descs(cfg)
+    n = len(descs)
+    stages, i = [], 0
+    while i < n:
+        best_ul, best_r = 1, 1
+        for ul in range(1, min(max_unit, n - i) + 1):
+            unit = descs[i:i + ul]
+            r = 1
+            while descs[i + r * ul: i + (r + 1) * ul] == unit:
+                r += 1
+            if r >= 2 and ul * r > best_ul * best_r:
+                best_ul, best_r = ul, r
+        stages.append(Stage(tuple(descs[i:i + best_ul]), best_r))
+        i += best_ul * best_r
+    return stages
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+def _layer_spec(cfg: ModelConfig, lead: tuple):
+    d = cfg.d_model
+    la = ("layers",) * len(lead)
+    dt = cfg.param_dtype
+    return {
+        "ln1": ParamSpec(lead + (d,), la + (None,), dt, init="zeros"),
+        "attn": attn.gqa_spec(cfg, lead),
+        "ln2": ParamSpec(lead + (d,), la + (None,), dt, init="zeros"),
+        "ffn": mlp_spec(d, cfg.d_ff, dt, stacked=lead[0] if lead else None),
+    }
+
+
+def param_specs(cfg: ModelConfig):
+    check_supported(cfg)
+    d, v = cfg.d_model, cfg.vocab
+    dt = cfg.param_dtype
+    spec = {"tok_emb": ParamSpec((v, d), ("vocab", "embed"), dt)}
+    spec["stages"] = tuple(
+        {f"u{j}": _layer_spec(cfg, (st.repeat,)) for j in range(len(st.unit))}
+        for st in build_stages(cfg))
+    spec["final_norm"] = ParamSpec((d,), (None,), dt, init="zeros")
+    spec["head"] = ParamSpec((d, v), ("embed", "vocab"), dt)
+    return spec
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+def layer_forward(cfg, desc, p, x, positions, n_meta, *, collect=False,
+                  use_flash=False):
+    """One attention layer, full sequence.  Returns (x, cache_entry, aux_loss);
+    the aux loss is MoE's, so it is 0 here."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    out = attn.gqa_forward(p["attn"], h, positions, window=desc.window,
+                           theta=desc.theta, n_meta=n_meta,
+                           return_kv=collect, use_flash=use_flash)
+    entry = {}
+    if collect:
+        out, (entry["k"], entry["v"]) = out
+    x = x + out
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp(p["ffn"], h2, cfg.act), entry, 0.0
+
+
+def layer_decode(cfg, desc, p, x, cache, pos: int):
+    """One attention layer, one new token against its cache (updated in place)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    out, new = attn.gqa_decode(p["attn"], h, cache, pos, window=desc.window,
+                               theta=desc.theta, n_meta=0)
+    x = x + out
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + mlp(p["ffn"], h2, cfg.act), new
+
+
+# ---------------------------------------------------------------------------
+# Stage execution: a loop over the stacked [R, ...] axis
+# ---------------------------------------------------------------------------
+
+def _take(tree, r: int):
+    """Slice ``[r]`` off every leaf of a dict tree (views, no copies)."""
+    return {k: _take(v, r) if isinstance(v, dict) else v[r]
+            for k, v in tree.items()}
+
+
+def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
+                  collect=False, use_flash=False):
+    entries = {f"u{j}": [] for j in range(len(stage.unit))}
+    aux = 0.0
+    for r in range(stage.repeat):
+        for j, desc in enumerate(stage.unit):
+            x, e, a = layer_forward(cfg, desc, _take(sp[f"u{j}"], r), x,
+                                    positions, n_meta, collect=collect,
+                                    use_flash=use_flash)
+            entries[f"u{j}"].append(e)
+            aux = aux + a
+    caches = {u: {k: torch.stack([e[k] for e in es]) for k in es[0]}
+              for u, es in entries.items()}
+    return x, caches, aux
+
+
+def stage_decode(cfg, stage: Stage, sp, x, cache, pos: int):
+    for r in range(stage.repeat):
+        for j, desc in enumerate(stage.unit):
+            x, _ = layer_decode(cfg, desc, _take(sp[f"u{j}"], r), x,
+                                _take(cache[f"u{j}"], r), pos)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_tokens(cfg: ModelConfig, params, tokens):
+    return params["tok_emb"][tokens]
+
+
+def lm_head(cfg: ModelConfig, params, x):
+    return torch.einsum("btd,dv->btv", x, params["head"])
+
+
+# ---------------------------------------------------------------------------
+# Full forward / prefill / decode
+# ---------------------------------------------------------------------------
+
+def model_forward(cfg: ModelConfig, params, tokens, image_embeds=None, *,
+                  collect=False, use_flash=False):
+    """Returns (logits, hidden, caches, aux, n_prefix)."""
+    check_supported(cfg)
+    if image_embeds is not None:
+        raise NotImplementedError(
+            "image inputs are not ported yet (ROADMAP.md, remaining model "
+            "families: frontends)")
+    x = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    caches, aux = [], 0.0
+    for si, st in enumerate(build_stages(cfg)):
+        x, c, a = stage_forward(cfg, st, params["stages"][si], x, positions,
+                                0, collect=collect, use_flash=use_flash)
+        caches.append(c)
+        aux = aux + a
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm_head(cfg, params, x), x, tuple(caches), aux, 0
+
+
+def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
+            use_flash=False):
+    """Full-sequence forward collecting decode caches.
+
+    Returns (last_logits, cache) where cache = {"stages": ..., "pos": T}.
+    """
+    logits, _, caches, _, n_prefix = model_forward(
+        cfg, params, tokens, image_embeds, collect=True, use_flash=use_flash)
+    cache = {"stages": caches, "pos": tokens.shape[-1] + n_prefix}
+    return logits[:, -1:], cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens_new):
+    """One decode step. tokens_new: [B,1].
+
+    The caches in ``cache`` are written in place; the returned cache holds
+    the same tensors with ``pos`` advanced by one.
+    """
+    x = embed_tokens(cfg, params, tokens_new)
+    pos = cache["pos"]
+    for si, st in enumerate(build_stages(cfg)):
+        x, _ = stage_decode(cfg, st, params["stages"][si], x,
+                            cache["stages"][si], pos)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm_head(cfg, params, x), {"stages": cache["stages"], "pos": pos + 1}
+
+
+def grow_cache(cfg: ModelConfig, cache, capacity: int):
+    """Pad the full-attention caches along the sequence axis to ``capacity``.
+
+    Call after :func:`prefill` to make room for decode steps.
+    """
+    new_stages = []
+    for sc in cache["stages"]:
+        grown = {}
+        for u, e in sc.items():
+            grown[u] = {}
+            for name, arr in e.items():                # [R,B,S,KV,dh]
+                if arr.shape[2] >= capacity:
+                    grown[u][name] = arr
+                    continue
+                new = arr.new_zeros(arr.shape[:2] + (capacity,) + arr.shape[3:])
+                new[:, :, :arr.shape[2]] = arr
+                grown[u][name] = new
+        new_stages.append(grown)
+    return {"stages": tuple(new_stages), "pos": cache["pos"]}

@@ -1,0 +1,180 @@
+"""The port's model (forward, prefill, decode) against the JAX package's on
+the same weights: JAX's parameter tree carried across by params_from_jax."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced_config as jreduced_config
+from repro.models import layers as jlayers
+from repro.models import transformer as jtf
+from repro.models.layers import init_param_tree
+from repro_torch.configs import ARCH_IDS, get_config, reduced_config
+from repro_torch.models import layers as tlayers
+from repro_torch.models import transformer as ttf
+from repro_torch.weights import init_params, params_from_jax
+
+TOL = 2e-3
+RUNS = ("yi-6b", "deepseek-7b")
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module", params=RUNS)
+def pair(request):
+    arch = request.param
+    cfg = reduced_config(arch)
+    jparams = init_param_tree(jtf.param_specs(jreduced_config(arch)),
+                              jax.random.PRNGKey(0))
+    return cfg, jparams, params_from_jax(cfg, _np_tree(jparams))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_model_forward_matches_jax(pair, use_flash):
+    cfg, jparams, tparams = pair
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 48))
+    want, *_ = jtf.model_forward(cfg, jparams, jnp.asarray(tokens))
+    got, *_ = ttf.model_forward(cfg, tparams, torch.tensor(tokens),
+                                use_flash=use_flash)
+    _close(got, want)
+
+
+def test_prefill_then_decode_matches_jax(pair):
+    cfg, jparams, tparams = pair
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab, (2, 40))
+    t0 = 37
+    jlast, jcache = jtf.prefill(cfg, jparams, jnp.asarray(tokens[:, :t0]),
+                                use_flash=True)
+    tlast, tcache = ttf.prefill(cfg, tparams, torch.tensor(tokens[:, :t0]),
+                                use_flash=True)
+    _close(tlast, jlast)
+    jcache = jtf.grow_cache(cfg, jcache, 44)
+    tcache = ttf.grow_cache(cfg, tcache, 44)
+    for pos in range(t0, t0 + 3):
+        new = tokens[:, pos:pos + 1]
+        jlog, jcache = jtf.decode_step(cfg, jparams, jcache, jnp.asarray(new))
+        tlog, tcache = ttf.decode_step(cfg, tparams, tcache, torch.tensor(new))
+        _close(tlog, jlog)
+        assert tcache["pos"] == int(jcache["pos"])
+    _close(tcache["stages"][0]["u0"]["k"], jcache["stages"][0]["u0"]["k"])
+
+
+def test_chunked_attention_matches_whole(monkeypatch):
+    """Above the score-size threshold the plain path walks query chunks."""
+    from repro_torch.models import attention as tattn
+    rng = np.random.default_rng(9)
+    q, k, v = (torch.tensor(rng.normal(size=s), dtype=torch.float32)
+               for s in [(2, 40, 4, 16), (2, 40, 2, 16), (2, 40, 2, 16)])
+    pos = torch.arange(40)
+    whole = tattn._attend(q, k, v, pos, 8, 2, 0.25)
+    monkeypatch.setattr(tattn, "_CHUNK_THRESHOLD", 1)
+    monkeypatch.setattr(tattn, "_CHUNK_Q", 16)
+    torch.testing.assert_close(tattn._attend(q, k, v, pos, 8, 2, 0.25), whole)
+
+
+def test_grow_cache_pads_only_seq(pair):
+    cfg, _, tparams = pair
+    _, cache = ttf.prefill(cfg, tparams, torch.arange(16)[None] % cfg.vocab)
+    grown = ttf.grow_cache(cfg, cache, 64)
+    k, orig = grown["stages"][0]["u0"]["k"], cache["stages"][0]["u0"]["k"]
+    assert k.shape[2] == 64
+    assert torch.equal(k[:, :, :orig.shape[2]], orig)
+    assert not k[:, :, orig.shape[2]:].any()
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in RUNS])
+def test_unsupported_arch_raises(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ttf.param_specs(reduced_config(arch))
+
+
+def test_configs_match_jax():
+    from repro.configs import ARCH_IDS as JARCH_IDS
+    from repro.configs import get_config as jget_config
+    from repro.configs import cells as jcells
+    from repro_torch.configs import cells
+    assert ARCH_IDS == JARCH_IDS
+    for skipped in (False, True):
+        assert list(cells(skipped)) == list(jcells(skipped))
+    for arch in ARCH_IDS:
+        assert repr(get_config(arch)) == repr(jget_config(arch))
+        assert repr(reduced_config(arch)) == repr(jreduced_config(arch))
+
+
+def _flat(tree, path=""):
+    """{path: (shape, dtype, init)} over a dict / tuple spec tree of either package."""
+    if isinstance(tree, dict):
+        return {k: v for key in tree for k, v in _flat(tree[key], f"{path}/{key}").items()}
+    if isinstance(tree, tuple):
+        return {k: v for i, x in enumerate(tree) for k, v in _flat(x, f"{path}[{i}]").items()}
+    return {path: (tuple(tree.shape), tree.dtype, tree.init)}
+
+
+def test_stages_and_specs_match_jax():
+    for arch in RUNS:
+        cfg = get_config(arch)
+        assert repr(ttf.build_stages(cfg)) == repr(jtf.build_stages(cfg))
+        assert _flat(ttf.param_specs(cfg)) == _flat(jtf.param_specs(cfg))
+
+
+def test_layers_match_jax():
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, 12, 3, 16))
+    scale = rng.normal(size=(16,)) * 0.1
+    _close(tlayers.rms_norm(torch.tensor(x), torch.tensor(scale), 1e-5),
+           jlayers.rms_norm(jnp.asarray(x, jnp.float32), jnp.asarray(scale, jnp.float32), 1e-5))
+    pos = np.arange(3, 15)
+    _close(tlayers.apply_rope(torch.tensor(x, dtype=torch.float32), torch.tensor(pos), 5e6),
+           jlayers.apply_rope(jnp.asarray(x, jnp.float32), jnp.asarray(pos), 5e6))
+    p = {n: rng.normal(size=s) * 0.1 for n, s in
+         [("wi", (16, 24)), ("wg", (16, 24)), ("wo", (24, 16))]}
+    h = rng.normal(size=(2, 5, 16))
+    for act in ("silu", "gelu"):
+        _close(tlayers.mlp({n: torch.tensor(a, dtype=torch.float32) for n, a in p.items()},
+                           torch.tensor(h, dtype=torch.float32), act),
+               jlayers.mlp({n: jnp.asarray(a, jnp.float32) for n, a in p.items()},
+                           jnp.asarray(h, jnp.float32), act))
+    for win, meta in [(0, 0), (4, 0), (4, 2)]:
+        q, k = np.arange(5, 12), np.arange(12)
+        got = tlayers.causal_window_mask(torch.tensor(q), torch.tensor(k), win, meta)
+        want = jlayers.causal_window_mask(jnp.asarray(q), jnp.asarray(k), win, meta)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_init_params_follows_jax_rule():
+    cfg = reduced_config("yi-6b")
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, gen, "cpu")
+    assert not params["final_norm"].any()
+    wq = params["stages"][0]["u0"]["attn"]["wq"]          # [R, d, h, hd]
+    assert abs(float(wq.std()) - min(0.02, wq.shape[-2] ** -0.5)) < 2e-3
+    wi = params["stages"][0]["u0"]["ffn"]["wi"]            # fan_in d_model
+    assert abs(float(wi.std()) - min(0.02, cfg.d_model ** -0.5)) < 2e-3
+
+
+def test_params_from_jax_checks_structure():
+    cfg = reduced_config("yi-6b")
+    jparams = _np_tree(init_param_tree(jtf.param_specs(jreduced_config("yi-6b")),
+                                       jax.random.PRNGKey(0)))
+    bad = dict(jparams, head=jparams["head"][:, :-1])
+    with pytest.raises(ValueError, match="params/head"):
+        params_from_jax(cfg, bad)
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax(cfg, {k: v for k, v in jparams.items() if k != "head"})
+
+
+def test_params_from_jax_keeps_bfloat16():
+    cfg = reduced_config("yi-6b").replace(param_dtype="bfloat16")
+    jparams = init_param_tree(jtf.param_specs(cfg), jax.random.PRNGKey(0))
+    tparams = params_from_jax(cfg, _np_tree(jparams))
+    assert tparams["head"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(tparams["head"].float().numpy(),
+                                  np.asarray(jparams["head"], np.float32))

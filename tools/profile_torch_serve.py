@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Where the time of the port's serve run goes, on one CUDA card.
+
+    python3 tools/profile_torch_serve.py [--arch yi-6b] [--batch 8]
+        [--prompt-len 512] [--decode-steps 8]
+
+Builds the architecture at full width and depth in bf16 (random weights from
+a seed), warms up once, then traces one prefill and ``--decode-steps`` decode
+steps with ``torch.profiler``.  For each phase it prints the wall time, the
+device time summed over all kernels, the device's idle share (1 - kernel
+time / wall time; one stream, so kernels do not overlap) and the kernels
+that take the most device time.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.weights import init_params  # noqa: E402
+
+
+def _device_us(evt) -> float:
+    # the attribute was renamed from cuda to device in newer torch releases
+    us = getattr(evt, "self_device_time_total", None)
+    return evt.self_cuda_time_total if us is None else us
+
+
+def report(name: str, prof, wall_s: float, top: int = 8) -> None:
+    # device-side events only: an operator's CPU event also carries the
+    # device time of the kernels it launched, which would count them twice
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    wall_ms = wall_s * 1e3
+    print(f"[{name}] wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
+          f"idle_share={1 - busy_ms / wall_ms:.4f}")
+    for e in sorted(events, key=_device_us, reverse=True)[:top]:
+        ms = _device_us(e) / 1e3
+        print(f"[{name}]   {ms:9.3f} ms  {ms / busy_ms:6.1%}  x{e.count:<5d} "
+              f"{e.key[:90]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--decode-steps", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device("cuda")
+    cfg = get_config(args.arch)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = init_params(cfg, gen, device)
+    prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        2, cfg.vocab, (args.batch, args.prompt_len))).to(device)
+    capacity = args.prompt_len + 2 * args.decode_steps + 2
+
+    def prefill():
+        last, cache = tfm.prefill(cfg, params, prompts, use_flash=True)
+        return last, tfm.grow_cache(cfg, cache, capacity)
+
+    def decode(last, cache, steps):
+        tok = last[:, -1].argmax(dim=-1)
+        for _ in range(steps):
+            logits, cache = tfm.decode_step(cfg, params, cache, tok[:, None])
+            tok = logits[:, -1].argmax(dim=-1)
+        return cache
+
+    with torch.inference_mode():
+        last, cache = prefill()                       # warm-up: build, caches
+        decode(last, cache, 2)
+        torch.cuda.synchronize()
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            last, cache = prefill()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report("prefill", prof, wall)
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            decode(last, cache, args.decode_steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report(f"decode x{args.decode_steps}", prof, wall)
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
