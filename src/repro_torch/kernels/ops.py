@@ -7,6 +7,28 @@ no fallback.
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import matmul_blocked as _mm
+
+
+def matmul(a, b, *, block_m: int = 128, block_n: int = 128,
+           block_k: int = 128):
+    """a: [M,K] @ b: [K,N] -> [M,N] in a's dtype, fp32 accumulation.
+
+    The blocks keep the JAX wrapper's contract: each is clamped to
+    ``min(block, dim)``.  The CUDA kernel then runs the smallest compiled
+    tile covering the clamped ``(block_m, block_n)`` with ``block_k`` as its
+    reduction tile, and masks ragged edges itself (no padded copies).  A
+    tile the kernel's feasibility rule refuses raises ``ValueError`` on
+    either device, so a tile that cannot run on the card is never timed or
+    swapped for another.
+    """
+    m, k = a.shape
+    n = b.shape[1]
+    if min(m, k, n) > 0:
+        _mm.plan(m, k, n, block_m=block_m, block_n=block_n, block_k=block_k,
+                 dtype_bytes=a.element_size())
+    run = _mm.matmul_blocked_cuda if a.is_cuda else _mm.matmul_blocked_plain
+    return run(a, b, block_m=block_m, block_n=block_n, block_k=block_k)
 
 
 def flash_attention(q, k, v, *, window: int = 0, n_meta: int = 0,

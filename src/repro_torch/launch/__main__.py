@@ -2,6 +2,8 @@
 
     python -m repro_torch serve --arch yi-6b --preset full   # on the card
     python -m repro_torch serve --preset small --device cpu  # on the CPU
+    python -m repro_torch tune --arch yi-6b                  # tile tuner, on the card
+    python -m repro_torch tune --device cpu --backend sim    # on the CPU
 
 Each subcommand resolves to the matching ``repro_torch.launch.<module>``
 main, which parses ``sys.argv`` as rewritten here.
@@ -15,6 +17,8 @@ import sys
 COMMANDS = {
     "serve": ("repro_torch.launch.serve",
               "batched prefill+decode serving driver"),
+    "tune": ("repro_torch.launch.tune",
+             "measure, fit and evaluate the blocked-matmul tile tuner"),
 }
 
 

@@ -29,8 +29,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120, check=True)
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "repro_torch.launch.serve" in out["imported"]
-    assert "repro_torch.kernels.flash_attention" in out["imported"]
+    for name in ("launch.serve", "launch.tune", "kernels.flash_attention",
+                 "kernels.matmul_blocked", "kernels.timing", "core.kerneltune",
+                 "core.tuner", "core.trees", "core.chained", "core.features",
+                 "core.log", "core.roofline", "data.logstore", "eval.harness",
+                 "configs.workloads", "artifacts"):
+        assert f"repro_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
            or m == "repro" or m.startswith("repro.")]
