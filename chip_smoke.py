@@ -5,8 +5,12 @@
 
 Phases, each of which raises on failure (exit code != 0):
   1. probe     card name, power limit and capability; TF32 off for fp32 checks
-  2. build     nvcc builds both kernels from csrc/, one process per source,
-               and prints each kernel's registers and spills (a spill fails)
+  2. build     nvcc builds both libraries from csrc/, one process per
+               source, and prints the build time and each kernel's registers
+               and spills (a spill, or a setmaxnreg that ptxas ignores,
+               fails); the SASS of every bf16 K1 kernel must hold HGMMA
+               (wgmma) and UTMALDG (TMA load) instructions, and the
+               library's shared memory per launch must be the rule's
   3. kernel    flash attention against its plain torch version on the card
   4. timing    flash kernel, plain version and the SDPA yardstick at the
                serving shape
@@ -14,15 +18,18 @@ Phases, each of which raises on failure (exit code != 0):
   6. serve     Yi-6B at full width and depth, bf16: 8 x 512-token prompts,
                32 generated tokens, through ``repro_torch.launch.serve.main``
   7. k1        blocked matmul against its plain version on the card: every
-               compiled tile at bk 16/64/256, the JAX tests' shapes, a ragged
-               shape and Yi-6B's ffn_up shape
+               compiled tile of both dtypes at bk 16/64/128/256 on the JAX
+               tests' shapes and three ragged ones (bit-identical across the
+               tiles of a dtype; refused tiles raise), then Yi-6B's ffn_up
+               shape
   8. tune      ``python -m repro_torch tune --arch yi-6b --backend wallclock``
                through its ``main``: every candidate tile of Yi-6B's 12 GEMM
                cases timed on the card, the measured tuner fitted, the
                evaluation table written (store in a temporary directory)
   9. k1-timing blocked matmul at (4096, 4096, 11008) bf16 with the default
                tile and the best tile phase 8 measured, beside its plain
-               version, torch.matmul and the bound
+               version, torch.matmul and the bound: TFLOP/s and the share
+               of the bound
 The last three lines are the ``nvidia-smi`` name/power-limit line, the
 kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -130,29 +138,74 @@ def _short_name(mangled):
     return f"{base}<{','.join([dtype] + ints)}>"
 
 
+def _cuobjdump():
+    found = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(found).exists():
+        return found
+    import triton
+    return str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+
+
+def sass_counts(library, opcodes=("HGMMA", "UTMALDG")):
+    """{kernel: {opcode: count}} from ``cuobjdump -sass`` of a built library."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            current = counts.setdefault(found.group(1), dict.fromkeys(opcodes, 0))
+        elif current is not None:
+            for op in opcodes:
+                current[op] += len(re.findall(rf"\b{op}\b", line))
+    return counts
+
+
 def phase_build():
+    libs = [fa.LIBRARY, mm.LIBRARY]
     t0 = time.perf_counter()
-    _build.build_many([fa.SOURCE, mm.SOURCE])
-    print(f"[build] {fa.SOURCE} and {mm.SOURCE} in parallel: "
+    paths = _build.build_many(libs)
+    sources = [src for lib in libs for src in lib.sources]
+    print(f"[build] {len(sources)} sources of {len(libs)} libraries in parallel: "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    spills = []
-    for source in (fa.SOURCE, mm.SOURCE):
-        report = _build.ptxas_report(_build.build_logs.get(source, ""))
+    bad = []
+    for source in sources:
+        log = _build.build_logs.get(source, "")
+        if "setmaxnreg ignored" in log:
+            bad.append(f"{source}: ptxas ignored setmaxnreg")
+        report = _build.ptxas_report(log)
         for name, info in sorted(report.items(), key=lambda kv: _short_name(kv[0])):
             regs = info.get("registers")
             st, ld = info.get("spill_stores", 0), info.get("spill_loads", 0)
             print(f"[build]   {source}: {_short_name(name):<40} "
                   f"registers {regs} spill stores {st} loads {ld}")
             if st or ld:
-                spills.append(_short_name(name))
-    if spills:
-        raise SystemExit(f"[build] register spills in {spills}")
-    tiles = mm.compiled_tiles()
-    if sorted(tiles) != sorted(mm.INSTANTIATED):
-        raise SystemExit(f"[build] compiled tiles {tiles} differ from the rule's "
-                         f"{mm.INSTANTIATED}")
-    print(f"[build] {mm.SOURCE}: {len(tiles)} tiles x 2 dtypes compiled, no spills",
-          flush=True)
+                bad.append(f"spills in {_short_name(name)}")
+    for dtype_bytes, tiles in mm.INSTANTIATED.items():
+        if sorted(mm.compiled_tiles(dtype_bytes)) != sorted(tiles):
+            bad.append(f"compiled tiles {mm.compiled_tiles(dtype_bytes)} differ from "
+                       f"the rule's {tiles}")
+    for bm, bn in mm.INSTANTIATED[2]:
+        for bk in (64, 128, 256, 448, 512):
+            want = int(mm.smem_bytes(bm, bn, bk)) if mm.fits(bm, bn, bk) else -1
+            if mm.launch_smem(bm, bn, bk) != want:
+                bad.append(f"bf16 {(bm, bn, bk)}: the library asks {mm.launch_smem(bm, bn, bk)} "
+                           f"bytes of shared memory, the rule {want}")
+    sass = {name: c for name, c in sass_counts(paths[1]).items()
+            if "matmul_wgmma_kernel" in name}
+    for name, c in sorted(sass.items(), key=lambda kv: _short_name(kv[0])):
+        print(f"[build]   sass {_short_name(name):<40} HGMMA {c['HGMMA']} "
+              f"UTMALDG {c['UTMALDG']}")
+        if not (c["HGMMA"] and c["UTMALDG"]):
+            bad.append(f"{_short_name(name)} lacks HGMMA or UTMALDG")
+    if len(sass) != len(mm.INSTANTIATED[2]):
+        bad.append(f"{len(sass)} wgmma kernels in the SASS, "
+                   f"{len(mm.INSTANTIATED[2])} compiled tiles")
+    if bad:
+        raise SystemExit(f"[build] {bad}")
+    print(f"[build] matmul_blocked: {len(mm.INSTANTIATED[4])} fp32 tiles on CUDA cores, "
+          f"{len(mm.INSTANTIATED[2])} bf16 tiles on wgmma + TMA (HGMMA, UTMALDG in "
+          "each); no spills; shared memory as the rule says", flush=True)
 
 
 def phase_kernel(device):
@@ -260,14 +313,20 @@ def phase_serve():
     return launches
 
 
-# K1 checks: the JAX package's kernel-test shapes (m, k, n), a ragged one,
-# fp32 at its 1e-4 rtol / 1e-3 atol and bf16 at 5e-2
+# K1 checks: the JAX package's kernel-test shapes (m, k, n) and three ragged
+# ones ((100, 60, 36) also misaligns K and N for TMA; at 1200 rows the bf16
+# block order ends in a partial group of M tiles), fp32 at its 1e-4 rtol /
+# 1e-3 atol and bf16 at 5e-2
 K1_SHAPES = [(128, 128, 128), (256, 128, 64), (100, 60, 36), (32, 512, 96),
-             (1000, 300, 777)]
+             (1000, 300, 777), (1200, 72, 136)]
 K1_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (5e-2, 5e-2)}
-K1_BKS = (16, 64, 256)
+K1_BKS = (16, 64, 128, 256)
 K1_SLICE = (4096, 4096, 11008)         # Yi-6B ffn_up at train_4k, bf16
 DEFAULT_TILE = (128, 128, 128)
+# bk 64 is outside the tuner's sweep (128, 256, 512); at 64 the bf16 ring of
+# (128, 256) holds 4 stages, at 128 only 2.  Phase 9 times it beside the
+# tuned tile, to show what the kernel does with a deeper ring.
+SHALLOW_TILE = (128, 256, 64)
 
 
 def check_close_k1(name, got, want, rtol, atol):
@@ -281,45 +340,41 @@ def check_close_k1(name, got, want, rtol, atol):
 
 
 def phase_k1(device):
+    """Every compiled tile of both dtypes at every bk on every shape: within
+    tolerance of plain, and, since every tile sums each output in the same
+    k order, bit-identical to the other tiles of its dtype."""
     gen = torch.Generator(device=device).manual_seed(2)
     worst = 0.0
     for dtype, (rtol, atol) in K1_TOL.items():
+        size = torch.tensor([], dtype=dtype).element_size()
         for m, k, n in K1_SHAPES:
             a, b = rand(gen, (m, k), dtype, device), rand(gen, (k, n), dtype, device)
             want = mm.matmul_blocked_plain(a, b)
-            got = ops.matmul(a, b, block_m=64, block_n=64, block_k=64)
-            err = check_close_k1(f"({m},{k},{n}) {dtype}", got, want, rtol, atol)
-            worst = max(worst, err)
-            print(f"[k1] ({m},{k},{n}) {str(dtype):<15} blocks 64 max abs err "
-                  f"{err:.3e} (rtol {rtol} atol {atol})")
-        # every compiled tile at every bk on the ragged shape; the fp32 sums
-        # run in the same k order in every tile, so the results agree exactly
-        m, k, n = K1_SHAPES[-1]
-        a, b = rand(gen, (m, k), dtype, device), rand(gen, (k, n), dtype, device)
-        want = mm.matmul_blocked_plain(a, b)
-        first, ran, refused, sweep = None, 0, 0, 0.0
-        for bm, bn in mm.INSTANTIATED:
-            for bk in K1_BKS:
-                if not mm.fits(bm, bn, bk, a.element_size()):
-                    try:
-                        ops.matmul(a, b, block_m=bm, block_n=bn, block_k=bk)
-                    except ValueError:
-                        refused += 1
-                        continue
-                    raise SystemExit(f"[k1] infeasible tile {(bm, bn, bk)} did not raise")
-                got = ops.matmul(a, b, block_m=bm, block_n=bn, block_k=bk)
-                sweep = max(sweep, check_close_k1(f"tile {(bm, bn, bk)} {dtype}",
-                                                  got, want, rtol, atol))
-                if first is None:
-                    first = got
-                elif not torch.equal(got, first):
-                    raise SystemExit(f"[k1] tile {(bm, bn, bk)} {dtype} differs from "
-                                     "the first tile's result")
-                ran += 1
-        print(f"[k1] ({m},{k},{n}) {str(dtype):<15} {ran} (tile, bk) launches "
-              f"agree with plain and bit for bit with each other; {refused} "
-              f"infeasible ones raised ValueError; max abs err {sweep:.3e}", flush=True)
-        worst = max(worst, sweep)
+            first, ran, refused, sweep = None, 0, 0, 0.0
+            for bm, bn in mm.INSTANTIATED[size]:
+                for bk in K1_BKS:
+                    # the wrapper clamps each block to its dimension first
+                    if not mm.fits(min(bm, m), min(bn, n), min(bk, k), size):
+                        try:
+                            ops.matmul(a, b, block_m=bm, block_n=bn, block_k=bk)
+                        except ValueError:
+                            refused += 1
+                            continue
+                        raise SystemExit(f"[k1] infeasible tile {(bm, bn, bk)} did not raise")
+                    got = ops.matmul(a, b, block_m=bm, block_n=bn, block_k=bk)
+                    sweep = max(sweep, check_close_k1(f"({m},{k},{n}) tile {(bm, bn, bk)} "
+                                                      f"{dtype}", got, want, rtol, atol))
+                    if first is None:
+                        first = got
+                    elif not torch.equal(got, first):
+                        raise SystemExit(f"[k1] ({m},{k},{n}) tile {(bm, bn, bk)} {dtype} "
+                                         "differs from the first tile's result")
+                    ran += 1
+            print(f"[k1] ({m},{k},{n}) {str(dtype):<15} {ran} (tile, bk) launches agree "
+                  f"with plain and bit for bit with each other; {refused} infeasible "
+                  f"ones raised ValueError; max abs err {sweep:.3e} "
+                  f"(rtol {rtol} atol {atol})", flush=True)
+            worst = max(worst, sweep)
     m, k, n = K1_SLICE
     dt = torch.bfloat16
     a, b = rand(gen, (m, k), dt, device), rand(gen, (k, n), dt, device)
@@ -329,7 +384,8 @@ def phase_k1(device):
                          *K1_TOL[dt])
     print(f"[k1] yi-6b ffn_up (m,k,n)={K1_SLICE} bf16 tile {DEFAULT_TILE} max abs err "
           f"{err:.3e} (rtol/atol 5e-2)", flush=True)
-    print("[k1] kernels checked against their plain versions: matmul_blocked")
+    print("[k1] kernels checked against their plain versions: matmul_blocked "
+          "(fp32 CUDA cores, bf16 wgmma)")
     return max(worst, err)
 
 
@@ -375,11 +431,11 @@ def phase_k1_timing(device, best_tile):
     gen = torch.Generator(device=device).manual_seed(3)
     a = rand(gen, (m, k), torch.bfloat16, device)
     b = rand(gen, (k, n), torch.bfloat16, device)
-    tiles = {"default": DEFAULT_TILE, "best": tuple(best_tile)}
+    tiles = {"default": DEFAULT_TILE, "best": tuple(best_tile), "shallow": SHALLOW_TILE}
     ms = {}
     for key, (bm, bn, bk) in tiles.items():
         ms[key] = time_ms(lambda: ops.matmul(a, b, block_m=bm, block_n=bn,
-                                             block_k=bk), iters=5, warmup=1)
+                                             block_k=bk), iters=20, warmup=3)
     plain_ms = time_ms(lambda: mm.matmul_blocked_plain(a, b), iters=5, warmup=1)
     library_ms = time_ms(lambda: torch.matmul(a, b), iters=20, warmup=3)
     flops = 2 * m * n * k
@@ -387,15 +443,22 @@ def phase_k1_timing(device, best_tile):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    tflops = flops / ms["best"] / 1e9
+    share = bound_ms / ms["best"]
     print(f"[k1-timing] (m,k,n)={K1_SLICE} bf16: kernel_ms={ms['best']:.4f} at best "
-          f"tile {tiles['best']}, {ms['default']:.4f} at default tile {DEFAULT_TILE}; "
-          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (torch.matmul) "
-          f"bound_ms={bound_ms:.5f} by {bound_by} ({nbytes / 1e6:.1f} MB -> "
-          f"{t_bytes:.5f} ms, {flops / 1e9:.1f} GFLOP -> {t_ops:.5f} ms); "
-          f"{flops / ms['best'] / 1e9:.2f} TFLOP/s", flush=True)
+          f"tile {tiles['best']} ({tflops:.2f} TFLOP/s, {share:.4f} of the bound), "
+          f"{ms['default']:.4f} at default tile {DEFAULT_TILE} "
+          f"({flops / ms['default'] / 1e9:.2f} TFLOP/s), {ms['shallow']:.4f} at "
+          f"{SHALLOW_TILE} ({flops / ms['shallow'] / 1e9:.2f} TFLOP/s, "
+          f"{bound_ms / ms['shallow']:.4f} of the bound); plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (torch.matmul, {flops / library_ms / 1e9:.2f} "
+          f"TFLOP/s, {bound_ms / library_ms:.4f} of the bound) bound_ms={bound_ms:.5f} "
+          f"by {bound_by} ({nbytes / 1e6:.1f} MB -> {t_bytes:.5f} ms, "
+          f"{flops / 1e9:.1f} GFLOP -> {t_ops:.5f} ms)", flush=True)
     return dict(ms=ms["best"], plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, tile=list(tiles["best"]),
-                default_tile_ms=ms["default"])
+                default_tile_ms=ms["default"], shallow_tile_ms=ms["shallow"],
+                tflops=tflops, share_of_bound=share)
 
 
 def main() -> int:
@@ -417,8 +480,11 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:32",
              launches=launches, max_abs_err=err, **times),
+        # the times are the bf16 kernel's; the fp32 kernel and the C entry
+        # point that picks between them are in matmul_blocked.cu (phase 7)
         dict(name="matmul_blocked", route="cuda",
-             source="src/repro_torch/kernels/csrc/matmul_blocked.cu",
+             source="src/repro_torch/kernels/csrc/matmul_wgmma.cuh",
+             fp32_source="src/repro_torch/kernels/csrc/matmul_blocked.cu",
              replaces="src/repro/kernels/matmul_blocked.py:20",
              launches=k1_launches, max_abs_err=k1_err, **k1_times)]}
     print(smi)

@@ -1,15 +1,18 @@
 """Build and load the hand-written CUDA kernels.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` into a shared library
-with a plain C interface and loaded with ``ctypes``.  The library lands in
-``build/repro_torch/`` at the repository root, named by the hash of its
-source, so an edited source is rebuilt at its first use and an unchanged
-one is loaded as built.  ``build_many`` starts one ``nvcc`` per source at
-once, so the build takes as long as the slowest source.
+A ``Library`` is a shared library with a plain C interface, loaded with
+``ctypes``, built from one or more sources under ``csrc/``: ``nvcc``
+compiles each source to an object, and the objects are linked into
+``build/repro_torch/<name>-<hash>.so`` at the repository root.  The hash
+covers the library's sources, every header beside them and the flags, so
+an edited source is rebuilt at its first use and an unchanged library is
+loaded as built.  ``build_many`` starts one ``nvcc`` per source of every
+library at once, so the build takes about as long as the slowest source.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import re
@@ -20,9 +23,17 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[str, ctypes.CDLL] = {}     # source name -> loaded library
+
+@dataclasses.dataclass(frozen=True)
+class Library:
+    """A shared library built from ``sources``, names under ``csrc``."""
+    name: str
+    sources: tuple[str, ...]
+
+
+_loaded: dict[Library, ctypes.CDLL] = {}     # library -> loaded library
 build_logs: dict[str, str] = {}     # source name -> nvcc's report (registers, spills)
 
 
@@ -38,50 +49,62 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+def library_path(lib: Library) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(p.name for p in CSRC.iterdir() if p.suffix in (".h", ".cuh"))
+    for name in (*lib.sources, *headers):
+        digest.update(name.encode() + b"\0" + (CSRC / name).read_bytes())
+    return BUILD_DIR / f"{lib.name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_many(sources) -> list[Path]:
-    """Compile every ``csrc/<source>`` that has no library of the same hash,
-    one ``nvcc`` process per source, all running at once."""
-    started = []
-    for source in sources:
-        out = library_path(source)
+def build_many(libs) -> list[Path]:
+    """Build every library that has no ``.so`` of the same hash: one
+    ``nvcc -c`` per source, all running at once, then one link each."""
+    pending, started = [], []
+    for lib in libs:
+        out = library_path(lib)
         if out.exists():
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.PIPE, text=True)
-        started.append((source, out, tmp, cmd, proc))
+        objdir = out.with_suffix(f".{os.getpid()}.obj")
+        objdir.mkdir(parents=True, exist_ok=True)
+        objs = []
+        for source in lib.sources:
+            obj = objdir / f"{Path(source).stem}.o"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / source)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            started.append((source, cmd, proc))
+            objs.append(obj)
+        pending.append((out, objdir, objs))
     failed = []
-    for source, out, tmp, cmd, proc in started:
+    for source, cmd, proc in started:
         _, err = proc.communicate()
         if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
             failed.append(f"nvcc failed on {source} (exit {proc.returncode}):\n"
                           f"{' '.join(cmd)}\n{err}")
-            continue
-        build_logs[source] = err
-        os.replace(tmp, out)             # atomic: a reader never sees half a file
+        else:
+            build_logs[source] = err
+    for out, objdir, objs in pending:
+        if not failed:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed.append(f"linking {out.name} failed:\n{' '.join(cmd)}\n"
+                              f"{proc.stderr}")
+            else:
+                os.replace(tmp, out)     # atomic: a reader never sees half a file
+        shutil.rmtree(objdir, ignore_errors=True)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return [library_path(s) for s in sources]
+    return [library_path(lib) for lib in libs]
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless a library of the same hash exists."""
-    return build_many([source])[0]
-
-
-def load(source: str) -> ctypes.CDLL:
-    """Build (if needed) and load the library for ``csrc/<source>``, once per process."""
-    if source not in _loaded:
-        _loaded[source] = ctypes.CDLL(str(build(source)))
-    return _loaded[source]
+def load(lib: Library) -> ctypes.CDLL:
+    """Build (if needed) and load ``lib``, once per process."""
+    if lib not in _loaded:
+        _loaded[lib] = ctypes.CDLL(str(build_many([lib])[0]))
+    return _loaded[lib]
 
 
 _ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?(\w+)'?")

@@ -1,42 +1,39 @@
-// Blocked matrix product for Hopper (sm_90a), CUDA C++ on CUDA cores.
+// Blocked matrix product for Hopper (sm_90a): the C entry point of K1, and
+// its fp32 path on CUDA cores.
 //
 // Replaces src/repro/kernels/matmul_blocked.py::_kernel (launched by
 // matmul_blocked), the Pallas TPU kernel.  Same function: C[M,N] = A[M,K] B[K,N]
 // with the products summed in an fp32 accumulator and the result cast to A's
-// dtype once, after the last K step.  fp32 and bf16 inputs.
+// dtype once, after the last K step.  The entry point dispatches by dtype:
+// bf16 runs the tensor-core kernel of matmul_wgmma.cuh (wgmma fed by a
+// TMA / mbarrier ring); fp32 runs the CUDA-core kernel below, because the
+// reference computes fp32 products exactly and TF32 on the tensor cores
+// would miss the fp32 tolerance.  Neither is a fallback for the other.
 //
 // The tile is the quantity the kernel tuner (core/kerneltune.py) chooses, so
-// it changes the launch: the kernel is a template over the output tile
+// it changes the launch.  fp32: the kernel is a template over the output tile
 // (BM, BN), and the reduction tile bk is a run-time argument that sizes the
 // dynamic shared memory holding one A tile (BM x bk) and one B tile
 // (bk x BN).  Every power of two 16..512 for BM and BN is instantiated where
 // BM * BN <= 32768 (the register rule in matmul_blocked.py); the wrapper
 // picks the smallest instantiation that covers the requested block.
 //
-// Design: one block of 256 threads per (BM x BN) output tile.  The TPU grid's
-// sequential K axis becomes a loop inside the block.  Threads form a 16 x 16
-// grid; thread (ty, tx) owns rows ty + 16 i (i < BM/16) and columns
+// fp32 design: one block of 256 threads per (BM x BN) output tile.  The TPU
+// grid's sequential K axis becomes a loop inside the block.  Threads form a
+// 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i (i < BM/16) and columns
 // tx + 16 j (j < BN/16) of the tile, so its BM*BN/256 fp32 accumulators live
-// in registers.  A and B tiles are staged in shared memory in their own
-// dtype, row-major, with ragged M, N and K edges filled with zeros here (no
-// padded copies).  Each thread sums its outputs over k in order 0..K-1 with
-// fmaf, so every tile gives bit-identical results.  The fp32 path is IEEE
-// fp32 throughout (no TF32).  __launch_bounds__(256, 1) lets nvcc give a
-// thread up to 255 registers: without the 1, two fp32 tiles ((16, 512) and
-// (256, 64)) spilled at 64 and 128 registers.
-//
-// Bound: at the Yi-6B ffn_up shape (M 4096, K 4096, N 11008, bf16) the
-// function moves 214 MB (0.064 ms at 3.35 TB/s) and does 369.4 GFLOP
-// (0.373 ms at 989 TFLOP/s bf16 on the tensor cores), so operations bound
-// it.  This first version runs its products as fp32 FMAs on CUDA cores,
-// whose 67 TFLOP/s data-sheet peak alone puts a floor of 5.5 ms under that
-// work; its times are in PERF.md (chip_smoke.py).  mma.sync / wgmma on bf16
-// tiles, TMA loads and a pipelined K loop are the later steps toward the
-// bound.
+// in registers.  A and B tiles are staged in shared memory row-major, with
+// ragged M, N and K edges filled with zeros here (no padded copies).  Each
+// thread sums its outputs over k in order 0..K-1 with fmaf, so every tile
+// gives bit-identical results, in IEEE fp32 throughout (no TF32).
+// __launch_bounds__(256, 1) lets nvcc give a thread up to 255 registers:
+// without the 1, two tiles ((16, 512) and (256, 64)) spilled at 64 and 128
+// registers.  Bound: fp32 FMAs on CUDA cores, 67 TFLOP/s on the data sheet.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "matmul_wgmma.h"
 
 namespace {
 
@@ -45,33 +42,23 @@ constexpr int TG = 16;             // threads along each side of the 16 x 16 gri
 constexpr int SMEM_DEFAULT = 48 * 1024;
 
 struct Params {
-  const void* a;
-  const void* b;
-  void* c;
+  const float* a;
+  const float* b;
+  float* c;
   int M, N, K, bk;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.0f);
-}
-
-template <typename T, int BM, int BN>
+template <int BM, int BN>
 __global__ void __launch_bounds__(NT, 1) matmul_blocked_kernel(Params p) {
   constexpr int TM = BM / TG;      // rows per thread
   constexpr int TN = BN / TG;      // columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* As = reinterpret_cast<T*>(smem_raw);          // [BM][bk]
-  T* Bs = As + BM * p.bk;                          // [bk][BN]
+  float* As = reinterpret_cast<float*>(smem_raw);  // [BM][bk]
+  float* Bs = As + BM * p.bk;                      // [bk][BN]
 
-  const T* A = static_cast<const T*>(p.a);
-  const T* B = static_cast<const T*>(p.b);
-  T* C = static_cast<T*>(p.c);
+  const float* A = p.a;
+  const float* B = p.b;
+  float* C = p.c;
   const int tid = threadIdx.x;
   const int tx = tid % TG, ty = tid / TG;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
@@ -92,7 +79,7 @@ __global__ void __launch_bounds__(NT, 1) matmul_blocked_kernel(Params p) {
     int r = tid / bk, c = tid % bk;
     for (int e = tid; e < BM * bk; e += NT) {
       const int gm = m0 + r, gk = k0 + c;
-      As[e] = (gm < p.M && gk < p.K) ? A[(int64_t)gm * p.K + gk] : zero<T>();
+      As[e] = (gm < p.M && gk < p.K) ? A[(int64_t)gm * p.K + gk] : 0.0f;
       r += a_dr;
       c += a_dc;
       if (c >= bk) { c -= bk; ++r; }
@@ -101,7 +88,7 @@ __global__ void __launch_bounds__(NT, 1) matmul_blocked_kernel(Params p) {
     for (int e = tid; e < bk * BN; e += NT) {
       const int rr = e / BN, cc = e % BN;
       const int gk = k0 + rr, gn = n0 + cc;
-      Bs[e] = (gk < p.K && gn < p.N) ? B[(int64_t)gk * p.N + gn] : zero<T>();
+      Bs[e] = (gk < p.K && gn < p.N) ? B[(int64_t)gk * p.N + gn] : 0.0f;
     }
     __syncthreads();
 
@@ -110,9 +97,9 @@ __global__ void __launch_bounds__(NT, 1) matmul_blocked_kernel(Params p) {
     for (int kk = 0; kk < kend; ++kk) {
       float av[TM], bv[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = to_f(As[(ty + TG * i) * bk + kk]);
+      for (int i = 0; i < TM; ++i) av[i] = As[(ty + TG * i) * bk + kk];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = to_f(Bs[kk * BN + tx + TG * j]);
+      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk * BN + tx + TG * j];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -128,15 +115,15 @@ __global__ void __launch_bounds__(NT, 1) matmul_blocked_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + TG * j;
-      if (gn < p.N) store(&C[(int64_t)gm * p.N + gn], acc[i][j]);
+      if (gn < p.N) C[(int64_t)gm * p.N + gn] = acc[i][j];
     }
   }
 }
 
-template <typename T, int BM, int BN>
+template <int BM, int BN>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = (size_t)(BM + BN) * p.bk * sizeof(T);
-  auto kernel = matmul_blocked_kernel<T, BM, BN>;
+  const size_t smem = (size_t)(BM + BN) * p.bk * sizeof(float);
+  auto kernel = matmul_blocked_kernel<BM, BN>;
   if (smem > SMEM_DEFAULT) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -156,21 +143,72 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   X(256, 16) X(256, 32) X(256, 64) X(256, 128)                               \
   X(512, 16) X(512, 32) X(512, 64)
 
-template <typename T>
-cudaError_t dispatch(int bm, int bn, const Params& p, cudaStream_t stream) {
+cudaError_t dispatch_fp32(int bm, int bn, const Params& p, cudaStream_t stream) {
 #define MM_CASE(BM_, BN_) \
-  if (bm == BM_ && bn == BN_) return launch<T, BM_, BN_>(p, stream);
+  if (bm == BM_ && bn == BN_) return launch<BM_, BN_>(p, stream);
   MM_TILES(MM_CASE)
 #undef MM_CASE
   return cudaErrorInvalidValue;
 }
 
+cudaError_t dispatch_bf16(int bm, int bn, const k1::WgmmaArgs& p, cudaStream_t stream) {
+#define MM_CASE(BM_, BN_) \
+  if (bm == BM_ && bn == BN_) return k1::launch_wgmma<BM_, BN_>(p, stream);
+  K1_WGMMA_TILES(MM_CASE)
+#undef MM_CASE
+  return cudaErrorInvalidValue;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
 }  // namespace
+
+namespace k1 {
+
+cudaError_t encode_tensor_map(CUtensorMap* map, const void* base, uint64_t inner,
+                              uint64_t outer, uint32_t box_inner, uint32_t box_outer) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {inner * 2};          // bytes between rows
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+                        dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace k1
 
 extern "C" {
 
-// number of instantiated (BM, BN) tiles; fills out[2 i], out[2 i + 1]
-int matmul_blocked_tiles(int* out, int cap) {
+// the compiled (BM, BN) tiles of a dtype (0 fp32, 1 bf16); fills out[2 i],
+// out[2 i + 1] up to cap tiles and returns their number
+int matmul_blocked_tiles(int dtype, int* out, int cap) {
   int n = 0;
 #define MM_LIST(BM_, BN_)          \
   if (n < cap) {                   \
@@ -178,21 +216,42 @@ int matmul_blocked_tiles(int* out, int cap) {
     out[2 * n + 1] = BN_;          \
   }                                \
   ++n;
-  MM_TILES(MM_LIST)
+  if (dtype == 0) { MM_TILES(MM_LIST) }
+  if (dtype == 1) { K1_WGMMA_TILES(MM_LIST) }
 #undef MM_LIST
   return n;
 }
 
-// dtype: 0 fp32, 1 bf16.  a [M,K], b [K,N], c [M,N], all contiguous row-major.
-// Returns a cudaError_t code (0 on success); an uninstantiated (bm, bn) gives
+// the dynamic shared memory a launch of (bm, bn, bk) requests, or -1 where
+// it cannot launch (bf16: fewer than two stages fit, or bk not a multiple of 64)
+int matmul_blocked_smem(int dtype, int bm, int bn, int bk) {
+  if (dtype == 0) return (bm + bn) * bk * (int)sizeof(float);
+  if (bk < k1::kBoxK || bk % k1::kBoxK) return -1;
+  const int stages = k1::ring_stages(bm, bn, bk);
+  return stages < 2 ? -1 : k1::ring_bytes(bm, bn, bk, stages);
+}
+
+const char* matmul_blocked_error(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// dtype: 0 fp32, 1 bf16.  a [M,K], b [K,ldb], c [M,N], all contiguous
+// row-major; ldb == N for fp32, ldb >= N and ldb, K multiples of 8 for bf16.
+// Returns a cudaError_t code (0 on success); an uncompiled (bm, bn) gives
 // cudaErrorInvalidValue.
-int matmul_blocked(int dtype, int bm, int bn, int bk, const void* a,
-                   const void* b, void* c, int M, int N, int K, void* stream) {
-  if (bk < 1 || M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  Params p{a, b, c, M, N, K, bk};
+int matmul_blocked(int dtype, int bm, int bn, int bk, const void* a, const void* b,
+                   void* c, int M, int N, int K, int ldb, void* stream) {
+  if (bk < 1 || M < 1 || N < 1 || K < 1 || ldb < N) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch<float>(bm, bn, p, s);
-  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(bm, bn, p, s);
+  if (dtype == 0) {
+    if (ldb != N) return (int)cudaErrorInvalidValue;
+    Params p{static_cast<const float*>(a), static_cast<const float*>(b),
+             static_cast<float*>(c), M, N, K, bk};
+    return (int)dispatch_fp32(bm, bn, p, s);
+  }
+  if (dtype == 1) {
+    if (K % 8 || ldb % 8) return (int)cudaErrorInvalidValue;
+    k1::WgmmaArgs p{a, b, c, M, N, K, ldb, bk};
+    return (int)dispatch_bf16(bm, bn, p, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_ref
 
-SOURCE = "flash_attention.cu"
+LIBRARY = _build.Library("flash_attention", ("flash_attention.cu",))
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -28,7 +28,7 @@ launches = 0
 
 
 def _kernel():
-    lib = _build.load(SOURCE)
+    lib = _build.load(LIBRARY)
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p

@@ -16,11 +16,12 @@ def matmul(a, b, *, block_m: int = 128, block_n: int = 128,
 
     The blocks keep the JAX wrapper's contract: each is clamped to
     ``min(block, dim)``.  The CUDA kernel then runs the smallest compiled
-    tile covering the clamped ``(block_m, block_n)`` with ``block_k`` as its
-    reduction tile, and masks ragged edges itself (no padded copies).  A
-    tile the kernel's feasibility rule refuses raises ``ValueError`` on
-    either device, so a tile that cannot run on the card is never timed or
-    swapped for another.
+    tile of the dtype covering the clamped ``(block_m, block_n)``, with
+    ``block_k`` as its reduction tile, and masks ragged edges itself; only a
+    bf16 K or N that is not a multiple of 8 is zero-padded (TMA's stride
+    rule).  A tile the kernel's feasibility rule refuses raises
+    ``ValueError`` on either device, so a tile that cannot run on the card
+    is never timed or swapped for another.
     """
     m, k = a.shape
     n = b.shape[1]

@@ -6,7 +6,8 @@ interface, two implementations:
 
 * :class:`WallClockBackend` — times the hand-written blocked-matmul kernel
   (``kernels/csrc/matmul_blocked.cu``) through ``kernels/ops.matmul`` with
-  CUDA events: warmup, then the median of ``reps`` back-to-back calls, after
+  CUDA events: warmup, then the median of ``reps`` back-to-back calls
+  queued behind a spin kernel (so they time the card, not the host), after
   checking each tile's result against the plain oracle, so a mis-tiled
   kernel can never report a fast-but-wrong time (a failed check scores
   ``inf``).  On a CPU device it times the plain version, for tests.
@@ -22,11 +23,14 @@ A :class:`TileRule` says which tiles a kernel can run: the working set a
 tile needs against a budget, plus any other limit (K1's register rule).
 ``VMEM_RULE`` is the reference's TPU rule (the Pallas kernels'
 ``vmem_bytes`` against 16 MiB of VMEM); ``SMEM_RULE`` is the H100's
-(``matmul_blocked.fits``: shared memory against 227 KB and the register
-rule).  ``SMEM_RULE`` has no flash rule yet: the flash kernel's tile is
-fixed at compile time (ROADMAP: "K2 tile as a launch parameter"), so flash
-cases raise under it.  The rule also names the ``<e>`` slot of the records
-it governs.
+(``matmul_blocked.fits``: K1's compiled tiles, its register rule and its
+shared memory against 227 KB, by dtype).  ``SMEM_RULE`` has no flash rule
+yet: the flash kernel's tile is fixed at compile time (ROADMAP: "K2 tile
+as a launch parameter"), so flash cases raise under it.  The rule also
+names the ``<e>`` slot of the records it governs; ``SMEM_RULE``'s carries
+``"k1": "wgmma-tma"``, the design of K1 whose timings it keys (bf16 on the
+tensor cores through a TMA ring), so records timed on an earlier K1 never
+share a ``LogStore`` group with it.
 
 Backend names carry the hardware (``sim:v5e``, ``sim:h100``,
 ``wallclock:cuda``), so records of the TPU model and of the card never
@@ -147,8 +151,9 @@ class TileRule:
 
 
 def _smem_matmul(bm, bn, bk, dtype_bytes=2):
-    return _mm.smem_bytes(_mm.launch_tile(bm), _mm.launch_tile(bn), bk,
-                          dtype_bytes)
+    return _mm.smem_bytes(_mm.launch_tile(bm, dtype_bytes),
+                          _mm.launch_tile(bn, dtype_bytes),
+                          _mm.launch_depth(bk, dtype_bytes), dtype_bytes)
 
 
 # the reference's rule: ~16 MiB usable VMEM per v5e core
@@ -156,8 +161,9 @@ VMEM_RULE = TileRule("vmem", 16 * 2**20, {"vmem_mb": 16},
                      _vmem_matmul, _vmem_flash)
 # the H100's: 227 KB of shared memory per block (opt-in), and K1's
 # compiled tiles and register rule
-SMEM_RULE = TileRule("smem", _mm.SMEM_LIMIT_BYTES, {"smem_kb": 227},
-                     _smem_matmul, matmul_limit=_mm.fits)
+SMEM_RULE = TileRule("smem", _mm.SMEM_LIMIT_BYTES,
+                     {"smem_kb": 227, "k1": "wgmma-tma"}, _smem_matmul,
+                     matmul_limit=_mm.fits)
 
 
 def _noise(seed: int, case_key: tuple, tile: tuple, amp: float) -> float:
@@ -178,7 +184,10 @@ class SimulatorBackend:
     the rule's budget (no room to double-buffer), applies an efficiency
     droop on tiles past 256x256, charges a per-step launch overhead, and
     perturbs every reading by a seeded +/-``noise_amp``.  Identical seeds
-    give identical times.  None of its seconds is a measurement."""
+    give identical times.  None of its seconds is a measurement.  Under
+    ``SMEM_RULE`` it does not model K1's bf16 ring: the ring fills the
+    shared memory with stages, so the half-budget test calls most bf16
+    tiles serial, where the kernel overlaps every one it runs."""
 
     deterministic = True
 
@@ -266,7 +275,8 @@ class WallClockBackend:
     """Times the blocked-matmul kernel on ``device``: each tile's result is
     first checked against the plain oracle (a mismatch scores ``inf`` and
     counts in ``verify_failures``), then ``warmup`` untimed calls, then the
-    median of ``reps`` back-to-back calls, each between two CUDA events.  A
+    median of ``reps`` back-to-back calls, each between two CUDA events and
+    all queued before the card reaches them (see ``_seconds``).  A
     launch error raises; it is never scored.  On ``device="cpu"`` the
     wrapper takes the plain version and the host clock times it (for
     tests).
@@ -278,6 +288,7 @@ class WallClockBackend:
     deterministic = False
     hw = H100
     rule = SMEM_RULE
+    QUEUE_CYCLES = 2_000_000      # the first spin: ~1 ms at the H100's clock
 
     def __init__(self, *, device="cuda", reps: int = 3, warmup: int = 1,
                  verify: bool = True, atol: float = 2e-2, seed: int = 0):
@@ -307,17 +318,31 @@ class WallClockBackend:
 
     def _seconds(self, arrays, tile) -> list[float]:
         """``reps`` readings of one tile.  On the card the calls go back to
-        back with an event after each, so each reading spans one kernel; the
-        caller's unsynchronized warmup calls keep the card busy while they
-        are queued, so the wrapper's host work is not counted."""
+        back with an event after each, so each reading spans one kernel.
+        They are queued behind a spin kernel, so the card reaches them only
+        once all are queued and the wrapper's host work is not counted (a
+        small tile's launch takes longer on the host than on the card).  If
+        the spin ended before the host had queued them, the readings are
+        taken again behind a spin four times as long."""
         if self.device.type == "cuda":
-            events = [torch.cuda.Event(enable_timing=True)
-                      for _ in range(self.reps + 1)]
-            events[0].record()
-            for end in events[1:]:
-                self._call(arrays, tile)
-                end.record()
-            events[-1].synchronize()
+            cycles = self.QUEUE_CYCLES
+            while True:
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(self.reps + 1)]
+                torch.cuda._sleep(cycles)
+                events[0].record()
+                for end in events[1:]:
+                    self._call(arrays, tile)
+                    end.record()
+                queued_ahead = not events[0].query()
+                events[-1].synchronize()
+                if queued_ahead:
+                    break
+                if cycles >= self.QUEUE_CYCLES << 8:
+                    raise RuntimeError(
+                        f"the host could not queue {self.reps} launches of "
+                        f"{tuple(tile)} within {cycles} cycles of the card")
+                cycles *= 4
             return [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])]
         times = []
         for _ in range(self.reps):

@@ -253,8 +253,10 @@ def test_h100_defaults_seed_only_tiles_the_kernel_runs():
         tiles = tkt.seed_tiles(bcase)
         assert tiles
         for bm, bn, bk in tiles:
-            mm.plan(bcase.m, bcase.k, bcase.n, block_m=bm, block_n=bn,
-                    block_k=bk, dtype_bytes=bcase.dtype_bytes)      # no raise
+            sm, sn, depth = mm.plan(bcase.m, bcase.k, bcase.n, block_m=bm, block_n=bn,
+                                    block_k=bk, dtype_bytes=bcase.dtype_bytes)
+            # a bf16 wgmma tile with a ring of at least two stages
+            assert (sm, sn) in mm.INSTANTIATED[2] and mm.stages(sm, sn, depth) >= 2
     # a tile the VMEM rule takes but K1 cannot run is pruned before timing
     case = ttiming.KernelCase("matmul", 4096, 4096, 4096)
     assert tkt.feasible_tiles(case, [(512, 512, 512)], rule=ttiming.VMEM_RULE)
@@ -267,7 +269,7 @@ def test_measured_records_name_the_backend_and_rule(tmp_path):
     case = twl.zoo_cases(["yi-6b"], ["decode_32k"], with_flash=False)[0]
     recs, stats = tkt.measure_case(case, ttiming.SimulatorBackend(seed=0), store)
     assert stats["measured"] > 0
-    assert all(r.env == {"smem_kb": 227, "kernel": "matmul",
+    assert all(r.env == {"smem_kb": 227, "k1": "wgmma-tma", "kernel": "matmul",
                          "dtype": "bfloat16", "timing": "sim:h100"} for r in recs)
     again, stats = tkt.measure_case(case, ttiming.SimulatorBackend(seed=0), store)
     assert stats["measured"] == 0 and stats["cached"] == len(again)
@@ -282,6 +284,26 @@ def test_a_prediction_the_rule_refuses_raises_in_the_wrapper():
     a = torch.zeros((512, 512), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="not feasible"):
         ops.matmul(a, a, block_m=tile[0], block_n=tile[1], block_k=tile[2])
+
+
+@pytest.mark.parametrize("rule,dtype,tile,serial", [
+    ("smem", "bfloat16", (128, 256, 64), True),      # the ring fills the budget
+    ("smem", "float32", (64, 64, 16), False),
+    ("vmem", "bfloat16", (512, 512, 512), False),
+    ("vmem", "bfloat16", (2048, 2048, 512), True),
+])
+def test_simulator_serializes_tiles_over_half_the_budget(rule, dtype, tile, serial):
+    """The simulator prices a tile whose working set is over half its
+    rule's budget as loads and compute in turn: slower than under a rule
+    with room to spare, and equal where the tile is under half."""
+    rule = {"smem": ttiming.SMEM_RULE, "vmem": ttiming.VMEM_RULE}[rule]
+    roomy = ttiming.TileRule("roomy", rule.budget * 1000, rule.env,
+                             rule.matmul_bytes)
+    case = ttiming.KernelCase("matmul", 4096, 4096, 4096, dtype=dtype)
+    assert bool(rule.tile_bytes(case, *tile) > rule.budget / 2) is serial
+    t = ttiming.SimulatorBackend(seed=0, rule=rule).measure(case, [tile])[0]
+    t_roomy = ttiming.SimulatorBackend(seed=0, rule=roomy).measure(case, [tile])[0]
+    assert t > t_roomy if serial else t == t_roomy
 
 
 @pytest.mark.parametrize("use", ["tile_bytes", "fits", "cost_model"])
