@@ -8,12 +8,18 @@ Phases, each of which raises on failure (exit code != 0):
   2. build     nvcc builds both libraries from csrc/, one process per
                source, and prints the build time and each kernel's registers
                and spills (a spill, or a setmaxnreg that ptxas ignores,
-               fails); the SASS of every bf16 K1 kernel must hold HGMMA
-               (wgmma) and UTMALDG (TMA load) instructions, and the
-               library's shared memory per launch must be the rule's
-  3. kernel    flash attention against its plain torch version on the card
-  4. timing    flash kernel, plain version and the SDPA yardstick at the
-               serving shape
+               fails); the SASS of every bf16 kernel of K1 and K2 must hold
+               HGMMA (wgmma) and UTMALDG (TMA load) instructions, each
+               library's compiled tiles must be its rule's, and its shared
+               memory per launch must be the rule's
+  3. kernel    flash attention (K2) against its plain torch version on the
+               card: every compiled bf16 tile on every case (3e-2),
+               bit-identical across block_q at a fixed block_k, the fp32
+               kernel (2e-5), refused tiles raise, and a window of 1 (one
+               nonzero per row of P) reads back each row's own v exactly
+  4. timing    K2 at every compiled tile of d = 128, its plain version and
+               the SDPA yardstick at the serving shape and at Yi-6B's
+               train_4k flash case, with the bound and its share
   5. model     Yi-6B widths, 2 layers, fp32: model_forward flash vs plain
   6. serve     Yi-6B at full width and depth, bf16: 8 x 512-token prompts,
                32 generated tokens, through ``repro_torch.launch.serve.main``
@@ -23,9 +29,10 @@ Phases, each of which raises on failure (exit code != 0):
                tiles of a dtype; refused tiles raise), then Yi-6B's ffn_up
                shape
   8. tune      ``python -m repro_torch tune --arch yi-6b --backend wallclock``
-               through its ``main``: every candidate tile of Yi-6B's 12 GEMM
-               cases timed on the card, the measured tuner fitted, the
-               evaluation table written (store in a temporary directory)
+               through its ``main``: every candidate tile of Yi-6B's 14
+               cases (12 GEMM on K1, 2 flash on K2) timed on the card, the
+               measured tuners fitted, the evaluation table written (store
+               in a temporary directory)
   9. k1-timing blocked matmul at (4096, 4096, 11008) bf16 with the default
                tile and the best tile phase 8 measured, beside its plain
                version, torch.matmul and the bound: TFLOP/s and the share
@@ -51,6 +58,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.workloads import zoo_cases  # noqa: E402
 from repro_torch.core.kerneltune import bucket_pow2  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -80,6 +88,10 @@ CASES = [
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 SLICE = dict(B=8, T=512, H=32, KV=4, d=128)      # Yi-6B prefill in the serve run
+TRAIN_4K = dict(B=1, T=4096, H=32, KV=32, d=128)  # Yi-6B's train_4k flash case (MHA)
+K2_DEFAULT = (128, 128)                          # the serving call's blocks
+# tiles the rule refuses, (block_q, block_k, d)
+K2_REFUSED = [(256, 64, 128), (64, 256, 128), (128, 256, 64), (512, 512, 32)]
 
 
 def check_close(name, got, want, tol):
@@ -130,9 +142,10 @@ def phase_probe():
 
 
 def _short_name(mangled):
-    """'matmul_blocked_kernel<bf16,128,64>' from the mangled template name."""
+    """'matmul_blocked_kernel<bf16,128,64>' from the mangled template name
+    (the wgmma kernels take bf16 only)."""
     ints = re.findall(r"Li(\d+)E", mangled)
-    dtype = "bf16" if "bfloat16" in mangled else "fp32"
+    dtype = "bf16" if "bfloat16" in mangled or "wgmma" in mangled else "fp32"
     found = re.search(r"([a-z_]+_kernel)I", mangled)
     base = found.group(1) if found else mangled
     return f"{base}<{','.join([dtype] + ints)}>"
@@ -159,6 +172,24 @@ def sass_counts(library, opcodes=("HGMMA", "UTMALDG")):
             for op in opcodes:
                 current[op] += len(re.findall(rf"\b{op}\b", line))
     return counts
+
+
+def flash_work(b, t, s, h, kv, d, causal=True, dtype_bytes=2):
+    """(flops, bytes) the function needs: each live (query, key) pair costs
+    a d-long dot product and a d-long update, 2 flops per multiply-add; q
+    and k, v read once, o written once."""
+    if causal:
+        live = sum(min(s, max(0, r + s - t + 1)) for r in range(t))
+    else:
+        live = t * s
+    return 4 * d * live * b * h, (2 * b * t * h + 2 * b * s * kv) * d * dtype_bytes
+
+
+def bound(flops, nbytes, dtype=torch.bfloat16):
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    return bound_ms, bound_by, t_bytes, t_ops
 
 
 def phase_build():
@@ -191,42 +222,89 @@ def phase_build():
             if mm.launch_smem(bm, bn, bk) != want:
                 bad.append(f"bf16 {(bm, bn, bk)}: the library asks {mm.launch_smem(bm, bn, bk)} "
                            f"bytes of shared memory, the rule {want}")
-    sass = {name: c for name, c in sass_counts(paths[1]).items()
-            if "matmul_wgmma_kernel" in name}
-    for name, c in sorted(sass.items(), key=lambda kv: _short_name(kv[0])):
-        print(f"[build]   sass {_short_name(name):<40} HGMMA {c['HGMMA']} "
-              f"UTMALDG {c['UTMALDG']}")
-        if not (c["HGMMA"] and c["UTMALDG"]):
-            bad.append(f"{_short_name(name)} lacks HGMMA or UTMALDG")
-    if len(sass) != len(mm.INSTANTIATED[2]):
-        bad.append(f"{len(sass)} wgmma kernels in the SASS, "
-                   f"{len(mm.INSTANTIATED[2])} compiled tiles")
+    for dtype_bytes, tiles in fa.INSTANTIATED.items():
+        if sorted(fa.compiled_tiles(dtype_bytes)) != sorted(tiles):
+            bad.append(f"compiled K2 tiles {fa.compiled_tiles(dtype_bytes)} differ "
+                       f"from the rule's {tiles}")
+        for bq, bk, d in tiles:
+            want = int(fa.smem_bytes(bq, bk, d, dtype_bytes))
+            if fa.launch_smem(bq, bk, d, dtype_bytes) != want:
+                bad.append(f"K2 {(bq, bk, d)} ({dtype_bytes}-byte): the library asks "
+                           f"{fa.launch_smem(bq, bk, d, dtype_bytes)} bytes of shared "
+                           f"memory, the rule {want}")
+    for bq, bk, d in K2_REFUSED:
+        if fa.fits(bq, bk, d) or fa.launch_smem(bq, bk, d) != -1:
+            bad.append(f"K2 {(bq, bk, d)} is compiled or admitted by the rule")
+    for path, kernel, n_tiles in ((paths[1], "matmul_wgmma_kernel", len(mm.INSTANTIATED[2])),
+                                  (paths[0], "flash_wgmma_kernel", len(fa.INSTANTIATED[2]))):
+        sass = {name: c for name, c in sass_counts(path).items() if kernel in name}
+        for name, c in sorted(sass.items(), key=lambda kv: _short_name(kv[0])):
+            print(f"[build]   sass {_short_name(name):<40} HGMMA {c['HGMMA']} "
+                  f"UTMALDG {c['UTMALDG']}")
+            if not (c["HGMMA"] and c["UTMALDG"]):
+                bad.append(f"{_short_name(name)} lacks HGMMA or UTMALDG")
+        if len(sass) != n_tiles:
+            bad.append(f"{len(sass)} {kernel} kernels in the SASS, {n_tiles} compiled tiles")
     if bad:
         raise SystemExit(f"[build] {bad}")
     print(f"[build] matmul_blocked: {len(mm.INSTANTIATED[4])} fp32 tiles on CUDA cores, "
-          f"{len(mm.INSTANTIATED[2])} bf16 tiles on wgmma + TMA (HGMMA, UTMALDG in "
-          "each); no spills; shared memory as the rule says", flush=True)
+          f"{len(mm.INSTANTIATED[2])} bf16 tiles on wgmma + TMA; flash_attention: "
+          f"{len(fa.INSTANTIATED[4])} fp32 kernels on CUDA cores, "
+          f"{len(fa.INSTANTIATED[2])} bf16 tiles on wgmma + TMA (HGMMA, UTMALDG in "
+          "each bf16 kernel); no spills; tiles and shared memory as the rules say",
+          flush=True)
 
 
 def phase_kernel(device):
     gen = torch.Generator(device=device).manual_seed(0)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    n_tiles = worst = 0
     for name, b, t, s, h, kv, d, win, meta, causal in CASES:
-        for dtype, tol in TOL.items():
-            q, k, v = qkv(gen, b, t, s, h, kv, d, dtype, device)
-            got = ops.flash_attention(q, k, v, window=win, n_meta=meta,
-                                      causal=causal, block_q=32, block_k=32)
-            want = fa.flash_attention_plain(q, k, v, scale=d ** -0.5, window=win,
-                                            n_meta=meta, causal=causal)
-            err = check_close(f"{name} {dtype}", got, want, tol)
-            print(f"[kernel] {name:<18} {str(dtype):<15} max abs err {err:.3e} "
-                  f"(tol {tol})")
-    # the blocks are a tuning knob and must not change the result
-    q, k, v = qkv(gen, 1, 128, 128, 4, 4, 32, torch.float32, device)
-    outs = [ops.flash_attention(q, k, v, block_q=bq, block_k=bk)
-            for bq, bk in [(32, 32), (64, 32), (32, 64), (128, 128)]]
-    for o in outs[1:]:
-        err = check_close("block-size invariance", o, outs[0], 1e-5)
-    print(f"[kernel] block-size invariance max abs err {err:.3e} (tol 1e-05)")
+        kw = dict(window=win, n_meta=meta, causal=causal)
+        q, k, v = qkv(gen, b, t, s, h, kv, d, bf16, device)
+        want = fa.flash_attention_plain(q, k, v, scale=d ** -0.5, **kw)
+        by_bk, errs = {}, []
+        for bq, bk, dd in fa.INSTANTIATED[2]:
+            if dd != d:
+                continue
+            got = ops.flash_attention(q, k, v, block_q=bq, block_k=bk, **kw)
+            errs.append(check_close(f"{name} bf16 tile {(bq, bk)}", got, want, TOL[bf16]))
+            # each row's arithmetic does not depend on block_q
+            if not torch.equal(got, by_bk.setdefault(bk, got)):
+                raise SystemExit(f"[kernel] {name} tile {(bq, bk)} differs from "
+                                 f"tile {(64, bk)}")
+            n_tiles += 1
+        first = next(iter(by_bk.values()))
+        across_bk = max(check_close(f"{name} across block_k", o, first, TOL[bf16])
+                        for o in by_bk.values())
+        q, k, v = (x.to(fp32) for x in (q, k, v))
+        got = ops.flash_attention(q, k, v, block_q=32, block_k=32, **kw)
+        want = fa.flash_attention_plain(q, k, v, scale=d ** -0.5, **kw)
+        err32 = check_close(f"{name} fp32", got, want, TOL[fp32])
+        worst = max(worst, *errs)
+        print(f"[kernel] {name:<18} bf16 {len(errs)} tiles max abs err {max(errs):.3e} "
+              f"(tol 3e-2), bit-identical across block_q, {across_bk:.3e} across "
+              f"block_k; fp32 {err32:.3e} (tol 2e-5)")
+    # P as wgmma's A fragment: with a window of 1 each row of P holds one
+    # nonzero (1, at the row's own key), so every row must read back its
+    # own v bit for bit at every tile, whatever column its key falls in
+    for bq, bk, d in fa.INSTANTIATED[2]:
+        q, k, v = qkv(gen, 2, 256, 256, 4, 2, d, bf16, device)
+        got = ops.flash_attention(q, k, v, window=1, block_q=bq, block_k=bk)
+        if not torch.equal(got, v.repeat_interleave(2, dim=2)):
+            raise SystemExit(f"[kernel] one nonzero per row: tile {(bq, bk, d)} does "
+                             "not read back each row's own v")
+    print(f"[kernel] one nonzero per row of P: all {len(fa.INSTANTIATED[2])} bf16 tiles "
+          "read back each row's own v bit for bit")
+    for bq, bk, d in K2_REFUSED:
+        q, k, v = qkv(gen, 1, 512, 512, 2, 1, d, bf16, device)
+        try:
+            ops.flash_attention(q, k, v, block_q=bq, block_k=bk)
+        except ValueError:
+            continue
+        raise SystemExit(f"[kernel] refused tile {(bq, bk, d)} did not raise")
+    print(f"[kernel] {n_tiles} (case, tile) launches of bf16 within 3e-2 of plain "
+          f"(max abs err {worst:.3e}); {len(K2_REFUSED)} refused tiles raised ValueError")
     # the serving shape itself
     dt = torch.bfloat16
     q, k, v = qkv(gen, SLICE["B"], SLICE["T"], SLICE["T"], SLICE["H"],
@@ -235,40 +313,60 @@ def phase_kernel(device):
     want = fa.flash_attention_plain(q, k, v, scale=SLICE["d"] ** -0.5)
     err = check_close("serving shape", got, want, TOL[dt])
     print(f"[kernel] serving shape q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
-          f"max abs err {err:.3e} (tol {TOL[dt]})", flush=True)
-    print("[kernel] kernels checked against their plain versions: flash_attention_fwd")
-    return q, k, v, err
+          f"default tile {K2_DEFAULT} max abs err {err:.3e} (tol {TOL[dt]})", flush=True)
+    print("[kernel] kernels checked against their plain versions: flash_attention_fwd "
+          "(bf16 wgmma, fp32 CUDA cores)")
+    return q, k, v, max(err, worst)
 
 
-def phase_timing(q, k, v):
+def time_flash(name, q, k, v, iters, plain_iters):
+    """K2 at the default tile and at every compiled tile of the head dim,
+    its plain version, SDPA and the bound, at one causal shape."""
     b, t, h, d = q.shape
-    s = k.shape[1]
-    scale = d ** -0.5
-    kernel_ms = time_ms(lambda: ops.flash_attention(q, k, v))
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale=scale))
+    s, kv = k.shape[1], k.shape[2]
+    tile_ms = {}
+    for bq, bk, dd in fa.INSTANTIATED[2]:
+        if dd == d:
+            tile_ms[(bq, bk)] = time_ms(lambda: ops.flash_attention(
+                q, k, v, block_q=bq, block_k=bk), iters=iters)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale=d ** -0.5),
+                       iters=plain_iters, warmup=1)
     # the yardstick takes [B,H,T,d]; the copies are made outside the timing
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
-    library_ms = time_ms(sdpa)
-    lib_err = (sdpa().transpose(1, 2).float()
-               - fa.flash_attention_plain(q, k, v, scale=scale).float()).abs().max().item()
-    # the work this causal run needs: each live (query, key) pair costs a
-    # d-long dot product and a d-long update, 2 flops per multiply-add
-    qpos = torch.arange(t, device=q.device)[:, None] + (s - t)
-    live = int((torch.arange(s, device=q.device)[None, :] <= qpos).sum())
-    flops = 4 * d * live * b * h
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-    print(f"[timing] kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} (sdpa max abs err vs plain {lib_err:.3e}) "
-          f"bound_ms={bound_ms:.5f} by {bound_by} "
-          f"({nbytes / 1e6:.1f} MB -> {t_bytes:.5f} ms, "
-          f"{flops / 1e9:.2f} GFLOP -> {t_ops:.5f} ms)", flush=True)
-    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+        qt, kt, vt, is_causal=True, enable_gqa=kv != h)
+    library_ms = time_ms(sdpa, iters=iters)
+    flops, nbytes = flash_work(b, t, s, h, kv, d)
+    bound_ms, bound_by, t_bytes, t_ops = bound(flops, nbytes)
+    best = min(tile_ms, key=tile_ms.get)
+    for tile, ms in tile_ms.items():
+        print(f"[timing] {name} tile {tile}: kernel_ms={ms:.4f} "
+              f"({flops / ms / 1e9:.2f} TFLOP/s, {bound_ms / ms:.4f} of the bound)"
+              f"{' default' if tile == K2_DEFAULT else ''}{' best' if tile == best else ''}")
+    print(f"[timing] {name} q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal: "
+          f"kernel_ms={tile_ms[K2_DEFAULT]:.4f} at default tile {K2_DEFAULT}, "
+          f"{tile_ms[best]:.4f} at best tile {best}; plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (sdpa, {bound_ms / library_ms:.4f} of the bound) "
+          f"bound_ms={bound_ms:.5f} by {bound_by} ({nbytes / 1e6:.1f} MB -> "
+          f"{t_bytes:.5f} ms, {flops / 1e9:.2f} GFLOP -> {t_ops:.5f} ms)", flush=True)
+    return dict(ms=tile_ms[K2_DEFAULT], plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, tile=list(K2_DEFAULT),
+                best_tile=list(best), best_tile_ms=tile_ms[best],
+                share_of_bound=bound_ms / tile_ms[K2_DEFAULT])
+
+
+def phase_timing(q, k, v, device):
+    times = time_flash("serving", q, k, v, iters=50, plain_iters=50)
+    gen = torch.Generator(device=device).manual_seed(4)
+    c = TRAIN_4K
+    q4, k4, v4 = qkv(gen, c["B"], c["T"], c["T"], c["H"], c["KV"], c["d"],
+                     torch.bfloat16, device)
+    got = ops.flash_attention(q4, k4, v4)
+    err = check_close("train_4k", got, fa.flash_attention_plain(
+        q4, k4, v4, scale=c["d"] ** -0.5), TOL[torch.bfloat16])
+    print(f"[timing] train_4k flash shape max abs err {err:.3e} (tol 3e-2)")
+    times["train_4k"] = time_flash("train_4k", q4, k4, v4, iters=20, plain_iters=3)
+    return times
 
 
 def phase_model(device):
@@ -394,34 +492,51 @@ def phase_tune():
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--arch", "yi-6b", "--backend", "wallclock", "--device", "cuda",
                 "--store", str(Path(tmp) / "tune_store.jsonl")]
-        mm.launches = 0
+        mm.launches = fa.launches = 0
         result = tune.main(argv)
-        launches = mm.launches
+        launches = {"matmul": mm.launches, "flash": fa.launches}
     stats, report = result["backend"], result["eval"]
-    measured, reps = stats["measured"], stats["reps"]
+    reps = stats["reps"]
     if stats["verify_failures"] != 0:
         raise SystemExit(f"[tune] {stats['verify_failures']} tiles failed verification")
-    if measured == 0 or launches < measured * reps:
-        raise SystemExit(f"[tune] {launches} K1 launches for {measured} measured "
-                         f"tiles x {reps} reps")
+    for kernel, name in (("matmul", "K1"), ("flash", "K2")):
+        measured = stats["measured_by"][kernel]
+        if measured == 0 or launches[kernel] < measured * reps:
+            raise SystemExit(f"[tune] {launches[kernel]} {name} launches for {measured} "
+                             f"measured {kernel} tiles x {reps} reps")
     predicted = result["predicted"]
-    if len(predicted) != 12 or not all(len(t) == 3 for t in predicted.values()):
-        raise SystemExit(f"[tune] expected a tile for each of 12 cases, got {predicted}")
+    flash = {k: t for k, t in predicted.items() if k.endswith("/flash")}
+    if (len(predicted) != 14 or len(flash) != 2
+            or not all(len(t) == (2 if k in flash else 3) for k, t in predicted.items())):
+        raise SystemExit(f"[tune] expected 12 (bm, bn, bk) and 2 (bq, bk) tiles, "
+                         f"got {predicted}")
     ov = report["overall"]
-    print(f"[tune] eval yi-6b 12 GEMM cases on the card: "
+    print(f"[tune] eval yi-6b 14 cases (12 GEMM on K1, 2 flash on K2) on the card: "
           f"geomean_speedup_vs_costmodel={ov['geomean_speedup_vs_costmodel']:.4f} "
           f"argmin_hit_rate={ov['argmin_hit_rate']:.4f} "
           f"mean_regret_vs_best={ov['mean_regret_vs_best']:.4f} "
-          f"wall_s={result['wall_s']:.1f} measured_tiles={measured} "
-          f"verified={stats['verified']} verify_failures={stats['verify_failures']} "
-          f"k1_launches={launches}", flush=True)
+          f"wall_s={result['wall_s']:.1f} measured_tiles={stats['measured']} "
+          f"(matmul {stats['measured_by']['matmul']}, flash "
+          f"{stats['measured_by']['flash']}) verified={stats['verified']} "
+          f"verify_failures={stats['verify_failures']} k1_launches={launches['matmul']} "
+          f"k2_launches={launches['flash']}", flush=True)
+    cases = {c.label: c for c in zoo_cases(["yi-6b"])}
     for r in report["rows"]:
         m, k, n = (bucket_pow2(x) for x in r["shape"])      # the shape timed
-        print(f"[tune]   {r['label']:<26} bucket (m,k,n)=({m},{k},{n}) "
+        if r["kernel"] == "flash":
+            c = cases[r["label"]]
+            m, n = bucket_pow2(c.m), bucket_pow2(c.n)
+            flops, nbytes = flash_work(c.batch, m, n, c.heads, c.heads, c.k, c.causal)
+            shape = f"(t,d,s)=({m},{k},{n}) heads {c.heads}"
+            bound_ms = bound(flops, nbytes)[0]
+            extra = f", {bound_ms / (r['t_best'] * 1e3):.4f} of the {bound_ms:.5f} ms bound"
+        else:
+            flops, shape, extra = 2 * m * k * n, f"(m,k,n)=({m},{k},{n})", ""
+        print(f"[tune]   {r['label']:<26} bucket {shape} "
               f"pred={tuple(r['pred'])} {r['t_pred'] * 1e3:.4f} ms, "
               f"cost-model={tuple(r['cost_tile'])} {r['t_cost_model'] * 1e3:.4f} ms, "
               f"best={tuple(r['argmin_tile'])} {r['t_best'] * 1e3:.4f} ms "
-              f"({2 * m * k * n / r['t_best'] / 1e12:.2f} TFLOP/s)")
+              f"({flops / r['t_best'] / 1e12:.2f} TFLOP/s{extra})")
     row = next(r for r in report["rows"] if r["label"] == "yi-6b/train_4k/ffn_up")
     return launches, tuple(row["argmin_tile"])
 
@@ -468,25 +583,32 @@ def main() -> int:
     device, smi = phase_probe()
     phase_build()
     q, k, v, err = phase_kernel(device)
-    times = phase_timing(q, k, v)
+    times = phase_timing(q, k, v, device)
     del q, k, v
+    torch.cuda.empty_cache()
     phase_model(device)
     launches = phase_serve()
     k1_err = phase_k1(device)
-    k1_launches, best_tile = phase_tune()
+    tune_launches, best_tile = phase_tune()
     k1_times = phase_k1_timing(device, best_tile)
     record = {"kernels": [
+        # the times are the bf16 kernel's at the serving shape (train_4k
+        # beside them); the fp32 kernel and the C entry point that picks
+        # between them are in flash_attention.cu (phase 3).  launches: the
+        # serve run's (phase 6); tune_launches: the tune run's (phase 8)
         dict(name="flash_attention_fwd", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             source="src/repro_torch/kernels/csrc/flash_wgmma.cuh",
+             fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:32",
-             launches=launches, max_abs_err=err, **times),
+             launches=launches, tune_launches=tune_launches["flash"],
+             max_abs_err=err, **times),
         # the times are the bf16 kernel's; the fp32 kernel and the C entry
         # point that picks between them are in matmul_blocked.cu (phase 7)
         dict(name="matmul_blocked", route="cuda",
              source="src/repro_torch/kernels/csrc/matmul_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/matmul_blocked.cu",
              replaces="src/repro/kernels/matmul_blocked.py:20",
-             launches=k1_launches, max_abs_err=k1_err, **k1_times)]}
+             launches=tune_launches["matmul"], max_abs_err=k1_err, **k1_times)]}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

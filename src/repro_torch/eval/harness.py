@@ -22,8 +22,7 @@ from repro_torch.artifacts import artifacts_dir
 
 def evaluate_kernels(*, backend=None, arch_ids=None, shape_names=None,
                      seed: int = 0, store=None, max_pairs: int = 6,
-                     bk_per_pair: int = 2, verbose: bool = False,
-                     with_flash: bool = True) -> dict:
+                     bk_per_pair: int = 2, verbose: bool = False) -> dict:
     """The measured-autotuning eval table (DESIGN.md §12): for every
     (model config, shape) kernel case in the zoo, the *achieved* time —
     under ``backend``, the seeded H100 simulator by default — of (a) the
@@ -35,9 +34,8 @@ def evaluate_kernels(*, backend=None, arch_ids=None, shape_names=None,
     One measurement sweep (``measure_cases``, bucket-deduplicated and
     LogStore-memoized when ``store`` is given) both labels the tuners and
     grounds the table.  The shortlist and the cost model are the backend's
-    own (``backend.hw``, ``backend.rule``).  ``with_flash=False`` leaves the
-    flash cases out, as the H100 rule and the wall-clock backend need (both
-    raise on them until the flash kernel takes its tile at launch).
+    own (``backend.hw``, ``backend.rule``); a case whose rule admits no tile
+    (K2 at a head dim it does not compile) has no row.
     """
     from repro_torch.configs.workloads import EVAL_SHAPES, zoo_cases
     from repro_torch.core import kerneltune as kt
@@ -47,7 +45,7 @@ def evaluate_kernels(*, backend=None, arch_ids=None, shape_names=None,
     hw, rule = backend.hw, backend.rule
     shape_names = shape_names or EVAL_SHAPES
     t0 = time.time()
-    cases = zoo_cases(arch_ids, shape_names, with_flash=with_flash)
+    cases = zoo_cases(arch_ids, shape_names)
     records, mstats = kt.measure_cases(cases, backend, store,
                                        max_pairs=max_pairs,
                                        bk_per_pair=bk_per_pair)
@@ -76,6 +74,8 @@ def evaluate_kernels(*, backend=None, arch_ids=None, shape_names=None,
         bcase = kt.bucket_case(case)
         shortlist = kt.seed_tiles(bcase, max_pairs=max_pairs,
                                   bk_per_pair=bk_per_pair, hw=hw, rule=rule)
+        if not shortlist:             # no tile the rule admits: nothing to time
+            continue
         prior = kt.prior_times(bcase, shortlist, hw=hw, rule=rule)
         cost_tile = shortlist[int(np.argmin(prior))]
         pred = tuner.predict(bcase.m, bcase.k, bcase.n, bcase.dtype)

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++ on CUDA cores.
+// Flash-attention forward for Hopper (sm_90a): the C entry point of K2, and
+// its fp32 path on CUDA cores.
 //
 // Replaces src/repro/kernels/flash_attention.py::_kernel (launched by _fwd),
 // the Pallas TPU kernel.  Same function: softmax(q k^T * scale) v with an
@@ -6,35 +7,31 @@
 // in fp32; a causal mask right-aligned by S - T; an optional sliding window
 // whose first n_meta keys stay visible; fully masked key tiles skipped; the
 // finite -1e30 fill; output acc / max(l, 1e-30).  GQA maps query head h to
-// kv head h / (H / KV).
+// kv head h / (H / KV).  The entry point dispatches by dtype: bf16 runs the
+// tensor-core kernel of flash_wgmma.cuh (wgmma fed by a TMA / mbarrier
+// ring) at the (BQ, BK) tile the caller names; fp32 runs the CUDA-core
+// kernel below, whose tile is fixed, because the reference computes fp32
+// products exactly and TF32 on the tensor cores would miss the fp32
+// tolerance.  Neither is a fallback for the other.
 //
-// Layout: q and o are [B,T,H,d], k and v [B,S,KV,d], read through strides
-// (the last dim must be contiguous), so no transposed or padded copies are
-// made.  Ragged T and S edges are masked here.
+// fp32 layout: q and o are [B,T,H,d], k and v [B,S,KV,d], read through
+// strides (the last dim must be contiguous), so no transposed or padded
+// copies are made.  Ragged T and S edges are masked here.
 //
-// Design: one block of 128 threads per (q tile of 64 rows, head, batch).
-// The TPU grid's sequential k axis becomes a loop inside the block; it stops
-// after the last tile a causal row can see and skips tiles the window kills.
-// Q, K, V and P tiles are staged in shared memory as fp32; each thread owns
-// 4 rows x 4 score columns and 4 rows x d/8 accumulator columns in registers.
-// The products run in fp32 FMAs on CUDA cores.
-//
-// Bound: at the serving shape (q [8,512,32,128], k/v [8,512,4,128], bf16,
-// causal) the function moves 75.5 MB (q and o 33.5 MB each, k and v 4.2 MB
-// each: 22.5 us at 3.35 TB/s) and does 17.2 GFLOP over the live causal pairs
-// (17.4 us at 989 TFLOP/s bf16), so bytes bound it.  This first version is
-// far from that bound (its time is in PERF.md, from chip_smoke.py): its
-// products run as fp32 FMAs on CUDA cores, whose 67 TFLOP/s data-sheet peak
-// alone puts a floor of 0.26 ms under this work, and it loads 2-byte
-// elements one at a time.
-// What the design does about the bytes: it reads each q row and writes each
-// o row exactly once, reads k and v once per 64-row q tile and never writes
-// scores or probabilities to device memory.  wgmma on bf16 tiles, TMA loads
-// and a pipelined k loop are the later steps toward the byte bound.
+// fp32 design: one block of 128 threads per (q tile of 64 rows, head,
+// batch).  The TPU grid's sequential k axis becomes a loop inside the block;
+// it stops after the last tile a causal row can see and skips tiles the
+// window kills.  Q, K, V and P tiles of 64 x 32 are staged in shared memory
+// as fp32; each thread owns 4 rows x 4 score columns and 4 rows x d/8
+// accumulator columns in registers.  The products run in fp32 FMAs on CUDA
+// cores (67 TFLOP/s on the data sheet), and 2-byte or 4-byte elements are
+// loaded one at a time: a kernel for correctness, not for speed.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_wgmma.h"
+#include "hopper.cuh"
 
 namespace {
 
@@ -59,9 +56,7 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <int D>
 constexpr int smem_floats() {
@@ -225,21 +220,107 @@ cudaError_t launch_dtype(int d, const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  Returns the
-// cudaError_t of the launch (0 on success).
-extern "C" int flash_attention_fwd(
-    int dtype, int d, const void* q, const void* k, const void* v, void* o,
+namespace k2 {
+
+cudaError_t encode_map(CUtensorMap* map, const void* base, int d, int rows, int heads,
+                       int batch, const int64_t (&strides)[3], int box_d, int box_rows) {
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[0]) * 2,
+                               static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[2]) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d), static_cast<cuuint32_t>(box_rows),
+                             1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_d * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        bytes, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace k2
+
+namespace {
+
+cudaError_t dispatch_bf16(int bq, int bk, int d, const k2::FlashArgs& p, cudaStream_t stream) {
+#define K2_CASE(BQ_, BK_, D_) \
+  if (bq == BQ_ && bk == BK_ && d == D_) return k2::launch_flash<BQ_, BK_, D_>(p, stream);
+  K2_TILES(K2_CASE)
+#undef K2_CASE
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// the compiled (BQ, BK, d) tiles of a dtype (0 fp32, 1 bf16); fills
+// out[3 i .. 3 i + 2] up to cap tiles and returns their number
+int flash_attention_tiles(int dtype, int* out, int cap) {
+  int n = 0;
+#define K2_LIST(BQ_, BK_, D_)   \
+  if (n < cap) {                \
+    out[3 * n] = BQ_;           \
+    out[3 * n + 1] = BK_;       \
+    out[3 * n + 2] = D_;        \
+  }                             \
+  ++n;
+  if (dtype == 0) { K2_LIST(BQ, BK, 32) K2_LIST(BQ, BK, 64) K2_LIST(BQ, BK, 128) }
+  if (dtype == 1) { K2_TILES(K2_LIST) }
+#undef K2_LIST
+  return n;
+}
+
+// the dynamic shared memory a launch of the compiled tile (bq, bk, d)
+// requests, or -1 where no such tile is compiled
+int flash_attention_smem(int dtype, int bq, int bk, int d) {
+  if (dtype == 0) {
+    if (bq != BQ || bk != BK) return -1;
+    switch (d) {
+      case 32: return smem_floats<32>() * static_cast<int>(sizeof(float));
+      case 64: return smem_floats<64>() * static_cast<int>(sizeof(float));
+      case 128: return smem_floats<128>() * static_cast<int>(sizeof(float));
+      default: return -1;
+    }
+  }
+#define K2_SMEM(BQ_, BK_, D_) \
+  if (bq == BQ_ && bk == BK_ && d == D_) return k2::smem_bytes(BQ_, BK_, D_);
+  if (dtype == 1) { K2_TILES(K2_SMEM) }
+#undef K2_SMEM
+  return -1;
+}
+
+const char* flash_attention_error(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// dtype: 0 = float32, 1 = bfloat16; (bq, bk) the compiled tile to launch
+// (fp32: its one tile, 64 x 32).  Strides are in elements; for bf16 those
+// of q, k and v are multiples of 8 and their bases 16-byte aligned (TMA).
+// Returns the cudaError_t of the launch (0 on success); an uncompiled tile
+// gives cudaErrorInvalidValue.
+int flash_attention_fwd(
+    int dtype, int bq, int bk, int d, const void* q, const void* k, const void* v, void* o,
     int B, int Tq, int S, int H, int KVH,
     int64_t sqb, int64_t sqt, int64_t sqh,
     int64_t skb, int64_t skt, int64_t skh,
     int64_t svb, int64_t svt, int64_t svh,
     int64_t sob, int64_t sot, int64_t soh,
     float scale, int window, int n_meta, int causal, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    const k2::FlashArgs p{q, k, v, o, B, Tq, S, H, KVH,
+                          {sqt, sqh, sqb}, {skt, skh, skb}, {svt, svh, svb}, {sot, soh, sob},
+                          scale, window, n_meta, causal};
+    return dispatch_bf16(bq, bk, d, p, s);
+  }
+  if (dtype != 0 || bq != BQ || bk != BK) return cudaErrorInvalidValue;
   Params p{q, k, v, o, B, Tq, S, H, KVH,
            sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
            scale, window, n_meta, causal};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dtype<float>(d, p, s);
-  if (dtype == 1) return launch_dtype<__nv_bfloat16>(d, p, s);
-  return cudaErrorInvalidValue;
+  return launch_dtype<float>(d, p, s);
 }
+
+}  // extern "C"

@@ -33,6 +33,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "matmul_wgmma.h"
 
 namespace {
@@ -159,37 +160,13 @@ cudaError_t dispatch_bf16(int bm, int bn, const k1::WgmmaArgs& p, cudaStream_t s
   return cudaErrorInvalidValue;
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
 }  // namespace
 
 namespace k1 {
 
 cudaError_t encode_tensor_map(CUtensorMap* map, const void* base, uint64_t inner,
                               uint64_t outer, uint32_t box_inner, uint32_t box_outer) {
-  EncodeTiled encode = encode_tiled();
+  hopper::EncodeTiled encode = hopper::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {inner * 2};          // bytes between rows

@@ -50,15 +50,19 @@
 //   with two consumer warpgroups, 24 / 112 with four.
 //
 // A wait that never completes (a fault in the ring) traps after ~2^34
-// cycles instead of hanging the card.
+// cycles instead of hanging the card.  The mbarrier, TMA, descriptor and
+// wgmma helpers are hopper.cuh's, shared with K2.
 
 #pragma once
 
 #include <cuda_bf16.h>
 
+#include "hopper.cuh"
 #include "matmul_wgmma.h"
 
 namespace k1 {
+
+using namespace hopper;
 
 template <int BM, int BN>
 struct Shape {
@@ -76,177 +80,6 @@ struct Shape {
   static_assert(BM % 64 == 0 && BN % 64 == 0 && BN <= 256, "tile");
   static_assert(kSlabs * kAcc <= (kW == 4 ? 64 : 128), "accumulators per thread");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// wait until the barrier has completed the phase of the given parity
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const long long now = clock64();
-    if (start == 0) start = now;
-    else if (now - start > (1ll << 34)) __trap();
-  }
-}
-
-// whether the barrier has completed the phase of the given parity, without waiting
-__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// whether x holds in every thread of the 128 that meet at named barrier id;
-// every one of them gets the same answer
-__device__ __forceinline__ bool warpgroup_all(bool x, int id) {
-  uint32_t all;
-  asm volatile(
-      "{\n.reg .pred p, q;\n"
-      "setp.ne.u32 p, %1, 0;\n"
-      "bar.red.and.pred q, %2, 128, p;\n"
-      "selp.u32 %0, 1, 0, q;\n}\n"
-      : "=r"(all)
-      : "r"(static_cast<uint32_t>(x)), "r"(id)
-      : "memory");
-  return all != 0;
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int inner, int outer) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(inner), "r"(outer)
-      : "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lead >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((stride >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma that owns them
-template <int N>
-__device__ __forceinline__ void fence_operands(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-// D[64 x N] += A[64 x 16] B[16 x N]: A K-major, B N-major (transposed), bf16
-// in, fp32 accumulators, always accumulating (scale-d = 1)
-template <int N>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t db);
-
-#define K1_D8(i)                                                                \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),   \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define K1_D32 K1_D8(0), K1_D8(8), K1_D8(16), K1_D8(24)
-#define K1_D64 K1_D32, K1_D8(32), K1_D8(40), K1_D8(48), K1_D8(56)
-#define K1_D128                                                                 \
-  K1_D64, K1_D8(64), K1_D8(72), K1_D8(80), K1_D8(88), K1_D8(96), K1_D8(104),    \
-      K1_D8(112), K1_D8(120)
-
-template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : K1_D32
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : K1_D64
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<256>(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : K1_D128
-      : "l"(da), "l"(db), "r"(1));
-}
-#undef K1_D8
-#undef K1_D32
-#undef K1_D64
-#undef K1_D128
 
 template <int BM, int BN>
 __global__ void __launch_bounds__(Shape<BM, BN>::kThreads, 1)
@@ -345,7 +178,7 @@ __global__ void __launch_bounds__(Shape<BM, BN>::kThreads, 1)
           for (int r = 0; r < S::kSlabs; ++r) {
             const uint64_t da =
                 sw128_desc(sa + kc * BM * 128 + row0 + r * 64 * 128 + k4 * 32, 16, 1024);
-            wgmma<BN>(acc[r], da, db);
+            wgmma_ss<1>(acc[r], da, db, 1);
           }
         }
       }

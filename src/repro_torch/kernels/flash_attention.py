@@ -1,10 +1,33 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain version.
+"""Flash-attention forward (K2): the hand-written CUDA kernels, their plain
+version and the rule of which tiles they can run.
 
-``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` (the port of
-``repro/kernels/flash_attention.py::_kernel``) on CUDA tensors.
+``flash_attention_cuda`` launches K2 (the port of
+``repro/kernels/flash_attention.py::_kernel``) on CUDA tensors.  Its C entry
+point (``csrc/flash_attention.cu``) dispatches by dtype: bf16 runs the
+tensor-core kernel of ``csrc/flash_wgmma.cuh`` (``wgmma`` fed by a TMA /
+``mbarrier`` ring), fp32 the CUDA-core kernel of ``flash_attention.cu``.
 ``flash_attention_plain`` computes the same function in plain torch, as the
 JAX package's ``_ref_expand`` does: kv heads repeated so that query head h
 reads kv head ``h // (H/KV)``, then the oracle.
+
+The ``(block_q, block_k)`` tile is what the kernel tuner
+(``core/kerneltune.py``) chooses.  Each block is clamped to its length, and
+``plan`` picks the compiled tile that runs it; ``fits`` is the feasibility
+rule that replaces the TPU kernel's ``vmem_bytes``.  A tile it refuses
+raises ``ValueError`` and is never swapped for another.  The rule depends
+on the dtype, and every function takes it as ``dtype_bytes``: 4 is fp32,
+any other size the bf16 kernel.
+
+* bf16, ``wgmma``: ``block_q`` runs on the smallest of 64 and 128 (one or
+  two consumer warpgroups of 64 query rows) that covers it, ``block_k`` on
+  the smallest of 64, 128 and 256 (the keys of one ``wgmma`` for S); a
+  consumer thread holds ``bk / 2`` fp32 accumulators of S and ``d / 2`` of
+  O, at most 160 with one consumer warpgroup and 128 with two, so
+  ``bk = 256`` runs at ``bq = 64`` and ``d <= 64`` only.  The launch's
+  shared memory is one Q tile, a ring of two stages of one K and one V
+  tile, the barriers and the alignment padding, against 227 KB.
+* fp32, CUDA cores: the kernel has one tile, 64 x 32, which runs every
+  request; the blocks are checked and clamped but choose nothing.
 
 Forward only: serving needs no gradient.  The backward, which the JAX
 package recomputes through its oracle, comes with the training slice.
@@ -12,30 +35,156 @@ package recomputes through its oracle, comes with the training slice.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.matmul_blocked import SMEM_LIMIT_BYTES
 from repro_torch.kernels.ref import flash_attention_ref
 
-LIBRARY = _build.Library("flash_attention", ("flash_attention.cu",))
+LIBRARY = _build.Library("flash_attention", (
+    "flash_attention.cu", "flash_wgmma_d32.cu", "flash_wgmma_d64.cu",
+    "flash_wgmma_d128.cu"))
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# bf16, the wgmma kernel (csrc/flash_wgmma.cuh): a consumer warpgroup owns
+# 64 query rows; one or two of them (a third would leave a thread 128
+# registers, too few for 64 O and 64 S accumulators at d = 128).  S of a
+# k tile is one wgmma, at most 256 wide.  ptxas fits the whole kernel under
+# its launch bound, 255 registers a thread with one consumer warpgroup and
+# 168 with two (setmaxnreg moves registers only at run time): the
+# accumulators may take 160 and 128 of them (the chip's build: (128, 256)
+# at d = 64 spilled 292 bytes at 168, (64, 256) used 248 without a spill).
+WGMMA_M = 64
+BQ_SIDES = (64, 128)
+BK_SIDES = (64, 128, 256)
+MAX_ACC_PER_THREAD = {1: 160, 2: 128}      # by consumer warpgroups
+STAGES = 2                  # the K/V ring
+BARRIER_BYTES = 8 + 16 * STAGES     # Q's full barrier; a full and an empty one per stage
+ALIGN_PAD = 1024            # aligning Q and the ring to a 1024-byte swizzle atom
+TMA_ALIGN = 8               # bf16 values in 16 bytes: TMA's stride unit
+
+# fp32, the CUDA-core kernel (csrc/flash_attention.cu): one tile
+FP32_TILE = (64, 32)
+
+
+def _fp32(dtype_bytes) -> bool:
+    return dtype_bytes == 4
+
+
+def _compiled(bq, bk, d, dtype_bytes):
+    """Whether the tile (bq, bk) at head dim d is compiled (broadcasts)."""
+    bq, bk = np.asarray(bq, np.float64), np.asarray(bk, np.float64)
+    dims = np.isin(np.asarray(d), HEAD_DIMS)
+    if _fp32(dtype_bytes):
+        return (bq == FP32_TILE[0]) & (bk == FP32_TILE[1]) & dims
+    limit = np.where(bq > WGMMA_M, MAX_ACC_PER_THREAD[2], MAX_ACC_PER_THREAD[1])
+    return np.isin(bq, BQ_SIDES) & np.isin(bk, BK_SIDES) & dims \
+        & (bk / 2 + np.asarray(d) / 2 <= limit)
+
+
+# every compiled (BQ, BK, d) by dtype_bytes: the lists csrc/flash_wgmma.h
+# and csrc/flash_attention.cu instantiate
+WGMMA_TILES = tuple((bq, bk, d) for d in HEAD_DIMS for bq in BQ_SIDES
+                    for bk in BK_SIDES if _compiled(bq, bk, d, 2))
+INSTANTIATED = {2: WGMMA_TILES, 4: tuple((*FP32_TILE, d) for d in HEAD_DIMS)}
 
 # kernel launches since the last reset; a run sets it to 0 and reads it back
 # to show that its attention went through the kernel
 launches = 0
 
 
-def _kernel():
+def launch_tile(bq, bk, dtype_bytes: int = 2):
+    """The compiled ``(BQ, BK)`` that runs blocks ``(bq, bk)``: for bf16 each
+    side the smallest power of two >= its block, at least 64; for fp32 the
+    one tile.  Broadcasts over numpy arrays."""
+    if _fp32(dtype_bytes):
+        sides = [np.full(np.shape(x), float(s)) for s, x in zip(FP32_TILE, (bq, bk))]
+    else:
+        sides = [np.maximum(float(WGMMA_M), 2.0 ** np.ceil(np.log2(
+            np.maximum(np.asarray(x, np.float64), 1.0)))) for x in (bq, bk)]
+    return tuple(x if x.ndim else float(x) for x in sides)
+
+
+def smem_bytes(bq, bk, d, dtype_bytes: int = 2):
+    """Dynamic shared memory of a launch of the compiled tile (bq, bk) at
+    head dim d.  bf16: Q, two stages of one K and one V tile, the barriers
+    and the alignment padding.  fp32: the Q, K, V and P tiles in fp32 with
+    their padding columns.  Broadcasts over numpy arrays."""
+    bq, bk, d = np.asarray(bq), np.asarray(bk), np.asarray(d)
+    if _fp32(dtype_bytes):
+        return (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1)) * 4
+    return ALIGN_PAD + bq * d * 2 + STAGES * 2 * bk * d * 2 + BARRIER_BYTES
+
+
+def fits(bq, bk, d, dtype_bytes: int = 2):
+    """The feasibility rule, broadcast over block arrays: the covering tile
+    is compiled at head dim d and its launch's shared memory fits."""
+    sq, sk = launch_tile(bq, bk, dtype_bytes)
+    ok = _compiled(sq, sk, d, dtype_bytes) \
+        & (np.asarray(bq, np.float64) >= 1) & (np.asarray(bk, np.float64) >= 1) \
+        & (smem_bytes(sq, sk, d, dtype_bytes) <= SMEM_LIMIT_BYTES)
+    return ok if np.ndim(ok) else bool(ok)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(t: int, s: int, d: int, *, block_q: int = 128, block_k: int = 128,
+         causal: bool = True, dtype_bytes: int = 2) -> tuple[int, int]:
+    """The tile a request launches.  The blocks keep the JAX wrapper's
+    contract: each is clamped to ``min(block, T|S)``, and non-causal
+    attention whose keys do not fill the last block raises.  Then the
+    covering compiled tile; ``ValueError`` on a tile the rule refuses."""
+    bq, bk = min(block_q, t), min(block_k, s)
+    if min(block_q, block_k) < 1:
+        raise ValueError(f"blocks must be positive, got ({block_q}, {block_k})")
+    if s % bk and not causal:
+        raise ValueError("non-causal attention with keys that do not fill the "
+                         f"last block (S={s}, block_k={bk}) needs a length mask")
+    if not fits(bq, bk, d, dtype_bytes):
+        sq, sk = (int(x) for x in launch_tile(bq, bk, dtype_bytes))
+        raise ValueError(
+            f"tile ({bq}, {bk}) is not feasible for flash attention at head "
+            f"dim {d}: compiled tile ({sq}, {sk}) needs block_q <= "
+            f"{max(BQ_SIDES)}, block_k <= {max(BK_SIDES)}, head dim in "
+            f"{HEAD_DIMS}, at most {MAX_ACC_PER_THREAD[1]} accumulators a "
+            f"consumer thread (bk/2 + d/2; {MAX_ACC_PER_THREAD[2]} at block_q "
+            f"128) and "
+            f"{int(smem_bytes(sq, sk, d, dtype_bytes))} bytes of shared memory "
+            f"against {SMEM_LIMIT_BYTES}")
+    return tuple(int(x) for x in launch_tile(bq, bk, dtype_bytes))
+
+
+def _lib():
     lib = _build.load(LIBRARY)
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
         i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-        fn.argtypes = ([i32, i32, ptr, ptr, ptr, ptr] + [i32] * 5 + [i64] * 12
+        fn.argtypes = ([i32] * 4 + [ptr] * 4 + [i32] * 5 + [i64] * 12
                        + [ctypes.c_float, i32, i32, i32, ptr])
-        fn.restype = ctypes.c_int
-    return fn
+        fn.restype = i32
+        lib.flash_attention_tiles.argtypes = [i32, ctypes.POINTER(i32), i32]
+        lib.flash_attention_tiles.restype = i32
+        lib.flash_attention_smem.argtypes = [i32] * 4
+        lib.flash_attention_smem.restype = i32
+        lib.flash_attention_error.argtypes = [i32]
+        lib.flash_attention_error.restype = ctypes.c_char_p
+    return lib
+
+
+def compiled_tiles(dtype_bytes: int = 2) -> list[tuple[int, int, int]]:
+    """The (BQ, BK, d) tiles the built library compiles for a dtype (loads it)."""
+    buf = (ctypes.c_int * (3 * 64))()
+    n = _lib().flash_attention_tiles(0 if _fp32(dtype_bytes) else 1, buf, 64)
+    return [tuple(buf[3 * i:3 * i + 3]) for i in range(min(n, 64))]
+
+
+def launch_smem(bq: int, bk: int, d: int, dtype_bytes: int = 2) -> int:
+    """The shared memory the built library requests for a launch of the
+    compiled tile (bq, bk) at head dim d, -1 where none is compiled (loads it)."""
+    return _lib().flash_attention_smem(0 if _fp32(dtype_bytes) else 1, bq, bk, d)
 
 
 def _check(q, k, v):
@@ -61,35 +210,62 @@ def _check(q, k, v):
         raise ValueError(f"head dim {d} not supported; the kernel takes {HEAD_DIMS}")
 
 
+def _strides(x) -> list[int]:
+    """(batch, row, head) strides in elements; a dimension of size 1 gets the
+    contiguous layout's stride, since its one index never multiplies it."""
+    b, r, h, d = x.shape
+    dense = (r * h * d, h * d, d)
+    return [x.stride(i) if x.shape[i] > 1 else dense[i] for i in range(3)]
+
+
+def tma_operand(x):
+    """A bf16 operand as TMA takes it: d contiguous, the other strides
+    multiples of 8 elements (16 bytes) and the base 16-byte aligned.  A
+    tensor that breaks this is copied into a fresh contiguous one; the
+    kernel is the same either way."""
+    ok = x.stride(-1) == 1 and x.data_ptr() % 16 == 0 \
+        and all(st % TMA_ALIGN == 0 for st in _strides(x))
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention_cuda(q, k, v, *, scale: float, window: int = 0,
-                         n_meta: int = 0, causal: bool = True) -> torch.Tensor:
-    """Launch the CUDA kernel.  q: [B,T,H,d]; k, v: [B,S,KV,d]."""
+                         n_meta: int = 0, causal: bool = True,
+                         block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Launch the CUDA kernel at the tile ``plan`` picks for the blocks.
+    q: [B,T,H,d]; k, v: [B,S,KV,d].  The last dim must be contiguous
+    (else it is copied); bf16 operands go through ``tma_operand``."""
     global launches
     _check(q, k, v)
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     if o.numel() == 0 or s == 0:
         return o.zero_()
-    fn = _kernel()
+    bq, bk = plan(t, s, d, block_q=block_q, block_k=block_k, causal=causal,
+                  dtype_bytes=q.element_size())
+    if q.dtype == torch.bfloat16:
+        q, k, v = (tma_operand(x) for x in (q, k, v))
+    else:
+        q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             o.data_ptr(), b, t, s, h, kvh,
-             q.stride(0), q.stride(1), q.stride(2),
-             k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2),
-             o.stride(0), o.stride(1), o.stride(2),
-             float(scale), int(window), int(n_meta), int(bool(causal)), stream)
+    err = lib.flash_attention_fwd(
+        _DTYPE_CODES[q.dtype], bq, bk, d, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), b, t, s, h, kvh,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(o),
+        float(scale), int(window), int(n_meta), int(bool(causal)), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention_fwd launch ({bq}, {bk}, d={d}) failed: "
+                           f"cudaError {err} ({lib.flash_attention_error(err).decode()})")
     launches += 1
     return o
 
 
 def flash_attention_plain(q, k, v, *, scale: float, window: int = 0,
-                          n_meta: int = 0, causal: bool = True) -> torch.Tensor:
-    """The same function in plain torch (the JAX package's ``_ref_expand``)."""
+                          n_meta: int = 0, causal: bool = True,
+                          **_blocks) -> torch.Tensor:
+    """The same function in plain torch (the JAX package's ``_ref_expand``);
+    blocks do not change it."""
     g = q.shape[2] // k.shape[2]
     if g > 1:
         k = k.repeat_interleave(g, dim=2)

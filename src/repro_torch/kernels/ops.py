@@ -39,16 +39,17 @@ def flash_attention(q, k, v, *, window: int = 0, n_meta: int = 0,
 
     ``block_q`` / ``block_k`` keep the JAX wrapper's contract: they are
     clamped to ``min(block, T|S)``, and keys that do not fill the last block
-    are only allowed under the causal mask.  The CUDA kernel's own tile is
-    fixed at compile time and masks ragged edges itself, so the blocks do not
-    change the result.
+    are only allowed under the causal mask.  The CUDA kernel then runs the
+    smallest compiled tile of the dtype covering the clamped blocks (bf16;
+    fp32 has one tile) and masks ragged edges itself.  A tile the kernel's
+    feasibility rule refuses raises ``ValueError`` on either device, so a
+    tile that cannot run on the card is never timed or swapped for another.
     """
-    dh, s = q.shape[3], k.shape[1]
+    t, dh, s = q.shape[1], q.shape[3], k.shape[1]
     scale = dh ** -0.5 if scale is None else float(scale)
-    bk = min(block_k, s)
-    if s % bk and not causal:
-        raise ValueError("non-causal attention with keys that do not fill the "
-                         f"last block (S={s}, block_k={bk}) needs a length mask")
+    if min(t, s) > 0:
+        _fa.plan(t, s, dh, block_q=block_q, block_k=block_k, causal=causal,
+                 dtype_bytes=q.element_size())
     run = _fa.flash_attention_cuda if q.is_cuda else _fa.flash_attention_plain
     return run(q, k, v, scale=scale, window=window, n_meta=n_meta,
-               causal=causal)
+               causal=causal, block_q=block_q, block_k=block_k)

@@ -4,13 +4,14 @@ The measured-autotuning loop ranks candidate tiles by what the hardware
 *does*, not what a closed-form cost model says it should do.  One
 interface, two implementations:
 
-* :class:`WallClockBackend` — times the hand-written blocked-matmul kernel
-  (``kernels/csrc/matmul_blocked.cu``) through ``kernels/ops.matmul`` with
-  CUDA events: warmup, then the median of ``reps`` back-to-back calls
-  queued behind a spin kernel (so they time the card, not the host), after
-  checking each tile's result against the plain oracle, so a mis-tiled
-  kernel can never report a fast-but-wrong time (a failed check scores
-  ``inf``).  On a CPU device it times the plain version, for tests.
+* :class:`WallClockBackend` — times the hand-written kernels, K1 (blocked
+  matmul) through ``kernels/ops.matmul`` and K2 (flash attention) through
+  ``kernels/ops.flash_attention``, with CUDA events: warmup, then the
+  median of ``reps`` back-to-back calls queued behind a spin kernel (so
+  they time the card, not the host), after checking each tile's result
+  against the plain oracle, so a mis-tiled kernel can never report a
+  fast-but-wrong time (a failed check scores ``inf``).  On a CPU device it
+  times the plain versions, for tests.
 * :class:`SimulatorBackend` — the JAX package's deterministic seeded tile
   simulator (per-grid-step load / compute / writeback on the shared
   roofline, double buffering gated by the tile rule's budget, an
@@ -20,17 +21,18 @@ interface, two implementations:
   returns the reference's seconds exactly; the default models the H100.
 
 A :class:`TileRule` says which tiles a kernel can run: the working set a
-tile needs against a budget, plus any other limit (K1's register rule).
+tile needs against a budget, plus any other limit (the kernels' compiled
+tiles and register rules).
 ``VMEM_RULE`` is the reference's TPU rule (the Pallas kernels'
-``vmem_bytes`` against 16 MiB of VMEM); ``SMEM_RULE`` is the H100's
-(``matmul_blocked.fits``: K1's compiled tiles, its register rule and its
-shared memory against 227 KB, by dtype).  ``SMEM_RULE`` has no flash rule
-yet: the flash kernel's tile is fixed at compile time (ROADMAP: "K2 tile
-as a launch parameter"), so flash cases raise under it.  The rule also
-names the ``<e>`` slot of the records it governs; ``SMEM_RULE``'s carries
-``"k1": "wgmma-tma"``, the design of K1 whose timings it keys (bf16 on the
-tensor cores through a TMA ring), so records timed on an earlier K1 never
-share a ``LogStore`` group with it.
+``vmem_bytes`` against 16 MiB of VMEM); ``SMEM_RULE`` is the H100's, by
+dtype: ``matmul_blocked.fits`` (K1's compiled tiles, its register rule and
+its shared memory against 227 KB) and ``flash_attention.fits`` (K2's
+compiled tiles, its register rule and its shared memory, the same 227 KB).
+The rule also names the ``<e>`` slot of the records it governs;
+``SMEM_RULE``'s carries ``"k1": "wgmma-tma"`` and ``"k2": "wgmma-tma"``,
+the designs of K1 and K2 whose timings it keys (bf16 on the tensor cores
+through a TMA ring), so records timed on an earlier kernel never share a
+``LogStore`` group with them.
 
 Backend names carry the hardware (``sim:v5e``, ``sim:h100``,
 ``wallclock:cuda``), so records of the TPU model and of the card never
@@ -47,6 +49,7 @@ import torch
 
 from repro_torch.core.roofline import H100, Hardware, mxu_efficiency, roofline_time
 from repro_torch.device import resolve_device
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul_blocked as _mm
 
 DTYPE_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4, "int8": 1}
@@ -104,19 +107,21 @@ class TileRule:
 
     ``matmul_bytes(bm, bn, bk, dtype_bytes)`` and ``flash_bytes(bq, bk, d,
     dtype_bytes)`` give a tile's working set (broadcasting over arrays),
-    held against ``budget``; ``matmul_limit(bm, bn, bk, dtype_bytes)``,
-    where given, is a further mask (K1's register rule).  A rule without
+    held against ``budget``; ``matmul_limit(bm, bn, bk, dtype_bytes)`` and
+    ``flash_limit(bq, bk, d, dtype_bytes)``, where given, are further masks
+    (the kernels' compiled tiles and register rules).  A rule without
     ``flash_bytes`` raises on flash cases.  ``env`` is the ``<e>`` slot of
     every record the rule governs."""
 
     def __init__(self, name: str, budget: int, env: dict, matmul_bytes,
-                 flash_bytes=None, matmul_limit=None):
+                 flash_bytes=None, matmul_limit=None, flash_limit=None):
         self.name = name
         self.budget = budget
         self.env = dict(env)
         self.matmul_bytes = matmul_bytes
         self.flash_bytes = flash_bytes
         self.matmul_limit = matmul_limit
+        self.flash_limit = flash_limit
 
     def matmul_ok(self, bm, bn, bk, dtype_bytes: int = 2):
         """Matmul feasibility mask, broadcast over tile arrays."""
@@ -127,15 +132,15 @@ class TileRule:
 
     def _flash_bytes(self, bq, bk, d, dtype_bytes):
         if self.flash_bytes is None:
-            raise NotImplementedError(
-                f"the {self.name} rule has no flash tiles: the flash kernel's "
-                "tile is fixed at compile time; see the ROADMAP item "
-                "'K2 tile as a launch parameter'")
+            raise NotImplementedError(f"the {self.name} rule has no flash tiles")
         return self.flash_bytes(bq, bk, d, dtype_bytes)
 
     def flash_ok(self, bq, bk, d: int, dtype_bytes: int = 2):
         """Flash feasibility mask, broadcast over tile arrays."""
-        return np.asarray(self._flash_bytes(bq, bk, d, dtype_bytes)) <= self.budget
+        ok = np.asarray(self._flash_bytes(bq, bk, d, dtype_bytes)) <= self.budget
+        if self.flash_limit is not None:
+            ok = ok & np.asarray(self.flash_limit(bq, bk, d, dtype_bytes))
+        return ok
 
     def tile_bytes(self, case: KernelCase, bm, bn, bk=None):
         """Working set of one tile of ``case``, broadcast over tile arrays."""
@@ -156,14 +161,19 @@ def _smem_matmul(bm, bn, bk, dtype_bytes=2):
                           _mm.launch_depth(bk, dtype_bytes), dtype_bytes)
 
 
+def _smem_flash(bq, bk, d, dtype_bytes=2):
+    return _fa.smem_bytes(*_fa.launch_tile(bq, bk, dtype_bytes), d, dtype_bytes)
+
+
 # the reference's rule: ~16 MiB usable VMEM per v5e core
 VMEM_RULE = TileRule("vmem", 16 * 2**20, {"vmem_mb": 16},
                      _vmem_matmul, _vmem_flash)
-# the H100's: 227 KB of shared memory per block (opt-in), and K1's
-# compiled tiles and register rule
+# the H100's: 227 KB of shared memory per block (opt-in), and K1's and
+# K2's compiled tiles and register rules
 SMEM_RULE = TileRule("smem", _mm.SMEM_LIMIT_BYTES,
-                     {"smem_kb": 227, "k1": "wgmma-tma"}, _smem_matmul,
-                     matmul_limit=_mm.fits)
+                     {"smem_kb": 227, "k1": "wgmma-tma", "k2": "wgmma-tma"},
+                     _smem_matmul, _smem_flash, matmul_limit=_mm.fits,
+                     flash_limit=_fa.fits)
 
 
 def _noise(seed: int, case_key: tuple, tile: tuple, amp: float) -> float:
@@ -185,9 +195,10 @@ class SimulatorBackend:
     droop on tiles past 256x256, charges a per-step launch overhead, and
     perturbs every reading by a seeded +/-``noise_amp``.  Identical seeds
     give identical times.  None of its seconds is a measurement.  Under
-    ``SMEM_RULE`` it does not model K1's bf16 ring: the ring fills the
-    shared memory with stages, so the half-budget test calls most bf16
-    tiles serial, where the kernel overlaps every one it runs."""
+    ``SMEM_RULE`` it does not model K1's bf16 ring nor K2's: K1's ring fills
+    the shared memory with stages and K2's two stages of K and V take most
+    of it at the larger tiles, so the half-budget test calls those tiles
+    serial, where the kernels overlap the loads of every tile they run."""
 
     deterministic = True
 
@@ -272,18 +283,22 @@ class SimulatorBackend:
 
 
 class WallClockBackend:
-    """Times the blocked-matmul kernel on ``device``: each tile's result is
-    first checked against the plain oracle (a mismatch scores ``inf`` and
-    counts in ``verify_failures``), then ``warmup`` untimed calls, then the
-    median of ``reps`` back-to-back calls, each between two CUDA events and
-    all queued before the card reaches them (see ``_seconds``).  A
-    launch error raises; it is never scored.  On ``device="cpu"`` the
-    wrapper takes the plain version and the host clock times it (for
+    """Times K1 (matmul cases) and K2 (flash cases) on ``device``: each
+    tile's result is first checked against the plain oracle (a mismatch
+    scores ``inf`` and counts in ``verify_failures``), then ``warmup``
+    untimed calls, then the median of ``reps`` back-to-back calls, each
+    between two CUDA events and all queued before the card reaches them
+    (see ``_seconds``).  A launch error raises, and so does a tile the
+    kernel's rule refuses; neither is scored.  On ``device="cpu"`` the
+    wrappers take the plain versions and the host clock times them (for
     tests).
 
-    Flash cases raise ``NotImplementedError``: the flash kernel's tile is
-    fixed at compile time, so timing it per tile would teach the tuner
-    noise (ROADMAP: "K2 tile as a launch parameter")."""
+    Flash cases run as the reference's do: MHA ``q, k, v`` of ``[batch, m,
+    heads, k]``, the case's causal flag.  Their oracle is the plain version
+    over chunks of query rows (``ref.flash_attention_ref_chunked``): at a
+    32k prefill the whole score tensor would not fit the card.  It is
+    computed once per case and checks every row of every tile.
+    ``measured_by`` counts the tiles timed per kernel."""
 
     deterministic = False
     hw = H100
@@ -300,23 +315,40 @@ class WallClockBackend:
         self.atol = atol
         self.seed = seed
         self.measured = 0
+        self.measured_by = {"matmul": 0, "flash": 0}
         self.verified = 0
         self.verify_failures = 0
 
     def _arrays(self, case: KernelCase):
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         dt = _TORCH_DTYPES[case.dtype]
-        a = torch.randn((case.m, case.k), generator=gen, device=self.device).to(dt)
-        b = torch.randn((case.k, case.n), generator=gen, device=self.device).to(dt)
-        return a, b
 
-    def _call(self, arrays, tile):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=self.device).to(dt)
+
+        if case.kernel == "flash":
+            kv = (case.batch, case.n, case.heads, case.k)
+            return randn(case.batch, case.m, case.heads, case.k), randn(*kv), randn(*kv)
+        return randn(case.m, case.k), randn(case.k, case.n)
+
+    @staticmethod
+    def _call(case: KernelCase, arrays, tile):
         from repro_torch.kernels import ops
+        if case.kernel == "flash":
+            return ops.flash_attention(*arrays, causal=case.causal,
+                                       block_q=int(tile[0]), block_k=int(tile[1]))
         a, b = arrays
         return ops.matmul(a, b, block_m=int(tile[0]), block_n=int(tile[1]),
                           block_k=int(tile[2]))
 
-    def _seconds(self, arrays, tile) -> list[float]:
+    @staticmethod
+    def _reference(case: KernelCase, arrays):
+        from repro_torch.kernels.ref import flash_attention_ref_chunked, matmul_ref
+        if case.kernel == "flash":
+            return flash_attention_ref_chunked(*arrays, causal=case.causal).float()
+        return matmul_ref(*arrays).float()
+
+    def _seconds(self, case: KernelCase, arrays, tile) -> list[float]:
         """``reps`` readings of one tile.  On the card the calls go back to
         back with an event after each, so each reading spans one kernel.
         They are queued behind a spin kernel, so the card reaches them only
@@ -332,7 +364,7 @@ class WallClockBackend:
                 torch.cuda._sleep(cycles)
                 events[0].record()
                 for end in events[1:]:
-                    self._call(arrays, tile)
+                    self._call(case, arrays, tile)
                     end.record()
                 queued_ahead = not events[0].query()
                 events[-1].synchronize()
@@ -347,25 +379,19 @@ class WallClockBackend:
         times = []
         for _ in range(self.reps):
             t0 = time.perf_counter()
-            self._call(arrays, tile)
+            self._call(case, arrays, tile)
             times.append(time.perf_counter() - t0)
         return times
 
     def measure(self, case: KernelCase, tiles) -> list[float]:
-        from repro_torch.kernels.ref import matmul_ref
-        if case.kernel == "flash":
-            raise NotImplementedError(
-                "the flash kernel's tile is fixed at compile time; measuring "
-                "flash tiles on the card waits for the ROADMAP item "
-                "'K2 tile as a launch parameter'")
         if case.dtype not in _TORCH_DTYPES:
-            raise ValueError(f"the blocked matmul takes {sorted(_TORCH_DTYPES)}, "
+            raise ValueError(f"the kernels take {sorted(_TORCH_DTYPES)}, "
                              f"not {case.dtype}")
         arrays = self._arrays(case)
-        ref = matmul_ref(*arrays).float() if self.verify else None
+        ref = self._reference(case, arrays) if self.verify else None
         out = []
         for tile in tiles:
-            got = self._call(arrays, tile)
+            got = self._call(case, arrays, tile)
             if ref is not None:
                 if torch.allclose(got.float(), ref, atol=self.atol, rtol=self.atol):
                     self.verified += 1
@@ -375,9 +401,10 @@ class WallClockBackend:
                     continue
             del got
             for _ in range(self.warmup):
-                self._call(arrays, tile)
-            out.append(float(np.median(self._seconds(arrays, tile))))
+                self._call(case, arrays, tile)
+            out.append(float(np.median(self._seconds(case, arrays, tile))))
             self.measured += 1
+            self.measured_by[case.kernel] += 1
         return out
 
 

@@ -1,17 +1,18 @@
 """The kernel tile tuner end to end: ``python -m repro_torch tune``.
 
 The kernel family of the JAX package's ``launch/tune.py``: the analytic
-cost-model grids are swept and fitted, the zoo's GEMM cases are measured
-through a timing backend into the ``LogStore``, the measured tuner is
-fitted and prints a tile for every case, and the evaluation table
-(predicted tile vs the cost model's argmin vs the measured best) is
-written beside the store.
+cost-model grids are swept and fitted, the zoo's kernel cases (GEMM and
+flash attention) are measured through a timing backend into the
+``LogStore``, a measured tuner per kernel is fitted and prints a tile for
+every case, and the evaluation table (predicted tile vs the cost model's
+argmin vs the measured best) is written beside the store.
 
     python -m repro_torch tune --arch yi-6b                       # on the card
     python -m repro_torch tune --arch yi-6b --device cpu --backend sim
 
-``--backend wallclock`` (the default) times the blocked-matmul CUDA kernel
-on the card at every candidate tile; ``--backend sim`` uses the seeded
+``--backend wallclock`` (the default) times the CUDA kernels on the card
+at every candidate tile: K1 (blocked matmul) for the GEMM cases and K2
+(flash attention) for the flash cases; ``--backend sim`` uses the seeded
 H100 simulator, whose seconds are a model, not a measurement.  The store
 is ``--store PATH`` > ``$REPRO_ARTIFACTS/torch/tune_store.jsonl`` > the
 checkout's ``artifacts/torch/``.  Re-running is idempotent: measured
@@ -42,12 +43,14 @@ def _own(records, env_items: dict):
 
 def tune_kernel(store, backend, *, arch_ids=None, seed: int = 0,
                 artifacts=None) -> dict:
-    """Analytic fit, measured fit over the zoo's GEMM cases, evaluation
-    table.  Returns the predictions, the report and the backend's counts."""
+    """Analytic fit, measured fits over the zoo's GEMM and flash cases,
+    evaluation table.  Returns the predictions (``(bm, bn, bk)`` for a GEMM
+    case, ``(bq, bk)`` for a flash case), the report and the backend's
+    counts."""
     from repro_torch.configs.workloads import zoo_cases
     from repro_torch.core.kerneltune import (MEASURED_SOURCE, KernelTuner,
                                              build_training_log,
-                                             measure_cases)
+                                             measure_cases, tile_algo)
     from repro_torch.eval.harness import evaluate_kernels, write_kernel_report
 
     t_start = time.time()
@@ -64,26 +67,31 @@ def tune_kernel(store, backend, *, arch_ids=None, seed: int = 0,
 
     _banner(f"measured tiles ({backend.name})")
     t0 = time.time()
-    cases = zoo_cases(arch_ids, with_flash=False)
+    cases = zoo_cases(arch_ids)
     _, stats = measure_cases(cases, backend, store)
-    measured = _own(store.load(algos="matmul_tile",
-                               source=MEASURED_SOURCE).records,
-                    {"timing": backend.name})
-    mtun = KernelTuner(rule=rule).fit(measured)
     print(f"  measured {stats['measured']} tiles ({stats['cached']} cached, "
           f"{stats['bucket_hits']} bucket hits, {stats['pruned']} pruned) "
           f"in {time.time() - t0:.1f}s")
-    preds = mtun.predict_batch([(c.m, c.k, c.n, c.dtype) for c in cases])
     print("  predictions:")
     predicted = {}
-    for case, tile in zip(cases, preds):
-        predicted[case.label] = tuple(int(v) for v in tile)
-        print(f"  {case.label} (m,k,n)=({case.m},{case.k},{case.n}): "
-              f"(block_m, block_n, block_k)={predicted[case.label]}")
+    for kernel, names in (("matmul", "block_m, block_n, block_k"),
+                          ("flash", "block_q, block_k")):
+        kcases = [c for c in cases if c.kernel == kernel]
+        measured = _own(store.load(algos=tile_algo(kernel),
+                                   source=MEASURED_SOURCE).records,
+                        {"timing": backend.name})
+        if not kcases or not measured:
+            continue
+        mtun = KernelTuner(kernel, rule=rule).fit(measured)
+        preds = mtun.predict_batch([(c.m, c.k, c.n, c.dtype) for c in kcases])
+        for case, tile in zip(kcases, preds):
+            predicted[case.label] = tuple(int(v) for v in tile)
+            print(f"  {case.label} (m,k,n)=({case.m},{case.k},{case.n}): "
+                  f"({names})={predicted[case.label]}")
 
     _banner(f"evaluation: predicted vs cost-model vs measured best ({backend.name})")
     report = evaluate_kernels(backend=backend, arch_ids=arch_ids, seed=seed,
-                              store=store, with_flash=False)
+                              store=store)
     path = write_kernel_report(report, artifacts)
     ov = report["overall"]
     print(f"  {report['config']['n_rows']} cases: geomean speedup vs cost "
@@ -92,7 +100,8 @@ def tune_kernel(store, backend, *, arch_ids=None, seed: int = 0,
           f"{ov['mean_regret_vs_best']:.4f} -> {path}")
     counts = {"measured": backend.measured, "reps": getattr(backend, "reps", 0),
               "verified": getattr(backend, "verified", 0),
-              "verify_failures": getattr(backend, "verify_failures", 0)}
+              "verify_failures": getattr(backend, "verify_failures", 0),
+              "measured_by": dict(getattr(backend, "measured_by", {}))}
     return {"predicted": predicted, "eval": report, "backend": counts,
             "wall_s": time.time() - t_start}
 
@@ -103,9 +112,9 @@ def main(argv=None) -> dict:
     from repro_torch.kernels.timing import SimulatorBackend, WallClockBackend
 
     ap = argparse.ArgumentParser(
-        description="measure, fit and evaluate the blocked-matmul tile tuner")
+        description="measure, fit and evaluate the kernel tile tuners")
     ap.add_argument("--arch", nargs="*", default=None, choices=ARCH_IDS,
-                    help="architectures whose GEMM cases are measured "
+                    help="architectures whose kernel cases are measured "
                          "(default: the whole zoo)")
     ap.add_argument("--backend", choices=["wallclock", "sim"],
                     default="wallclock")

@@ -1,5 +1,7 @@
 """The port's flash attention (plain version on the CPU) against the JAX
-package's Pallas kernel in interpret mode, on the same numpy inputs."""
+package's Pallas kernel in interpret mode, on the same numpy inputs; the
+wrapper's clamping and tile rule; the kernels on the card where there is
+one."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,7 +10,8 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.ref import flash_attention_ref, matmul_ref
+from repro_torch.kernels.ref import (flash_attention_ref,
+                                     flash_attention_ref_chunked, matmul_ref)
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -124,3 +127,129 @@ def test_refs_match_jax(dtype):
     want = jref(*(jnp.asarray(x, JDT[dtype]) for x in (q, k, v)), window=8, n_meta=4)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# ---------------------------------------------------------- the tile rule
+# The bf16 kernel's sums, written out: a consumer warpgroup owns 64 query
+# rows (one or two of them), S of a key tile is one wgmma (at most 256
+# wide), and a consumer thread holds bk/2 accumulators of S and d/2 of O,
+# at most 160 with one consumer warpgroup (255 registers a thread) and 128
+# with two (168 registers a thread).  Shared memory: 1024 bytes of alignment padding, Q (bq x d
+# bf16), two stages of one K and one V tile (bk x d bf16 each), and 8 bytes
+# for Q's barrier plus 16 a stage.
+def _smem_bf16(bq, bk, d):
+    return 1024 + bq * d * 2 + 2 * (2 * bk * d * 2) + 8 + 2 * 16
+
+
+def test_compiled_tiles_follow_the_register_and_shared_memory_sums():
+    want = [(bq, bk, d) for d in (32, 64, 128) for bq in (64, 128)
+            for bk in (64, 128, 256)
+            if bk // 2 + d // 2 <= (160 if bq == 64 else 128)]
+    assert list(tfa.INSTANTIATED[2]) == want
+    assert len(want) == 14 and (64, 256, 64) in want
+    assert (64, 256, 128) not in want and (128, 256, 32) not in want
+    for bq, bk, d in want:
+        assert tfa.smem_bytes(bq, bk, d) == _smem_bf16(bq, bk, d) <= 232_448
+        assert tfa.fits(bq, bk, d)
+    assert _smem_bf16(128, 128, 128) == 164_904
+    # fp32: one CUDA-core tile of 64 x 32 at every head dim, its Q, K, V and
+    # P tiles in fp32 with a padding column
+    assert tfa.INSTANTIATED[4] == ((64, 32, 32), (64, 32, 64), (64, 32, 128))
+    assert tfa.smem_bytes(64, 32, 128, 4) == \
+        (64 * 129 + 32 * 129 + 32 * 128 + 64 * 33) * 4
+
+
+@pytest.mark.parametrize("blocks,launch", [
+    ((1, 1), (64, 64)), ((32, 32), (64, 64)), ((64, 100), (64, 128)),
+    ((100, 129), (128, 256)), ((128, 256), (128, 256)),
+])
+def test_launch_tile_covers_the_blocks(blocks, launch):
+    assert tfa.launch_tile(*blocks) == launch
+    assert tfa.launch_tile(*blocks, dtype_bytes=4) == (64, 32)
+    np.testing.assert_array_equal(
+        tfa.launch_tile(np.array([blocks[0]] * 2), np.array([blocks[1]] * 2))[1],
+        [launch[1]] * 2)
+
+
+@pytest.mark.parametrize("bq,bk,d,ok", [
+    (128, 128, 128, True), (64, 64, 32, True), (64, 200, 64, True),
+    (100, 200, 64, False),        # covered by (128, 256): 160 accumulators at 168 registers
+    (256, 64, 128, False),        # a third consumer warpgroup is not compiled
+    (64, 256, 128, False),        # 128 + 64 accumulators a thread
+    (128, 256, 32, False),        # 128 + 16 with two consumer warpgroups
+    (64, 512, 32, False),         # S wider than one wgmma
+    (64, 64, 48, False),          # not a head dim the kernel takes
+    (0, 64, 64, False),
+])
+def test_fits_is_the_compiled_set(bq, bk, d, ok):
+    assert tfa.fits(bq, bk, d) is ok
+    assert tfa.fits(bq, bk, d, 4) is (d in tfa.HEAD_DIMS and min(bq, bk) >= 1)
+
+
+@pytest.mark.parametrize("shape,blocks,dtype_bytes,launch", [
+    ((512, 512, 128), (128, 128), 2, (128, 128)),          # the serving call
+    ((100, 100, 32), (32, 32), 2, (64, 64)),               # covering tile
+    ((64, 192, 64), (512, 512), 2, (64, 256)),             # clamped to T and S
+    ((4096, 4096, 128), (64, 128), 2, (64, 128)),
+    ((4096, 4096, 128), (128, 128), 4, (64, 32)),          # fp32: its one tile
+])
+def test_plan_clamps_blocks_and_covers_them(shape, blocks, dtype_bytes, launch):
+    t, s, d = shape
+    assert tfa.plan(t, s, d, block_q=blocks[0], block_k=blocks[1],
+                    dtype_bytes=dtype_bytes) == launch
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("blocks,d", [((256, 64), 128), ((64, 256), 128),
+                                      ((0, 64), 64)])
+def test_a_refused_tile_raises_on_the_cpu_too(dtype, blocks, d):
+    q, k, v = (torch.tensor(a).to(TDT[dtype]) for a in _inputs(7, 1, 512, 512, 2, 1, d))
+    if dtype == "float32" and min(blocks) >= 1:
+        tops.flash_attention(q, k, v, block_q=blocks[0], block_k=blocks[1])
+        return                    # fp32 runs its one tile for any block
+    with pytest.raises(ValueError, match="not feasible|positive"):
+        tops.flash_attention(q, k, v, block_q=blocks[0], block_k=blocks[1])
+
+
+@pytest.mark.parametrize("t,s,causal,window,n_meta", [
+    (50, 100, True, 0, 0),        # ragged T < S: each chunk keeps its alignment
+    (75, 203, True, 16, 4),       # window + meta prefix
+    (60, 100, False, 8, 2),       # non-causal window
+    (120, 90, True, 0, 0),        # T > S: rows that see no key at all
+])
+def test_chunked_oracle_equals_the_whole_one(t, s, causal, window, n_meta):
+    q, k, v = (torch.tensor(a, dtype=torch.float32)
+               for a in _inputs(t + s, 2, t, s, 3, 3, 32))
+    want = flash_attention_ref(q, k, v, causal=causal, window=window, n_meta=n_meta)
+    # 7 rows a chunk: every chunk boundary falls inside the sequence
+    got = flash_attention_ref_chunked(q, k, v, causal=causal, window=window,
+                                      n_meta=n_meta, max_scores=2 * 3 * s * 7)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------------------ on the card
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash-attention kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window,n_meta", [(True, 0, 0), (True, 32, 8),
+                                                  (False, 0, 0)])
+def test_kernel_matches_plain_on_the_card(card, causal, window, n_meta):
+    for d in tfa.HEAD_DIMS:
+        q, k, v = (torch.tensor(a).to(torch.bfloat16).to(card)
+                   for a in _inputs(d, 2, 192, 256, 4, 2, d))
+        want = tfa.flash_attention_plain(q, k, v, scale=d ** -0.5, causal=causal,
+                                         window=window, n_meta=n_meta).float()
+        by_bk = {}
+        for bq, bk, dd in tfa.INSTANTIATED[2]:
+            if dd != d:
+                continue
+            got = tops.flash_attention(q, k, v, causal=causal, window=window,
+                                       n_meta=n_meta, block_q=bq, block_k=bk)
+            torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+            # each row's arithmetic does not depend on block_q
+            assert torch.equal(got, by_bk.setdefault(bk, got))

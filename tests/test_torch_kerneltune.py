@@ -33,6 +33,7 @@ from repro_torch.core.log import ExecutionLog as TLog
 from repro_torch.core.roofline import H100, V5E
 from repro_torch.data.logstore import LogStore as TStore
 from repro_torch.eval import harness as tharness
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul_blocked as mm
 from repro_torch.kernels import ops
 from repro_torch.kernels import timing as ttiming
@@ -269,8 +270,9 @@ def test_measured_records_name_the_backend_and_rule(tmp_path):
     case = twl.zoo_cases(["yi-6b"], ["decode_32k"], with_flash=False)[0]
     recs, stats = tkt.measure_case(case, ttiming.SimulatorBackend(seed=0), store)
     assert stats["measured"] > 0
-    assert all(r.env == {"smem_kb": 227, "k1": "wgmma-tma", "kernel": "matmul",
-                         "dtype": "bfloat16", "timing": "sim:h100"} for r in recs)
+    assert all(r.env == {"smem_kb": 227, "k1": "wgmma-tma", "k2": "wgmma-tma",
+                         "kernel": "matmul", "dtype": "bfloat16",
+                         "timing": "sim:h100"} for r in recs)
     again, stats = tkt.measure_case(case, ttiming.SimulatorBackend(seed=0), store)
     assert stats["measured"] == 0 and stats["cached"] == len(again)
 
@@ -308,16 +310,25 @@ def test_simulator_serializes_tiles_over_half_the_budget(rule, dtype, tile, seri
 
 @pytest.mark.parametrize("use", ["tile_bytes", "fits", "cost_model"])
 def test_smem_rule_refuses_flash_cases(use):
+    """The H100 rule prices flash tiles by K2's real launch: it admits the
+    compiled tiles and refuses the rest, on all three of its uses."""
     case = ttiming.KernelCase("flash", 4096, 128, 4096, heads=32)
-    with pytest.raises(NotImplementedError, match="K2 tile as a launch parameter"):
-        if use == "tile_bytes":
-            ttiming.SMEM_RULE.tile_bytes(case, 64, 64)
-        elif use == "fits":
-            tkt.feasible_tiles(case, [(64, 64)])
-        else:
-            tkt.flash_tile_times(4096, 128, 4096, 64, 64, heads=32)
-    # the reference's rule still prices them
-    assert ttiming.VMEM_RULE.fits(case, 64, 64)
+    admitted = [(64, 64), (64, 128), (128, 64), (128, 128)]
+    refused = [(256, 64), (64, 256), (512, 512)]
+    if use == "tile_bytes":
+        for bq, bk in admitted + refused:
+            sq, sk = fa.launch_tile(bq, bk)
+            assert ttiming.SMEM_RULE.tile_bytes(case, bq, bk) == \
+                fa.smem_bytes(sq, sk, 128) == \
+                1024 + sq * 128 * 2 + 2 * 2 * sk * 128 * 2 + 40
+    elif use == "fits":
+        assert tkt.feasible_tiles(case, admitted + refused) == admitted
+    else:
+        times = tkt.flash_tile_times(4096, 128, 4096, np.array([64, 128, 256]),
+                                     np.array([64, 128, 64]), heads=32)
+        assert np.isfinite(times[:2]).all() and np.isinf(times[2])
+    # the reference's rule still prices them its own way
+    assert ttiming.VMEM_RULE.fits(case, 256, 64)
 
 
 # ------------------------------------------------------ wall-clock backend
@@ -341,11 +352,36 @@ def test_wallclock_scores_a_wrong_result_inf(monkeypatch):
 
 
 def test_wallclock_raises_on_flash_and_on_an_infeasible_tile():
+    """Flash tiles are measured now; an infeasible tile of either kernel
+    raises instead of being timed or scored."""
     be = ttiming.WallClockBackend(device="cpu")
-    with pytest.raises(NotImplementedError, match="K2 tile as a launch parameter"):
-        be.measure(ttiming.KernelCase("flash", 128, 64, 128), [(64, 64)])
+    secs = be.measure(ttiming.KernelCase("flash", 128, 64, 128), [(64, 64)])
+    assert math.isfinite(secs[0])
+    with pytest.raises(ValueError, match="not feasible"):
+        be.measure(ttiming.KernelCase("flash", 512, 128, 512), [(256, 64)])
     with pytest.raises(ValueError, match="not feasible"):
         be.measure(ttiming.KernelCase("matmul", 1024, 1024, 1024), [(512, 512, 64)])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_wallclock_cpu_verifies_and_times_a_flash_case(causal):
+    be = ttiming.WallClockBackend(device="cpu", reps=2)
+    case = ttiming.KernelCase("flash", 96, 32, 128, heads=2, batch=2, causal=causal,
+                              dtype="float32")
+    secs = be.measure(case, [(64, 64), (32, 128)])
+    assert all(math.isfinite(s) and s > 0 for s in secs)
+    assert (be.measured, be.verified, be.verify_failures) == (2, 2, 0)
+    assert be.measured_by == {"matmul": 0, "flash": 2}
+
+
+def test_wallclock_scores_a_wrong_flash_result_inf(monkeypatch):
+    be = ttiming.WallClockBackend(device="cpu")
+    real = fa.flash_attention_plain
+    monkeypatch.setattr(fa, "flash_attention_plain",
+                        lambda *a, **kw: real(*a, **kw) + 1.0)
+    secs = be.measure(ttiming.KernelCase("flash", 64, 32, 64, heads=2), [(64, 64)])
+    assert secs == [float("inf")]
+    assert (be.measured, be.verify_failures) == (0, 1)
 
 
 def test_wallclock_cuda_refuses_without_a_card():
@@ -368,9 +404,13 @@ def test_tune_main_with_the_simulator(tmp_path):
     store = tmp_path / "store.jsonl"
     out = ttune.main(["--device", "cpu", "--backend", "sim", "--arch", "yi-6b",
                       "--store", str(store)])
-    assert len(out["predicted"]) == 12
-    assert all(len(t) == 3 and mm.fits(*t) for t in out["predicted"].values())
-    assert out["backend"]["measured"] > 0 and out["eval"]["config"]["n_rows"] == 12
+    assert len(out["predicted"]) == 14
+    flash = {k: t for k, t in out["predicted"].items() if k.endswith("/flash")}
+    assert sorted(flash) == ["yi-6b/prefill_32k/flash", "yi-6b/train_4k/flash"]
+    assert all(len(t) == 2 and fa.fits(*t, 128) for t in flash.values())
+    assert all(len(t) == 3 and mm.fits(*t) for k, t in out["predicted"].items()
+               if k not in flash)
+    assert out["backend"]["measured"] > 0 and out["eval"]["config"]["n_rows"] == 14
     report = json.loads((tmp_path / "kernel_eval.json").read_text())
     assert report["config"]["backend"] == "sim:h100"
     again = ttune.main(["--device", "cpu", "--backend", "sim", "--arch", "yi-6b",
@@ -389,3 +429,28 @@ def test_python_m_repro_torch_tune(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "yi-6b/decode_32k/ffn_down" in proc.stdout
     assert (tmp_path / "kernel_eval.json").exists()
+
+
+def test_tune_kernel_with_the_simulator_predicts_the_flash_pairs(tmp_path):
+    out = ttune.tune_kernel(TStore(tmp_path / "s.jsonl"),
+                            ttiming.SimulatorBackend(seed=0), arch_ids=["yi-6b"],
+                            artifacts=tmp_path)
+    pred = out["predicted"]
+    assert len(pred) == 14
+    assert sum(len(t) == 2 for t in pred.values()) == 2
+    rows = [r for r in out["eval"]["rows"] if r["kernel"] == "flash"]
+    assert [r["label"] for r in rows] == ["yi-6b/train_4k/flash",
+                                          "yi-6b/prefill_32k/flash"]
+    assert all(fa.fits(*r["argmin_tile"], 128) for r in rows)
+
+
+def test_evaluate_kernels_skips_a_head_dim_k2_does_not_compile():
+    """phi-3-vision's head dim is 96: the H100 rule admits no flash tile
+    there, so its flash cases have no row (its GEMM cases all do)."""
+    report = tharness.evaluate_kernels(backend=ttiming.SimulatorBackend(seed=0),
+                                       arch_ids=["phi-3-vision-4.2b"])
+    cases = twl.zoo_cases(["phi-3-vision-4.2b"])
+    assert {c.k for c in cases if c.kernel == "flash"} == {96}
+    assert report["config"]["n_cases"] == len(cases)
+    assert [r["kernel"] for r in report["rows"]] == \
+        ["matmul"] * sum(c.kernel == "matmul" for c in cases)
