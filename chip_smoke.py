@@ -37,6 +37,30 @@ Phases, each of which raises on failure (exit code != 0):
                tile and the best tile phase 8 measured, beside its plain
                version, torch.matmul and the bound: TFLOP/s and the share
                of the bound
+ 10. k2-bwd    the flash-attention gradient (K2 bwd) against its plain
+               version (autograd through the plain forward) on phase 3's
+               cases and two causal T > S cases (rows that see no key),
+               fp32 (1e-4) and bf16 (3e-2), each relative to the
+               largest gradient entry; two launches bit-identical; the
+               forward with lse bit-identical to the one without; refused
+               head dims raise; the autograd Function's gradients are the
+               kernel's
+ 11. k2-bwd-timing  K2 bwd at train_4k as the train run calls it (q
+               [1,4096,32,128], k/v [1,4096,4,128] bf16, causal) beside its
+               plain version, SDPA's backward and the bound
+ 12. train     Yi-6B at its published widths, 8 of its 32 layers, bf16
+               params, fp32 AdamW moments and gradient accumulation, 8
+               microbatches with per-layer remat, seq 4096, global batch 8,
+               data from the port's pipeline, flash attention: 1 warm-up and
+               3 timed steps (step ms, tokens/s, model-FLOP share, peak
+               memory, finite loss and gnorm, K2 and K2 bwd launches equal
+               to their formulas); then one step at 2 layers and seq 1024,
+               flash against plain attention: loss, gnorm and each
+               attention weight's gradient
+ 13. train-launcher  ``python -m repro_torch train --preset small
+               --use-flash`` through its ``main``: loss improves over 14
+               steps, ``--resume`` continues from the checkpoint,
+               ``--inject-failure`` restores and reruns
 The last three lines are the ``nvidia-smi`` name/power-limit line, the
 kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
@@ -57,15 +81,17 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.configs.workloads import zoo_cases  # noqa: E402
 from repro_torch.core.kerneltune import bucket_pow2  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import matmul_blocked as mm  # noqa: E402
-from repro_torch.launch import serve, tune  # noqa: E402
+from repro_torch.launch import serve, train, tune  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.runtime.pipeline import DataPipeline, PipelineConfig  # noqa: E402
+from repro_torch.runtime.tree import flatten  # noqa: E402
 from repro_torch.weights import init_params  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense bf16 tensor-core rate
@@ -89,6 +115,7 @@ CASES = [
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 SLICE = dict(B=8, T=512, H=32, KV=4, d=128)      # Yi-6B prefill in the serve run
 TRAIN_4K = dict(B=1, T=4096, H=32, KV=32, d=128)  # Yi-6B's train_4k flash case (MHA)
+TRAIN_4K_GQA = dict(TRAIN_4K, KV=4)               # one sequence of the train run (phase 12)
 K2_DEFAULT = (128, 128)                          # the serving call's blocks
 # tiles the rule refuses, (block_q, block_k, d)
 K2_REFUSED = [(256, 64, 128), (64, 256, 128), (128, 256, 64), (512, 512, 32)]
@@ -193,7 +220,7 @@ def bound(flops, nbytes, dtype=torch.bfloat16):
 
 
 def phase_build():
-    libs = [fa.LIBRARY, mm.LIBRARY]
+    libs = [fa.LIBRARY, mm.LIBRARY, fa.LIBRARY_BWD]
     t0 = time.perf_counter()
     paths = _build.build_many(libs)
     sources = [src for lib in libs for src in lib.sources]
@@ -251,8 +278,9 @@ def phase_build():
           f"{len(mm.INSTANTIATED[2])} bf16 tiles on wgmma + TMA; flash_attention: "
           f"{len(fa.INSTANTIATED[4])} fp32 kernels on CUDA cores, "
           f"{len(fa.INSTANTIATED[2])} bf16 tiles on wgmma + TMA (HGMMA, UTMALDG in "
-          "each bf16 kernel); no spills; tiles and shared memory as the rules say",
-          flush=True)
+          "each bf16 kernel); flash_attention_bwd: delta, dK/dV and dQ kernels at "
+          f"d {fa.HEAD_DIMS} in fp32 and bf16 on CUDA cores; no spills; tiles and "
+          "shared memory as the rules say", flush=True)
 
 
 def phase_kernel(device):
@@ -392,9 +420,11 @@ def phase_serve():
             "--prompt-len", "512", "--gen-len", "32"]
     torch.cuda.reset_peak_memory_stats()
     report = {}
-    fa.launches = 0
+    fa.launches = fa.bwd_launches = 0
     out = serve.main(argv, report=report)
     launches = fa.launches
+    if fa.bwd_launches:
+        raise SystemExit(f"[serve] {fa.bwd_launches} K2 bwd launches in inference")
     # decode never calls the kernel, so every launch of the run is prefill's
     if launches != cfg.n_layers:
         raise SystemExit(f"[serve] {launches} kernel launches, expected {cfg.n_layers}")
@@ -576,6 +606,290 @@ def phase_k1_timing(device, best_tile):
                 tflops=tflops, share_of_bound=share)
 
 
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # x max |grad|
+# phase 3's cases and causal T > S, where the first T - S rows see no key
+# (the forward is not held to the oracle on such rows, the gradient is)
+BWD_CASES = CASES + [
+    ("t>s causal", 2, 160, 96, 4, 2, 64, 0, 0, True),
+    ("t>s ragged window", 2, 100, 70, 4, 2, 128, 16, 4, True),
+]
+BWD_REFUSED_DIMS = (48, 96)
+
+
+def check_grads(name, got, want, tol):
+    """Each of dq, dk, dv within ``tol`` times the largest entry of its
+    plain version; returns (max abs err, max err relative to that entry)."""
+    abs_err = rel_err = 0.0
+    for g, w, which in zip(got, want, ("dq", "dk", "dv")):
+        err = (g.float() - w.float()).abs().max().item()
+        top = w.float().abs().max().item()
+        if not (err <= tol * top and torch.isfinite(g).all()):
+            raise SystemExit(f"[k2-bwd] {name} {which}: max abs err {err:.3e} over "
+                             f"{tol} x max |{which}| {top:.3e}")
+        abs_err, rel_err = max(abs_err, err), max(rel_err, err / top)
+    return abs_err, rel_err
+
+
+def phase_k2_bwd(device):
+    """K2 bwd against its plain version on BWD_CASES, in both dtypes."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    worst_abs, worst_rel = {}, {}
+    for name, b, t, s, h, kv, d, win, meta, causal in BWD_CASES:
+        kw = dict(scale=d ** -0.5, window=win, n_meta=meta, causal=causal)
+        for dtype, tol in BWD_TOL.items():
+            q, k, v = qkv(gen, b, t, s, h, kv, d, dtype, device)
+            g = rand(gen, q.shape, dtype, device)
+            o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            if not torch.equal(o, fa.flash_attention_cuda(q, k, v, **kw)):
+                raise SystemExit(f"[k2-bwd] {name} {dtype}: the forward with lse "
+                                 "differs from the forward without")
+            got = fa.flash_attention_bwd_cuda(q, k, v, o, g, lse, **kw)
+            again = fa.flash_attention_bwd_cuda(q, k, v, o, g, lse, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise SystemExit(f"[k2-bwd] {name} {dtype}: two launches differ")
+            want = fa.flash_attention_bwd_plain(q, k, v, o, g, **kw)
+            err = check_grads(f"{name} {dtype}", got, want, tol)
+            worst_abs[dtype] = max(worst_abs.get(dtype, 0.0), err[0])
+            worst_rel[dtype] = max(worst_rel.get(dtype, 0.0), err[1])
+            print(f"[k2-bwd] {name:<18} {str(dtype):<15} max abs err {err[0]:.3e}, "
+                  f"{err[1]:.3e} of max |grad| (tol {tol}); bit-identical across two "
+                  "launches; forward with lse bit-identical", flush=True)
+    # through the autograd Function, as training calls it
+    q, k, v = (x.requires_grad_(True) for x in qkv(gen, 2, 128, 128, 4, 2, 64,
+                                                    torch.bfloat16, device))
+    g = rand(gen, q.shape, torch.bfloat16, device)
+    before = fa.bwd_launches
+    ops.flash_attention(q, k, v).backward(g)
+    o, lse = fa.flash_attention_cuda(q.detach(), k.detach(), v.detach(), scale=64 ** -0.5,
+                                     return_lse=True)
+    direct = fa.flash_attention_bwd_cuda(q.detach(), k.detach(), v.detach(), o, g, lse,
+                                         scale=64 ** -0.5)
+    if fa.bwd_launches != before + 2 or not all(
+            torch.equal(x.grad, y) for x, y in zip((q, k, v), direct)):
+        raise SystemExit("[k2-bwd] the autograd Function's gradients are not the kernel's")
+    for d in BWD_REFUSED_DIMS:
+        q, k, v = qkv(gen, 1, 64, 64, 2, 1, d, torch.bfloat16, device)
+        lse = torch.zeros(1, 2, 64, device=device)
+        try:
+            fa.flash_attention_bwd_cuda(q, k, v, q, q, lse, scale=1.0)
+        except ValueError:
+            continue
+        raise SystemExit(f"[k2-bwd] head dim {d} did not raise")
+    print(f"[k2-bwd] {len(BWD_CASES)} cases x 2 dtypes within tolerance: fp32 max "
+          f"{worst_rel[torch.float32]:.3e}, bf16 max {worst_rel[torch.bfloat16]:.3e} of "
+          f"max |grad|; the autograd Function's gradients are the kernel's bit for bit; "
+          f"head dims {BWD_REFUSED_DIMS} raised ValueError", flush=True)
+    print("[k2-bwd] kernels checked against their plain versions: flash_attention_bwd "
+          "(fp32 and bf16, CUDA cores)")
+    return worst_abs[torch.bfloat16], worst_rel
+
+
+def phase_k2_bwd_timing(device):
+    """K2 bwd at train_4k as the train run calls it (Yi-6B's GQA) beside its
+    plain version, SDPA's backward and the bound: 2.5 times the forward's
+    products (S recomputed, dV, dP, dK and dQ, each d-long per live pair),
+    q, k, v, o, dO and lse read once and dq, dk, dv written once."""
+    c = TRAIN_4K_GQA
+    gen = torch.Generator(device=device).manual_seed(6)
+    q, k, v = qkv(gen, c["B"], c["T"], c["T"], c["H"], c["KV"], c["d"],
+                  torch.bfloat16, device)
+    g = rand(gen, q.shape, torch.bfloat16, device)
+    kw = dict(scale=c["d"] ** -0.5)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, g, lse, **kw)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, g, **kw)
+    err = check_grads("train_4k", got, want, BWD_TOL[torch.bfloat16])
+    del got, want
+    kernel_ms = time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, g, lse, **kw),
+                        iters=5, warmup=2)
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, g, **kw),
+                       iters=3, warmup=1)
+    # the yardstick: SDPA's backward alone, its forward's graph kept
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=c["KV"] != c["H"])
+    gt = g.transpose(1, 2).contiguous()
+    library_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                                     retain_graph=True), iters=20)
+    fwd_flops, _ = flash_work(c["B"], c["T"], c["T"], c["H"], c["KV"], c["d"])
+    flops = 2.5 * fwd_flops
+    b, t, h, kvh, d = c["B"], c["T"], c["H"], c["KV"], c["d"]
+    nbytes = (2 * (3 * b * t * h * d + 2 * b * t * kvh * d)    # q, o, dO; k, v (bf16)
+              + 4 * b * h * t                                  # lse (fp32)
+              + 2 * (b * t * h * d + 2 * b * t * kvh * d))     # dq; dk, dv (bf16)
+    bound_ms, bound_by, t_bytes, t_ops = bound(flops, nbytes)
+    print(f"[k2-bwd-timing] train_4k q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal: "
+          f"kernel_ms={kernel_ms:.4f} ({flops / kernel_ms / 1e9:.2f} TFLOP/s, "
+          f"{bound_ms / kernel_ms:.4f} of the bound) plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (SDPA backward, {bound_ms / library_ms:.4f} of "
+          f"the bound) bound_ms={bound_ms:.5f} by {bound_by} ({nbytes / 1e6:.1f} MB -> "
+          f"{t_bytes:.5f} ms, {flops / 1e9:.2f} GFLOP -> {t_ops:.5f} ms); max abs err "
+          f"{err[0]:.3e}, {err[1]:.3e} of max |grad|", flush=True)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, share_of_bound=bound_ms / kernel_ms,
+                shape="train_4k")
+
+
+TRAIN = dict(layers=8, seq=4096, batch=8, micro=8, warmup_steps=1, timed_steps=3)
+TRAIN_CHECK = dict(layers=2, seq=1024, batch=8, micro=8)
+# flash vs plain attention, one step from the same bf16 weights, relative
+# differences: the loss (an fp32 mean over 8K tokens) and the gnorm (over
+# every parameter) read 1.29e-05 and 6.71e-06 on an H100 80GB HBM3, so the
+# limits leave 8x and 150x; each attention weight's gradient (wq, wk, wv,
+# wo of both layers, one microbatch) by its norm (read at most 1.91e-04)
+# and by its largest entry error over its largest entry (at most
+# 6.71e-03: bf16 gradients), where a head or one of dq, dk, dv gone wrong
+# would show whole
+TRAIN_CHECK_TOL = dict(loss=1e-4, gnorm=1e-3, attn_norm=2e-3, attn_max=2e-2)
+
+
+def _train_setup(cfg, seq, batch, use_flash, device, seed=0):
+    # the default schedule (100 warm-up steps): a few steps at the peak rate
+    # from random weights would drive the loss up, which says nothing here
+    step_fn, specs = train.build(cfg, train.TrainHParams(), use_flash=use_flash)
+    params, opt = train.init_state(specs, device, seed)
+    pipe = DataPipeline(cfg, ShapeConfig("train_4k", "train", seq, batch),
+                        PipelineConfig(seed=seed), device=device)
+    return step_fn, params, opt, pipe
+
+
+def _attention_grads(cfg, params, batch, use_flash):
+    """{path: fp32 gradient} of the first microbatch's loss for the
+    attention weights."""
+    named = [(path, x) for path, x in flatten(params) if "/attn/" in path]
+    for _, x in named:
+        x.requires_grad_(True)
+    try:
+        loss, _ = tfm.train_loss(cfg, params, {k: v[0] for k, v in batch.items()},
+                                 use_flash=use_flash)
+        grads = torch.autograd.grad(loss, [x for _, x in named])
+    finally:
+        for _, x in named:
+            x.requires_grad_(False)
+    return {path: g.float() for (path, _), g in zip(named, grads)}
+
+
+def matmul_params(cfg) -> int:
+    """Parameters that enter a matrix product: all but the embedding table."""
+    return cfg.n_params() - cfg.vocab * cfg.d_model
+
+
+def phase_train(device, smi):
+    c = TRAIN
+    cfg = get_config("yi-6b").replace(n_layers=c["layers"], train_microbatches=c["micro"])
+    assert (cfg.param_dtype, cfg.opt_dtype, cfg.grad_accum_dtype, cfg.remat) == \
+        ("bfloat16", "float32", "float32", True), cfg
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn, params, opt, pipe = _train_setup(cfg, c["seq"], c["batch"], True, device)
+    n_steps = c["warmup_steps"] + c["timed_steps"]
+    fa.launches = fa.bwd_launches = 0
+    seconds, losses, gnorms = [], [], []
+    for step in range(n_steps):
+        params, opt, metrics, dt = train.run_step(step_fn, params, opt, next(pipe),
+                                                  step, device)
+        seconds.append(dt)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["gnorm"]))
+        print(f"[train]   step {step} {dt * 1e3:.1f} ms loss {losses[-1]:.4f} "
+              f"gnorm {gnorms[-1]:.4f} lr {float(metrics['lr']):.3e}", flush=True)
+    launches = {"fwd": fa.launches, "bwd": fa.bwd_launches}
+    per_step = c["layers"] * c["micro"]
+    want = {"fwd": 2 * per_step * n_steps, "bwd": per_step * n_steps}   # remat recomputes
+    if launches != want:
+        raise SystemExit(f"[train] K2 launches {launches}, expected {want}")
+    if not all(map(torch.isfinite, torch.tensor(losses + gnorms))):
+        raise SystemExit(f"[train] non-finite loss or gnorm: {losses} {gnorms}")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(seconds[c["warmup_steps"]:]) / c["timed_steps"]
+    tokens = c["seq"] * c["batch"]
+    attn_fwd, _ = flash_work(1, c["seq"], c["seq"], cfg.n_heads, cfg.n_kv_heads,
+                             cfg.head_dim)
+    model_flops = 6 * matmul_params(cfg) * tokens \
+        + 3 * attn_fwd * c["layers"] * c["batch"]
+    mfu = model_flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    report = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s, mfu=mfu,
+                  peak_mem_gb=peak / 1e9, losses=losses, gnorms=gnorms,
+                  launches=launches, params=cfg.n_params(), card=smi)
+    print(f"[train] yi-6b widths, {c['layers']} of 32 layers ({cfg.n_params() / 1e9:.3f} B "
+          f"params), bf16 params, fp32 moments and accumulation, {c['micro']} microbatches "
+          f"x {c['batch'] // c['micro']} x {c['seq']} tokens, remat, flash: "
+          f"step_ms={step_s * 1e3:.1f} (mean of {c['timed_steps']} after "
+          f"{c['warmup_steps']} warm-up; warm-up {seconds[0] * 1e3:.1f}) "
+          f"tokens_per_s={tokens / step_s:.1f} model_flop_share={mfu:.4f} "
+          f"({model_flops / 1e12:.1f} TFLOP a step: 6 x {matmul_params(cfg) / 1e9:.3f} B "
+          f"matmul params x {tokens} tokens + attention) peak_mem_gb={peak / 1e9:.3f} "
+          f"k2_launches={launches['fwd']} (= {c['layers']} layers x {c['micro']} micro x "
+          f"{n_steps} steps x 2) k2_bwd_launches={launches['bwd']} (= {c['layers']} x "
+          f"{c['micro']} x {n_steps})", flush=True)
+    del params, opt, step_fn
+    pipe.stop()
+    torch.cuda.empty_cache()
+
+    # flash against plain attention, one step from the same weights
+    c = TRAIN_CHECK
+    cfg = get_config("yi-6b").replace(n_layers=c["layers"], train_microbatches=c["micro"])
+    out, grads = {}, {}
+    for use_flash in (True, False):
+        step_fn, params, opt, pipe = _train_setup(cfg, c["seq"], c["batch"], use_flash,
+                                                  device, seed=7)
+        batch = next(pipe)
+        grads[use_flash] = _attention_grads(cfg, params, batch, use_flash)
+        params, opt, metrics, _ = train.run_step(step_fn, params, opt, batch, 2, device)
+        out[use_flash] = {k: float(metrics[k]) for k in ("loss", "gnorm")}
+        del params, opt
+        pipe.stop()
+    errs = {k: abs(out[True][k] - out[False][k]) / abs(out[False][k]) for k in out[True]}
+    if not all(errs[k] <= TRAIN_CHECK_TOL[k] for k in errs):
+        raise SystemExit(f"[train] flash {out[True]} vs plain {out[False]}: relative "
+                         f"differences {errs} over {TRAIN_CHECK_TOL}")
+    for path, want in grads[False].items():
+        got = grads[True][path]
+        norm = abs(got.norm().item() - want.norm().item()) / want.norm().item()
+        top = (got - want).abs().max().item() / want.abs().max().item()
+        print(f"[train]   d {path:<20} norm {want.norm().item():.4e} rel err {norm:.2e} "
+              f"(tol {TRAIN_CHECK_TOL['attn_norm']}), max abs err {top:.2e} of max "
+              f"|grad| (tol {TRAIN_CHECK_TOL['attn_max']})", flush=True)
+        if not (norm <= TRAIN_CHECK_TOL["attn_norm"] and top <= TRAIN_CHECK_TOL["attn_max"]):
+            raise SystemExit(f"[train] flash vs plain: the gradient of {path} differs")
+    del grads
+    print(f"[train] {c['layers']} layers, seq {c['seq']}, one step flash vs plain: loss "
+          f"{out[True]['loss']:.5f} vs {out[False]['loss']:.5f} (rel {errs['loss']:.2e}, "
+          f"tol {TRAIN_CHECK_TOL['loss']}), gnorm {out[True]['gnorm']:.5f} vs "
+          f"{out[False]['gnorm']:.5f} (rel {errs['gnorm']:.2e}, tol "
+          f"{TRAIN_CHECK_TOL['gnorm']})", flush=True)
+    torch.cuda.empty_cache()
+    return report
+
+
+def phase_train_launcher():
+    """The launcher's paths on the card, as the JAX package's system tests
+    run them, with attention on K2 and K2 bwd (d = 64)."""
+    args = ["--preset", "small", "--use-flash", "--device", "cuda", "--quiet",
+            "--global-batch", "8", "--seq", "64"]
+    with tempfile.TemporaryDirectory() as tmp:
+        fa.launches = fa.bwd_launches = 0
+        losses = train.main(["--steps", "14", "--ckpt-every", "7",
+                             "--ckpt-dir", f"{tmp}/a", *args])
+        if not (len(losses) == 14 and sum(losses[-4:]) < sum(losses[:4])):
+            raise SystemExit(f"[train-launcher] loss did not improve: {losses}")
+        if not (fa.launches and fa.bwd_launches):
+            raise SystemExit("[train-launcher] the run did not launch K2 and K2 bwd")
+        train.main(["--steps", "8", "--ckpt-every", "4", "--ckpt-dir", f"{tmp}/b", *args])
+        resumed = train.main(["--steps", "12", "--ckpt-every", "4", "--resume",
+                              "--ckpt-dir", f"{tmp}/b", *args])
+        if len(resumed) != 4:
+            raise SystemExit(f"[train-launcher] resume ran {len(resumed)} steps, not 4")
+        failed = train.main(["--steps", "12", "--ckpt-every", "4", "--inject-failure", "6",
+                             "--ckpt-dir", f"{tmp}/c", *args])
+        if not (len(failed) == 14 and sum(failed[-4:]) < sum(failed[:4])):
+            raise SystemExit(f"[train-launcher] failure injection: {failed}")
+    print(f"[train-launcher] preset small (d=64), flash: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over 14 steps; --resume ran steps 9-12; --inject-failure 6 "
+          f"restored step 4 and ran {len(failed)} steps; K2 launches {fa.launches}, "
+          f"K2 bwd {fa.bwd_launches}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -591,6 +905,10 @@ def main() -> int:
     k1_err = phase_k1(device)
     tune_launches, best_tile = phase_tune()
     k1_times = phase_k1_timing(device, best_tile)
+    bwd_err, _ = phase_k2_bwd(device)
+    bwd_times = phase_k2_bwd_timing(device)
+    train_report = phase_train(device, smi)
+    phase_train_launcher()
     record = {"kernels": [
         # the times are the bf16 kernel's at the serving shape (train_4k
         # beside them); the fp32 kernel and the C entry point that picks
@@ -601,7 +919,15 @@ def main() -> int:
              fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:32",
              launches=launches, tune_launches=tune_launches["flash"],
+             train_launches=train_report["launches"]["fwd"],
              max_abs_err=err, **times),
+        # the times are the bf16 kernel's at train_4k (phase 11); launches:
+        # the full-width train run's (phase 12)
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:149",
+             launches=train_report["launches"]["bwd"], max_abs_err=bwd_err,
+             **bwd_times),
         # the times are the bf16 kernel's; the fp32 kernel and the C entry
         # point that picks between them are in matmul_blocked.cu (phase 7)
         dict(name="matmul_blocked", route="cuda",

@@ -14,6 +14,10 @@
 // products exactly and TF32 on the tensor cores would miss the fp32
 // tolerance.  Neither is a fallback for the other.
 //
+// With a non-null lse ([B,H,T] fp32) both paths also write each row's
+// log-sum-exp of the scaled scores, in natural log, for the backward
+// (flash_attention_bwd.cu); with a null one the output is what it was.
+//
 // fp32 layout: q and o are [B,T,H,d], k and v [B,S,KV,d], read through
 // strides (the last dim must be contiguous), so no transposed or padded
 // copies are made.  Ragged T and S edges are masked here.
@@ -53,6 +57,7 @@ struct Params {
   int64_t sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh;
   float scale;
   int window, n_meta, causal;
+  float* lse;                              // [B, H, T] row log-sum-exp, or null
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -193,6 +198,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPT; ++i) store(&o[t * p.sot + tx + TX * i], acc[r][i] * inv);
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Tq + t] = m[r] + logf(l[r]);
   }
 }
 
@@ -300,7 +307,8 @@ const char* flash_attention_error(int err) { return cudaGetErrorString((cudaErro
 // (fp32: its one tile, 64 x 32).  Strides are in elements; for bf16 those
 // of q, k and v are multiples of 8 and their bases 16-byte aligned (TMA).
 // Returns the cudaError_t of the launch (0 on success); an uncompiled tile
-// gives cudaErrorInvalidValue.
+// gives cudaErrorInvalidValue.  lse: [B,H,T] fp32 for the rows'
+// log-sum-exp, or null.
 int flash_attention_fwd(
     int dtype, int bq, int bk, int d, const void* q, const void* k, const void* v, void* o,
     int B, int Tq, int S, int H, int KVH,
@@ -308,18 +316,18 @@ int flash_attention_fwd(
     int64_t skb, int64_t skt, int64_t skh,
     int64_t svb, int64_t svt, int64_t svh,
     int64_t sob, int64_t sot, int64_t soh,
-    float scale, int window, int n_meta, int causal, void* stream) {
+    float scale, int window, int n_meta, int causal, float* lse, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const k2::FlashArgs p{q, k, v, o, B, Tq, S, H, KVH,
                           {sqt, sqh, sqb}, {skt, skh, skb}, {svt, svh, svb}, {sot, soh, sob},
-                          scale, window, n_meta, causal};
+                          scale, window, n_meta, causal, lse};
     return dispatch_bf16(bq, bk, d, p, s);
   }
   if (dtype != 0 || bq != BQ || bk != BK) return cudaErrorInvalidValue;
   Params p{q, k, v, o, B, Tq, S, H, KVH,
            sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh,
-           scale, window, n_meta, causal};
+           scale, window, n_meta, causal, lse};
   return launch_dtype<float>(d, p, s);
 }
 

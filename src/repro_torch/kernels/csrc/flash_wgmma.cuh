@@ -52,7 +52,9 @@
 //   8-key groups.
 // - The O accumulator stays in registers, rescaled by alpha after each
 //   wgmma.wait_group; the epilogue divides by l, converts to bf16 and
-//   stores rows below T to global memory.
+//   stores rows below T to global memory; where lse is asked for, it
+//   writes (m + log2 l) * ln 2 of each row, the natural-log log-sum-exp
+//   that the backward reads.
 // - Swizzle: a TMA box row is at most 128 bytes (64 bf16): d = 128 is two
 //   boxes per tile, d = 64 one; d = 32 is a 64-byte row, loaded with the
 //   64-byte swizzle and read through descriptors of that layout.  TMA
@@ -79,6 +81,7 @@ using namespace hopper;
 
 constexpr float kNeg = -1e30f;                 // finite fill: (-inf) - (-inf) would be NaN
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int BQ, int BK, int D>
 struct Shape {
@@ -108,6 +111,7 @@ struct Params {
   int64_t sot, soh, sob;
   float scale2;                                  // scale * log2(e)
   int window, n_meta, causal;
+  float* lse;                                    // [B, H, T], or null
 };
 
 // whether every (row, key) pair of rows at key positions [pa, pb] and keys
@@ -296,6 +300,9 @@ __global__ void __launch_bounds__(Shape<BQ, BK, D>::kThreads, 1)
     l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
     const int row = row0 + 8 * hf;
     if (row >= p.T) continue;
+    // the row's log-sum-exp, from the log2 domain to natural log once
+    if (p.lse != nullptr && lane % 4 == 0)
+      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.T + row] = (m[hf] + log2f(l[hf])) * kLn2;
     const float inv = 1.0f / fmaxf(l[hf], 1e-30f);
     __nv_bfloat16* out = p.o + b * p.sob + row * p.sot + h * p.soh;
 #pragma unroll
@@ -317,7 +324,7 @@ cudaError_t launch_flash(const FlashArgs& a, cudaStream_t stream) {
   err = encode_map(&map_v, a.v, D, a.S, a.KV, a.B, a.sv, Sh::kBoxD, BK);
   if (err != cudaSuccess) return err;
   const Params p{static_cast<__nv_bfloat16*>(a.o), a.T, a.S, a.H, a.KV, a.so[0], a.so[1],
-                 a.so[2], a.scale * kLog2e, a.window, a.n_meta, a.causal};
+                 a.so[2], a.scale * kLog2e, a.window, a.n_meta, a.causal, a.lse};
   const int smem = smem_bytes(BQ, BK, D);
   auto kernel = flash_wgmma_kernel<BQ, BK, D>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

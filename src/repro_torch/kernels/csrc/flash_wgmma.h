@@ -45,6 +45,7 @@ struct FlashArgs {
   int64_t sq[3], sk[3], sv[3], so[3];
   float scale;
   int window, n_meta, causal;
+  float* lse;        // [B, H, T] fp32 row log-sum-exp (natural log), or null
 };
 
 // the dynamic shared memory of a launch: Q, the ring of K and V tiles, the

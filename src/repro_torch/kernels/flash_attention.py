@@ -29,8 +29,15 @@ any other size the bf16 kernel.
 * fp32, CUDA cores: the kernel has one tile, 64 x 32, which runs every
   request; the blocks are checked and clamped but choose nothing.
 
-Forward only: serving needs no gradient.  The backward, which the JAX
-package recomputes through its oracle, comes with the training slice.
+The gradient is K2 bwd (``csrc/flash_attention_bwd.cu``), a library of its
+own: ``flash_attention_bwd_cuda`` launches it on CUDA tensors from the
+forward's output and row log-sum-exp, which the forward writes when asked
+(``return_lse``).  ``flash_attention_bwd_plain`` is its plain version, the
+gradient of ``flash_attention_plain`` by ``torch.autograd``, recomputed, as
+the JAX package's ``_vjp_bwd`` recomputes through its oracle.
+``FlashAttention`` is the ``torch.autograd.Function`` that joins the two
+(the JAX package's ``custom_vjp``); ``ops.flash_attention`` takes it when
+an input needs a gradient.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 LIBRARY = _build.Library("flash_attention", (
     "flash_attention.cu", "flash_wgmma_d32.cu", "flash_wgmma_d64.cu",
     "flash_wgmma_d128.cu"))
+LIBRARY_BWD = _build.Library("flash_attention_bwd", ("flash_attention_bwd.cu",))
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -92,9 +100,11 @@ WGMMA_TILES = tuple((bq, bk, d) for d in HEAD_DIMS for bq in BQ_SIDES
                     for bk in BK_SIDES if _compiled(bq, bk, d, 2))
 INSTANTIATED = {2: WGMMA_TILES, 4: tuple((*FP32_TILE, d) for d in HEAD_DIMS)}
 
-# kernel launches since the last reset; a run sets it to 0 and reads it back
-# to show that its attention went through the kernel
+# kernel launches since the last reset, of the forward and of the backward;
+# a run sets them to 0 and reads them back to show that its attention went
+# through the kernels
 launches = 0
+bwd_launches = 0
 
 
 def launch_tile(bq, bk, dtype_bytes: int = 2):
@@ -163,7 +173,7 @@ def _lib():
     if fn.argtypes is None:
         i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
         fn.argtypes = ([i32] * 4 + [ptr] * 4 + [i32] * 5 + [i64] * 12
-                       + [ctypes.c_float, i32, i32, i32, ptr])
+                       + [ctypes.c_float, i32, i32, i32, ptr, ptr])
         fn.restype = i32
         lib.flash_attention_tiles.argtypes = [i32, ctypes.POINTER(i32), i32]
         lib.flash_attention_tiles.restype = i32
@@ -230,17 +240,23 @@ def tma_operand(x):
 
 def flash_attention_cuda(q, k, v, *, scale: float, window: int = 0,
                          n_meta: int = 0, causal: bool = True,
-                         block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+                         block_q: int = 128, block_k: int = 128,
+                         return_lse: bool = False):
     """Launch the CUDA kernel at the tile ``plan`` picks for the blocks.
     q: [B,T,H,d]; k, v: [B,S,KV,d].  The last dim must be contiguous
-    (else it is copied); bf16 operands go through ``tma_operand``."""
+    (else it is copied); bf16 operands go through ``tma_operand``.  With
+    ``return_lse`` it returns ``(o, lse)``, lse the rows' log-sum-exp of
+    the scaled scores, [B,H,T] fp32 (for a row that sees no key, a
+    fill-sized negative number or -inf, which K2 bwd does not read)."""
     global launches
     _check(q, k, v)
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lse = (torch.full((b, h, t), float("-inf"), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if o.numel() == 0 or s == 0:
-        return o.zero_()
+        return (o.zero_(), lse) if return_lse else o.zero_()
     bq, bk = plan(t, s, d, block_q=block_q, block_k=block_k, causal=causal,
                   dtype_bytes=q.element_size())
     if q.dtype == torch.bfloat16:
@@ -253,12 +269,13 @@ def flash_attention_cuda(q, k, v, *, scale: float, window: int = 0,
         _DTYPE_CODES[q.dtype], bq, bk, d, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), o.data_ptr(), b, t, s, h, kvh,
         *_strides(q), *_strides(k), *_strides(v), *_strides(o),
-        float(scale), int(window), int(n_meta), int(bool(causal)), stream)
+        float(scale), int(window), int(n_meta), int(bool(causal)),
+        lse.data_ptr() if return_lse else None, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch ({bq}, {bk}, d={d}) failed: "
                            f"cudaError {err} ({lib.flash_attention_error(err).decode()})")
     launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 def flash_attention_plain(q, k, v, *, scale: float, window: int = 0,
@@ -272,3 +289,98 @@ def flash_attention_plain(q, k, v, *, scale: float, window: int = 0,
         v = v.repeat_interleave(g, dim=2)
     return flash_attention_ref(q, k, v, window=window, n_meta=n_meta,
                                scale=scale, causal=causal)
+
+
+# ---------------------------------------------------------------- backward
+
+def _bwd_lib():
+    lib = _build.load(LIBRARY_BWD)
+    fn = lib.flash_attention_bwd
+    if fn.argtypes is None:
+        i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+        fn.argtypes = ([i32, i32] + [ptr] * 10 + [i32] * 5 + [i64] * 15
+                       + [ctypes.c_float, i32, i32, i32, ptr])
+        fn.restype = i32
+        lib.flash_attention_bwd_error.argtypes = [i32]
+        lib.flash_attention_bwd_error.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, scale: float,
+                             window: int = 0, n_meta: int = 0,
+                             causal: bool = True, **_blocks):
+    """Launch K2 bwd: ``(dq, dk, dv)`` of K2 for the output gradient ``do``,
+    from the forward's ``o`` and ``lse`` ([B,H,T] fp32).  Shapes and dtypes
+    as the forward's; the last dim must be contiguous (else it is copied).
+    The tile is the kernel's own, so blocks do not change it."""
+    global bwd_launches
+    _check(q, k, v)
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    for name, x in (("o", o), ("do", do)):
+        if tuple(x.shape) != (b, t, h, d) or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} {tuple(x.shape)} {x.dtype} does not match q "
+                             f"{tuple(q.shape)} {q.dtype}")
+    if tuple(lse.shape) != (b, h, t) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be [B,H,T] = {(b, h, t)} float32 on {q.device}, "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    # the kernels write every row of dq, dk and dv
+    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, kvh, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if q.numel() == 0 or s == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    q, k, v, o, do = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, o, do))
+    lse = lse.contiguous()
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.flash_attention_bwd(
+        _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, s, h, kvh,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(o), *_strides(do),
+        float(scale), int(window), int(n_meta), int(bool(causal)), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch (d={d}) failed: cudaError "
+                           f"{err} ({lib.flash_attention_bwd_error(err).decode()})")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, *, scale: float, window: int = 0,
+                              n_meta: int = 0, causal: bool = True, **_blocks):
+    """The same gradient in plain torch: ``flash_attention_plain`` recomputed
+    and differentiated by autograd (the JAX package's ``_vjp_bwd``); ``o``
+    is not needed."""
+    with torch.enable_grad():
+        q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = flash_attention_plain(q, k, v, scale=scale, window=window,
+                                    n_meta=n_meta, causal=causal)
+        return torch.autograd.grad(out, (q, k, v), do)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K2 with its gradient (the JAX package's ``custom_vjp``).  On CUDA
+    tensors the forward launches K2 and keeps its log-sum-exp, and the
+    backward launches K2 bwd; on CPU tensors both take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window, n_meta, causal, block_q, block_k):
+        ctx.kw = dict(scale=scale, window=window, n_meta=n_meta, causal=causal)
+        if q.is_cuda:
+            o, lse = flash_attention_cuda(q, k, v, block_q=block_q, block_k=block_k,
+                                          return_lse=True, **ctx.kw)
+        else:
+            o, lse = flash_attention_plain(q, k, v, **ctx.kw), None
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.is_cuda:
+            grads = flash_attention_bwd_cuda(q, k, v, o, do, lse, **ctx.kw)
+        else:
+            grads = flash_attention_bwd_plain(q, k, v, o, do, **ctx.kw)
+        return (*grads, None, None, None, None, None, None)

@@ -6,6 +6,8 @@ no fallback.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul_blocked as _mm
 
@@ -44,12 +46,19 @@ def flash_attention(q, k, v, *, window: int = 0, n_meta: int = 0,
     fp32 has one tile) and masks ragged edges itself.  A tile the kernel's
     feasibility rule refuses raises ``ValueError`` on either device, so a
     tile that cannot run on the card is never timed or swapped for another.
+
+    When an input needs a gradient, the call goes through the autograd
+    Function ``FlashAttention``, whose backward is K2 bwd on the card;
+    otherwise (serving, tuning) straight to the forward.
     """
     t, dh, s = q.shape[1], q.shape[3], k.shape[1]
     scale = dh ** -0.5 if scale is None else float(scale)
     if min(t, s) > 0:
         _fa.plan(t, s, dh, block_q=block_q, block_k=block_k, causal=causal,
                  dtype_bytes=q.element_size())
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return _fa.FlashAttention.apply(q, k, v, scale, window, n_meta, causal,
+                                        block_q, block_k)
     run = _fa.flash_attention_cuda if q.is_cuda else _fa.flash_attention_plain
     return run(q, k, v, scale=scale, window=window, n_meta=n_meta,
                causal=causal, block_q=block_q, block_k=block_k)

@@ -4,6 +4,8 @@
     python -m repro_torch serve --preset small --device cpu  # on the CPU
     python -m repro_torch tune --arch yi-6b                  # tile tuner, on the card
     python -m repro_torch tune --device cpu --backend sim    # on the CPU
+    python -m repro_torch train --preset small --use-flash   # trainer, on the card
+    python -m repro_torch train --preset small --device cpu  # on the CPU
 
 Each subcommand resolves to the matching ``repro_torch.launch.<module>``
 main, which parses ``sys.argv`` as rewritten here.
@@ -19,6 +21,8 @@ COMMANDS = {
               "batched prefill+decode serving driver"),
     "tune": ("repro_torch.launch.tune",
              "measure, fit and evaluate the blocked-matmul tile tuner"),
+    "train": ("repro_torch.launch.train",
+              "training launcher with checkpoints and failure injection"),
 }
 
 

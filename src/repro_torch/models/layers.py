@@ -151,3 +151,20 @@ def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
         always = k_pos[..., None, :] < n_always_visible
         mask = mask & ((diff < window) | always)
     return mask
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE in fp32; logits [..., V], labels [...] integer."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()

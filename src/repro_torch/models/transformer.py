@@ -9,16 +9,22 @@ Parameters and caches are nested dicts / tuples of tensors in the JAX
 layout.  MoE, MLA, SSM and hybrid layers, sliding-window ring caches, meta
 tokens, tied or scaled embeddings, multi-token prediction and the vision /
 audio frontends raise ``NotImplementedError`` naming their ROADMAP.md item.
+
+Where JAX wraps a stage's scan body in ``jax.checkpoint`` (``cfg.remat``),
+this port recomputes each layer in the backward with
+``torch.utils.checkpoint``, whenever autograd records the forward.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import ParamSpec, mlp, mlp_spec, rms_norm
+from repro_torch.models.layers import (ParamSpec, cross_entropy, mlp, mlp_spec,
+                                       rms_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -42,7 +48,8 @@ def check_supported(cfg: ModelConfig) -> None:
          f"({families}: sliding-window ring caches and meta tokens)"),
         (cfg.frontend != "none" or cfg.n_codebooks > 1,
          f"the {cfg.frontend} frontend ({families}: frontends)"),
-        (cfg.mtp_depth > 0, "multi-token prediction (ROADMAP.md, training)"),
+        (cfg.mtp_depth > 0,
+         f"multi-token prediction, deepseek-v3's ({families}: MLA / MoE)"),
     ]
     for missing, what in gaps:
         if missing:
@@ -166,15 +173,37 @@ def _take(tree, r: int):
             for k, v in tree.items()}
 
 
+def _remat(cfg: ModelConfig, collect: bool) -> bool:
+    """Whether to recompute each layer in the backward: ``cfg.remat`` with
+    the ``"full"`` policy, while autograd records a forward that collects no
+    caches."""
+    if not (cfg.remat and torch.is_grad_enabled() and not collect):
+        return False
+    if cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: remat policy {cfg.remat_policy!r} is not ported yet "
+            "(ROADMAP.md, training: remat \"dots\")")
+    return True
+
+
 def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
                   collect=False, use_flash=False):
     entries = {f"u{j}": [] for j in range(len(stage.unit))}
     aux = 0.0
+    remat = _remat(cfg, collect)
     for r in range(stage.repeat):
         for j, desc in enumerate(stage.unit):
-            x, e, a = layer_forward(cfg, desc, _take(sp[f"u{j}"], r), x,
-                                    positions, n_meta, collect=collect,
-                                    use_flash=use_flash)
+            p = _take(sp[f"u{j}"], r)
+            if remat:
+                # the layer has no randomness: no RNG state to keep
+                x = checkpoint(
+                    lambda h, lp, d=desc: layer_forward(
+                        cfg, d, lp, h, positions, n_meta, use_flash=use_flash)[0],
+                    x, p, use_reentrant=False, preserve_rng_state=False)
+                e, a = {}, 0.0
+            else:
+                x, e, a = layer_forward(cfg, desc, p, x, positions, n_meta,
+                                        collect=collect, use_flash=use_flash)
             entries[f"u{j}"].append(e)
             aux = aux + a
     caches = {u: {k: torch.stack([e[k] for e in es]) for k in es[0]}
@@ -236,6 +265,17 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
         cfg, params, tokens, image_embeds, collect=True, use_flash=use_flash)
     cache = {"stages": caches, "pos": tokens.shape[-1] + n_prefix}
     return logits[:, -1:], cache
+
+
+def train_loss(cfg: ModelConfig, params, batch, use_flash=False):
+    """batch: {"tokens": [B,T]}.  Returns (loss, metrics): the mean
+    next-token cross entropy, as the JAX package's ``train_loss`` for the
+    dense families (no MoE aux loss, no multi-token prediction)."""
+    tokens = batch["tokens"]
+    logits, *_ = model_forward(cfg, params, tokens, batch.get("image_embeds"),
+                               use_flash=use_flash)
+    loss = cross_entropy(logits[:, :-1], tokens[:, 1:])
+    return loss, {"ce": loss, "loss": loss}
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens_new):

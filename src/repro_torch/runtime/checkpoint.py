@@ -1,0 +1,158 @@
+"""Fault-tolerant checkpointing: atomic, checksummed, async, keep-last-k,
+copied from the JAX package's ``repro/runtime/checkpoint.py`` with its
+on-disk layout, so a checkpoint written by either package restores in the
+other.
+
+Layout per step::
+
+    <dir>/step_<N>/arrays.npz     flattened param/opt tree, "/"-joined key paths
+    <dir>/step_<N>/manifest.json  shapes, dtypes, sha256 per leaf, metadata
+    <dir>/step_<N>/COMMITTED      written last -- absence marks a torn save
+
+Saves stage into ``step_<N>.tmp`` and ``os.replace`` to commit, so a crash
+mid-write can never corrupt the latest checkpoint.  ``restore_latest``
+walks checkpoints newest-first and falls back past torn or corrupt ones
+(checksum mismatch), the failure-recovery path.  bf16 leaves are stored as
+fp32, which holds them exactly.
+"""
+from __future__ import annotations
+
+import concurrent.futures as cf
+import hashlib
+import json
+import os
+import shutil
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.models.layers import ParamSpec
+from repro_torch.runtime.tree import flatten, unflatten
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    """A host copy of ``leaf``, taken now: the train step updates its
+    tensors in place, and an async save writes them after later steps
+    (JAX arrays are immutable, so the reference needs no copy)."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            # npz has no bfloat16; f32 holds bf16 exactly
+            leaf = leaf.float()
+        return leaf.to("cpu", copy=True).numpy()
+    return np.array(leaf, copy=True)
+
+
+def _flatten(tree) -> dict:
+    return {key: _to_numpy(leaf) for key, leaf in flatten(tree)}
+
+
+def _sha(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+class CheckpointManager:
+    def __init__(self, directory, keep: int = 3, async_save: bool = True):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self._pool = cf.ThreadPoolExecutor(max_workers=1) if async_save else None
+        self._pending: cf.Future | None = None
+
+    # ----------------------------------------------------------------- save
+    def save(self, step: int, tree, extra: dict | None = None):
+        """Snapshot to host memory now; write (possibly async) afterwards."""
+        arrays = _flatten(tree)                       # sync device->host
+        if self._pool is not None:
+            self.wait()
+            self._pending = self._pool.submit(
+                self._write, step, arrays, extra or {})
+        else:
+            self._write(step, arrays, extra or {})
+
+    def _write(self, step: int, arrays: dict, extra: dict):
+        final = self.dir / f"step_{step:08d}"
+        tmp = self.dir / f"step_{step:08d}.tmp"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        np.savez(tmp / "arrays.npz", **arrays)
+        manifest = {
+            "step": step,
+            "time": time.time(),
+            "extra": extra,
+            "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype),
+                           "sha256": _sha(v)} for k, v in arrays.items()},
+        }
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        (tmp / "COMMITTED").write_text("ok")
+        if final.exists():
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        self._gc()
+
+    def wait(self):
+        if self._pending is not None:
+            self._pending.result()
+            self._pending = None
+
+    def _gc(self):
+        steps = sorted(self.all_steps())
+        for s in steps[: -self.keep]:
+            shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
+
+    # -------------------------------------------------------------- restore
+    def all_steps(self):
+        out = []
+        for p in self.dir.glob("step_*"):
+            if p.suffix == ".tmp" or not (p / "COMMITTED").exists():
+                continue
+            out.append(int(p.name.split("_")[1]))
+        return sorted(out)
+
+    def _load(self, step: int, verify: bool = True):
+        d = self.dir / f"step_{step:08d}"
+        manifest = json.loads((d / "manifest.json").read_text())
+        with np.load(d / "arrays.npz") as z:
+            arrays = {k: z[k] for k in z.files}
+        if verify:
+            for k, info in manifest["leaves"].items():
+                if _sha(arrays[k]) != info["sha256"]:
+                    raise IOError(f"checksum mismatch in {d}/{k}")
+        return arrays, manifest
+
+    def restore_latest(self, target_tree, *, device="cpu", verify=True,
+                       max_step: int | None = None):
+        """Newest valid checkpoint -> (tree, manifest); falls back on corrupt.
+
+        ``target_tree`` gives the tree's structure and each leaf's dtype
+        (leaves may be ParamSpecs or tensors); the restored tensors are put
+        on ``device``.  ``max_step`` bounds the search (failure recovery
+        must not resume "from the future" of the failed step).
+        """
+        steps = [s for s in self.all_steps()
+                 if max_step is None or s <= max_step]
+        for step in reversed(steps):
+            try:
+                arrays, manifest = self._load(step, verify)
+                return self._unflatten(target_tree, arrays, device), manifest
+            except Exception as e:  # noqa: BLE001 -- any torn/corrupt state
+                print(f"[ckpt] step {step} unusable "
+                      f"({type(e).__name__}: {e}); trying previous")
+        raise FileNotFoundError(f"no valid checkpoint under {self.dir}")
+
+    @staticmethod
+    def _unflatten(target_tree, arrays, device):
+        out = []
+        for key, leaf in flatten(target_tree):
+            a = arrays[key]
+            shape = tuple(leaf.shape)
+            if a.shape != shape:
+                raise ValueError(f"{key}: shape {a.shape}, expected {shape}")
+            dtype = leaf.torch_dtype if isinstance(leaf, ParamSpec) else leaf.dtype
+            # np.ascontiguousarray would give a 0-d leaf (a step count) a dim
+            out.append(torch.from_numpy(np.asarray(a, order="C")).to(
+                device=device, dtype=dtype))
+        return unflatten(target_tree, out)

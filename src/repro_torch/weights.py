@@ -7,6 +7,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import ParamSpec, init_param_tree
+from repro_torch.runtime.optim import opt_state_specs
 
 
 def _to_tensor(arr: np.ndarray, spec: ParamSpec, device) -> torch.Tensor:
@@ -44,6 +45,14 @@ def params_from_jax(cfg: ModelConfig, tree, device="cpu"):
     the port's ``param_specs(cfg)``.
     """
     return _convert(tfm.param_specs(cfg), tree, "params", torch.device(device))
+
+
+def opt_state_from_jax(cfg: ModelConfig, tree, device="cpu"):
+    """The JAX package's optimizer state (``opt_state_specs`` materialized,
+    numpy leaves) as the port's, checked against the port's
+    ``opt_state_specs(cfg, param_specs(cfg))`` for structure and shapes."""
+    specs = opt_state_specs(cfg, tfm.param_specs(cfg))
+    return _convert(specs, tree, "opt_state", torch.device(device))
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device):

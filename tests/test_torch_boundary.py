@@ -12,7 +12,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "tools" / "profile_torch_serve.py"]
+                                        ROOT / "tools" / "profile_torch_serve.py",
+                                        ROOT / "tools" / "profile_torch_train.py"]
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -33,7 +34,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "kernels.matmul_blocked", "kernels.timing", "core.kerneltune",
                  "core.tuner", "core.trees", "core.chained", "core.features",
                  "core.log", "core.roofline", "data.logstore", "eval.harness",
-                 "configs.workloads", "artifacts"):
+                 "configs.workloads", "artifacts", "launch.train",
+                 "runtime.optim", "runtime.steps", "runtime.pipeline",
+                 "runtime.checkpoint", "runtime.fault", "runtime.tree"):
         assert f"repro_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))

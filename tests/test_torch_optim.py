@@ -1,0 +1,133 @@
+"""The port's optimizers against the JAX package's (``repro.runtime.optim``)
+on the same numpy trees: the schedule, global-norm clipping, and one and
+three AdamW and Adafactor updates.  fp32 throughout; tolerance 1e-6
+relative (1 ulp of the fp32 steps, plus sum order in the norms)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import reduced_config as jreduced_config
+from repro.models import transformer as jtf
+from repro.models.layers import ParamSpec as JParamSpec
+from repro.models.layers import init_param_tree as jinit
+from repro.runtime import optim as jopt
+from repro_torch.configs import reduced_config
+from repro_torch.models import transformer as ttf
+from repro_torch.models.layers import ParamSpec, init_param_tree
+from repro_torch.runtime import optim as topt
+from repro_torch.runtime.tree import flatten, tree_map
+
+SHAPES = {"w": (6, 5), "stack": {"a": (2, 4, 3), "b": (7,)}, "pair": ((3, 3), (4,))}
+
+
+def _tree(rng, shapes=SHAPES, scale=1.0):
+    if isinstance(shapes, dict):
+        return {k: _tree(rng, v, scale) for k, v in shapes.items()}
+    if isinstance(shapes[0], tuple):
+        return tuple(_tree(rng, s, scale) for s in shapes)
+    return (rng.normal(size=shapes) * scale).astype(np.float32)
+
+
+def _jax(tree):
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def _torch(tree):
+    return tree_map(lambda a: torch.tensor(np.asarray(a)), tree)
+
+
+def _close(jtree, ttree, rtol=1e-6):
+    jflat = jax.tree_util.tree_flatten_with_path(jtree)[0]
+    tflat = flatten(ttree)
+    assert len(jflat) == len(tflat)
+    for (_, a), (path, b) in zip(jflat, tflat):
+        a = np.asarray(a)
+        np.testing.assert_allclose(b.numpy(), a, rtol=rtol,
+                                   atol=rtol * (np.abs(a).max() + 1e-30), err_msg=path)
+
+
+@pytest.mark.parametrize("step", [0, 1, 5, 9, 10, 11, 50, 99, 100, 150])
+def test_cosine_schedule_matches_jax(step):
+    kw = dict(peak_lr=3e-4, warmup=10, total=100)
+    want = jopt.cosine_schedule(jnp.asarray(step, jnp.int32), **kw)
+    got = topt.cosine_schedule(step, **kw)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("max_norm", [0.5, 1e3])   # clips, and leaves alone
+def test_clip_by_global_norm_matches_jax(max_norm):
+    grads = _tree(np.random.default_rng(0))
+    jclipped, jn = jopt.clip_by_global_norm(_jax(grads), max_norm)
+    tgrads = _torch(grads)
+    tclipped, tn = topt.clip_by_global_norm(tgrads, max_norm)
+    np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
+    _close(jclipped, tclipped)
+    _close(_jax(grads), tgrads, rtol=0)          # the input is left as it was
+
+
+def _run(name, n_steps):
+    """``n_steps`` updates of both packages from the same params and grads."""
+    rng = np.random.default_rng(1)
+    params = _tree(rng)
+    shapes = SHAPES
+    to_spec = {"j": lambda s: JParamSpec(s, (None,) * len(s), "float32"),
+               "t": lambda s: ParamSpec(s, (None,) * len(s), "float32")}
+
+    def spec_tree(kind, node=shapes):
+        if isinstance(node, dict):
+            return {k: spec_tree(kind, v) for k, v in node.items()}
+        if isinstance(node[0], tuple):
+            return tuple(spec_tree(kind, s) for s in node)
+        return to_spec[kind](node)
+
+    jcfg = {"adamw": jopt.AdamWConfig(), "adafactor": jopt.AdafactorConfig()}[name]
+    tcfg = {"adamw": topt.AdamWConfig(), "adafactor": topt.AdafactorConfig()}[name]
+    jspecs = getattr(jopt, f"{name}_state_specs")(spec_tree("j"), "float32")
+    tspecs = getattr(topt, f"{name}_state_specs")(spec_tree("t"), "float32")
+    jstate = jinit(jspecs, jax.random.PRNGKey(0))
+    tstate = init_param_tree(tspecs, torch.Generator(), torch.device("cpu"))
+    jp, tp = _jax(params), _torch(params)
+    jupdate, tupdate = getattr(jopt, f"{name}_update"), getattr(topt, f"{name}_update")
+    for i in range(n_steps):
+        grads = _tree(rng, scale=0.1 * (i + 1))
+        lr = jopt.cosine_schedule(jnp.asarray(i + 5, jnp.int32), peak_lr=1e-2,
+                                  warmup=4, total=20)
+        jp, jstate, jn = jupdate(jcfg, _jax(grads), jstate, jp, lr)
+        tp, tstate, tn = tupdate(tcfg, _torch(grads), tstate, tp,
+                                 topt.cosine_schedule(i + 5, peak_lr=1e-2, warmup=4,
+                                                      total=20))
+        np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
+    return jp, jstate, tp, tstate
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_adamw_matches_jax(n_steps):
+    jp, js, tp, ts = _run("adamw", n_steps)
+    _close(jp, tp)
+    _close(js["mu"], ts["mu"])
+    _close(js["nu"], ts["nu"])
+    assert int(ts["count"]) == int(js["count"]) == n_steps
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_adafactor_matches_jax(n_steps):
+    jp, js, tp, ts = _run("adafactor", n_steps)
+    _close(jp, tp)
+    _close(js["slots"], ts["slots"])
+    assert int(ts["count"]) == int(js["count"]) == n_steps
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_opt_state_specs_match_jax(optimizer):
+    jcfg = jreduced_config("yi-6b").replace(optimizer=optimizer, opt_dtype="bfloat16")
+    tcfg = reduced_config("yi-6b").replace(optimizer=optimizer, opt_dtype="bfloat16")
+    jspecs = jopt.opt_state_specs(jcfg, jtf.param_specs(jcfg))
+    tspecs = topt.opt_state_specs(tcfg, ttf.param_specs(tcfg))
+    jflat = jax.tree_util.tree_flatten_with_path(
+        jspecs, is_leaf=lambda x: isinstance(x, JParamSpec))[0]
+    tflat = flatten(tspecs)
+    assert [(tuple(s.shape), s.dtype, s.axes) for _, s in jflat] == \
+        [(tuple(s.shape), s.dtype, s.axes) for _, s in tflat]
