@@ -5,13 +5,13 @@
 
 Phases, each of which raises on failure (exit code != 0):
   1. probe     card name, power limit and capability; TF32 off for fp32 checks
-  2. build     nvcc builds both libraries from csrc/, one process per
+  2. build     nvcc builds the three libraries from csrc/, one process per
                source, and prints the build time and each kernel's registers
                and spills (a spill, or a setmaxnreg that ptxas ignores,
-               fails); the SASS of every bf16 kernel of K1 and K2 must hold
-               HGMMA (wgmma) and UTMALDG (TMA load) instructions, each
-               library's compiled tiles must be its rule's, and its shared
-               memory per launch must be the rule's
+               fails); the SASS of every bf16 kernel of K1, K2 and K2 bwd
+               (dK/dV and dQ) must hold HGMMA (wgmma) and UTMALDG (TMA load)
+               instructions, each library's compiled tiles must be its
+               rule's, and its shared memory per launch must be the rule's
   3. kernel    flash attention (K2) against its plain torch version on the
                card: every compiled bf16 tile on every case (3e-2),
                bit-identical across block_q at a fixed block_k, the fp32
@@ -39,7 +39,8 @@ Phases, each of which raises on failure (exit code != 0):
                of the bound
  10. k2-bwd    the flash-attention gradient (K2 bwd) against its plain
                version (autograd through the plain forward) on phase 3's
-               cases and two causal T > S cases (rows that see no key),
+               cases, two causal T > S cases (rows that see no key) and two
+               at d = 128 (GQA with T = S = 200; a window and a meta prefix),
                fp32 (1e-4) and bf16 (3e-2), each relative to the
                largest gradient entry; two launches bit-identical; the
                forward with lse bit-identical to the one without; refused
@@ -262,8 +263,21 @@ def phase_build():
     for bq, bk, d in K2_REFUSED:
         if fa.fits(bq, bk, d) or fa.launch_smem(bq, bk, d) != -1:
             bad.append(f"K2 {(bq, bk, d)} is compiled or admitted by the rule")
+    for dtype_bytes in (2, 4):
+        for d in fa.HEAD_DIMS:
+            for kernel in fa.BWD_KERNELS:
+                want = int(fa.bwd_smem_bytes(d, kernel, dtype_bytes))
+                got = fa.bwd_launch_smem(d, kernel, dtype_bytes)
+                if got != want:
+                    bad.append(f"K2 bwd {kernel} d={d} ({dtype_bytes}-byte): the library "
+                               f"asks {got} bytes of shared memory, the rule {want}")
+    for d in BWD_REFUSED_DIMS:
+        if fa.bwd_launch_smem(d, "dkdv") != -1:
+            bad.append(f"K2 bwd d={d} is compiled")
     for path, kernel, n_tiles in ((paths[1], "matmul_wgmma_kernel", len(mm.INSTANTIATED[2])),
-                                  (paths[0], "flash_wgmma_kernel", len(fa.INSTANTIATED[2]))):
+                                  (paths[0], "flash_wgmma_kernel", len(fa.INSTANTIATED[2])),
+                                  (paths[2], "dkdv_wgmma_kernel", len(fa.HEAD_DIMS)),
+                                  (paths[2], "dq_wgmma_kernel", len(fa.HEAD_DIMS))):
         sass = {name: c for name, c in sass_counts(path).items() if kernel in name}
         for name, c in sorted(sass.items(), key=lambda kv: _short_name(kv[0])):
             print(f"[build]   sass {_short_name(name):<40} HGMMA {c['HGMMA']} "
@@ -277,10 +291,11 @@ def phase_build():
     print(f"[build] matmul_blocked: {len(mm.INSTANTIATED[4])} fp32 tiles on CUDA cores, "
           f"{len(mm.INSTANTIATED[2])} bf16 tiles on wgmma + TMA; flash_attention: "
           f"{len(fa.INSTANTIATED[4])} fp32 kernels on CUDA cores, "
-          f"{len(fa.INSTANTIATED[2])} bf16 tiles on wgmma + TMA (HGMMA, UTMALDG in "
-          "each bf16 kernel); flash_attention_bwd: delta, dK/dV and dQ kernels at "
-          f"d {fa.HEAD_DIMS} in fp32 and bf16 on CUDA cores; no spills; tiles and "
-          "shared memory as the rules say", flush=True)
+          f"{len(fa.INSTANTIATED[2])} bf16 tiles on wgmma + TMA; flash_attention_bwd: "
+          f"at d {fa.HEAD_DIMS}, bf16 dK/dV and dQ kernels on wgmma + TMA (64-row tiles), "
+          "fp32 dK/dV and dQ kernels on CUDA cores, a delta pre-pass for each dtype; "
+          "HGMMA and UTMALDG in each bf16 kernel of K1, K2 and K2 bwd; no spills; tiles "
+          "and shared memory as the rules say", flush=True)
 
 
 def phase_kernel(device):
@@ -612,6 +627,10 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}   # x max |grad|
 BWD_CASES = CASES + [
     ("t>s causal", 2, 160, 96, 4, 2, 64, 0, 0, True),
     ("t>s ragged window", 2, 100, 70, 4, 2, 128, 16, 4, True),
+    # d = 128 with GQA, T = S a multiple of no tile; and with a window and a
+    # meta prefix
+    ("d=128 ragged t=s=200", 2, 200, 200, 8, 2, 128, 0, 0, True),
+    ("d=128 window+meta", 2, 160, 160, 4, 2, 128, 32, 8, True),
 ]
 BWD_REFUSED_DIMS = (48, 96)
 
@@ -680,7 +699,7 @@ def phase_k2_bwd(device):
           f"max |grad|; the autograd Function's gradients are the kernel's bit for bit; "
           f"head dims {BWD_REFUSED_DIMS} raised ValueError", flush=True)
     print("[k2-bwd] kernels checked against their plain versions: flash_attention_bwd "
-          "(fp32 and bf16, CUDA cores)")
+          "(bf16 on wgmma + TMA, fp32 on CUDA cores)")
     return worst_abs[torch.bfloat16], worst_rel
 
 
@@ -921,10 +940,13 @@ def main() -> int:
              launches=launches, tune_launches=tune_launches["flash"],
              train_launches=train_report["launches"]["fwd"],
              max_abs_err=err, **times),
-        # the times are the bf16 kernel's at train_4k (phase 11); launches:
-        # the full-width train run's (phase 12)
+        # the times are the bf16 kernels' at train_4k (phase 11); the fp32
+        # kernels and the C entry point that picks between them are in
+        # flash_attention_bwd.cu (phase 10).  launches: the full-width train
+        # run's (phase 12)
         dict(name="flash_attention_bwd", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             source="src/repro_torch/kernels/csrc/flash_bwd_wgmma.cuh",
+             fp32_source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:149",
              launches=train_report["launches"]["bwd"], max_abs_err=bwd_err,
              **bwd_times),

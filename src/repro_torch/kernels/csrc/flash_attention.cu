@@ -225,34 +225,6 @@ cudaError_t launch_dtype(int d, const Params& p, cudaStream_t stream) {
   }
 }
 
-}  // namespace
-
-namespace k2 {
-
-cudaError_t encode_map(CUtensorMap* map, const void* base, int d, int rows, int heads,
-                       int batch, const int64_t (&strides)[3], int box_d, int box_rows) {
-  hopper::EncodeTiled encode = hopper::encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[0]) * 2,
-                               static_cast<cuuint64_t>(strides[1]) * 2,
-                               static_cast<cuuint64_t>(strides[2]) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d), static_cast<cuuint32_t>(box_rows),
-                             1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      box_d * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        bytes, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-}  // namespace k2
-
-namespace {
-
 cudaError_t dispatch_bf16(int bq, int bk, int d, const k2::FlashArgs& p, cudaStream_t stream) {
 #define K2_CASE(BQ_, BK_, D_) \
   if (bq == BQ_ && bk == BK_ && d == D_) return k2::launch_flash<BQ_, BK_, D_>(p, stream);

@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): K2 bwd, the gradient of K2.
+// Flash-attention backward for Hopper (sm_90a): the C entry point of K2
+// bwd, the gradient of K2, and its fp32 path on CUDA cores.
 //
 // Stands for the backward of src/repro/kernels/flash_attention.py's
 // custom_vjp (_vjp_bwd), which recomputes the vector-Jacobian product
@@ -18,17 +19,25 @@
 // or as zeros, not as the oracle's mean over every key: its gradient here
 // is the oracle's, not that of the forward's output for those rows.)
 //
+// The C entry point dispatches by dtype, as flash_attention.cu does for the
+// forward: bf16 runs the delta pre-pass below, then the tensor-core kernels
+// of flash_bwd_wgmma.cuh (every product a wgmma fed by TMA); fp32 runs the
+// CUDA-core kernels below, because the reference computes fp32 products
+// exactly and TF32 on the tensor cores would miss the fp32 tolerance.
+// Neither is a fallback for the other.
+//
 // Bound: at Yi-6B's train_4k flash case as training calls it (q
 // [1,4096,32,128], k and v [1,4096,4,128] bf16, causal) the gradient needs
 // 2.5 times the forward's products, 343.7 GFLOP over the live causal pairs
 // (0.3475 ms at 989 TFLOP/s), against 151.5 MB of q, k, v, o, dO and lse
-// read and dq, dk, dv written (0.045 ms at 3.35 TB/s): operations bound it.  This kernel does them in fp32 FMAs on CUDA
-// cores (67 TFLOP/s on the data sheet) and recomputes S and dP in both
-// passes (7 products where the bound counts 5): a kernel that is right and
-// deterministic first; wgmma and TMA are a later PR's work.
+// read and dq, dk, dv written (0.045 ms at 3.35 TB/s): operations bound it.
+// The fp32 path does them in fp32 FMAs on CUDA cores (67 TFLOP/s on the
+// data sheet) and recomputes S and dP in both passes (7 products where the
+// bound counts 5): a kernel that is right and deterministic first.
 //
-// Design, three launches on the caller's stream, no atomics, so two runs
-// agree bit for bit:
+// fp32 design, three launches on the caller's stream, no atomics, so two
+// runs agree bit for bit (the bf16 path keeps the first and replaces the
+// other two):
 // 1. delta_kernel: delta = rowsum(dO * O) in fp32, one warp per row.
 // 2. dkdv_kernel: one block per (k tile of 32 keys, kv head, batch).  The K
 //    and V tiles stay in shared memory; the block loops over the group's
@@ -55,6 +64,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_bwd_wgmma.h"
 
 namespace {
 
@@ -92,7 +103,6 @@ struct Params {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <typename T>
 __device__ __forceinline__ const T* row_ptr(const View& x, int b, int t, int h) {
@@ -367,34 +377,63 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(Params p) {
 }
 
 template <typename T, int D>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch_delta(const Params& p, cudaStream_t stream) {
   const int64_t rows = static_cast<int64_t>(p.B) * p.H * p.T;
   delta_kernel<T, D><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // above 48 KB, dynamic shared memory needs the opt-in (idempotent, cheap)
-  constexpr int smem_kv = dkdv_smem_floats<D>() * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_kv);
-  if (err != cudaSuccess) return err;
-  dkdv_kernel<T, D><<<dim3((p.S + BK - 1) / BK, p.KV, p.B), NT, smem_kv, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  constexpr int smem_q = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
-  if (err != cudaSuccess) return err;
-  dq_kernel<T, D><<<dim3((p.T + BQ - 1) / BQ, p.H, p.B), NT, smem_q, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dtype(int d, const Params& p, cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
-    default: return cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch_fp32(const Params& p, cudaStream_t stream) {
+  cudaError_t err = launch_delta<float, D>(p, stream);
+  if (err != cudaSuccess) return err;
+  // above 48 KB, dynamic shared memory needs the opt-in (idempotent, cheap)
+  constexpr int smem_kv = dkdv_smem_floats<D>() * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(dkdv_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_kv);
+  if (err != cudaSuccess) return err;
+  dkdv_kernel<float, D><<<dim3((p.S + BK - 1) / BK, p.KV, p.B), NT, smem_kv, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int smem_q = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(dq_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_q);
+  if (err != cudaSuccess) return err;
+  dq_kernel<float, D><<<dim3((p.T + BQ - 1) / BQ, p.H, p.B), NT, smem_q, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bf16(const Params& p, const k2bwd::BwdArgs& a, cudaStream_t stream) {
+  const cudaError_t err = launch_delta<__nv_bfloat16, D>(p, stream);
+  return err != cudaSuccess ? err : k2bwd::launch_bwd<D>(a, stream);
+}
+
+cudaError_t dispatch(int dtype, int d, const Params& p, const k2bwd::BwdArgs& a,
+                     cudaStream_t stream) {
+  if (dtype == 0) {
+    switch (d) {
+      case 32: return launch_fp32<32>(p, stream);
+      case 64: return launch_fp32<64>(p, stream);
+      case 128: return launch_fp32<128>(p, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (dtype == 1) {
+    switch (d) {
+      case 32: return launch_bf16<32>(p, a, stream);
+      case 64: return launch_bf16<64>(p, a, stream);
+      case 128: return launch_bf16<128>(p, a, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int D>
+int smem_fp32(int kernel) {
+  return (kernel == 0 ? dkdv_smem_floats<D>() : dq_smem_floats<D>()) *
+         static_cast<int>(sizeof(float));
 }
 
 }  // namespace
@@ -403,12 +442,22 @@ extern "C" {
 
 const char* flash_attention_bwd_error(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// the dynamic shared memory a launch of kernel 0 (dK/dV) or 1 (dQ) requests
+// at head dim d for a dtype (0 fp32, 1 bf16), or -1 where none is compiled
+int flash_attention_bwd_smem(int dtype, int d, int kernel) {
+  if ((d != 32 && d != 64 && d != 128) || (kernel != 0 && kernel != 1)) return -1;
+  if (dtype == 1) return kernel == 0 ? k2bwd::dkdv_smem_bytes(d) : k2bwd::dq_smem_bytes(d);
+  if (dtype != 0) return -1;
+  return d == 32 ? smem_fp32<32>(kernel) : d == 64 ? smem_fp32<64>(kernel) : smem_fp32<128>(kernel);
+}
+
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dout, dq, dk and dv.
 // q, o and dout are [B,T,H,d], k and v [B,S,KV,d], read through (batch,
-// row, head) strides in elements with d contiguous; dq, dk and dv are
-// written contiguous.  lse and delta are [B,H,T] fp32, delta scratch.
-// Returns the cudaError_t of the launches (0 on success); a head dim that
-// is not compiled gives cudaErrorInvalidValue.
+// row, head) strides in elements with d contiguous; for bf16 those of q,
+// k, v and dout are multiples of 8 and their bases 16-byte aligned (TMA).
+// dq, dk and dv are written contiguous.  lse and delta are [B,H,T] fp32,
+// delta scratch.  Returns the cudaError_t of the launches (0 on success); a
+// head dim that is not compiled gives cudaErrorInvalidValue.
 int flash_attention_bwd(
     int dtype, int d, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv,
@@ -420,10 +469,10 @@ int flash_attention_bwd(
   const Params p{{q, sqb, sqt, sqh}, {k, skb, skt, skh}, {v, svb, svt, svh},
                  {o, sob, sot, soh}, {dout, sgb, sgt, sgh},
                  lse, delta, dq, dk, dv, B, T, S, H, KV, scale, window, n_meta, causal};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dtype<float>(d, p, s);
-  if (dtype == 1) return launch_dtype<__nv_bfloat16>(d, p, s);
-  return cudaErrorInvalidValue;
+  const k2bwd::BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, B, T, S, H, KV,
+                         {sqt, sqh, sqb}, {skt, skh, skb}, {svt, svh, svb}, {sgt, sgh, sgb},
+                         scale, window, n_meta, causal};
+  return dispatch(dtype, d, p, a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -115,15 +115,18 @@ struct Params {
 };
 
 // whether every (row, key) pair of rows at key positions [pa, pb] and keys
-// [k0, k0 + bk) is masked (the tile can be skipped)
-__device__ __forceinline__ bool tile_dead(int pa, int pb, int k0, int bk, const Params& p) {
+// [k0, k0 + bk) is masked (the tile can be skipped); P is Params here and
+// k2bwd::Params in K2 bwd (flash_bwd_wgmma.cuh), which skips the same tiles
+template <class P>
+__device__ __forceinline__ bool tile_dead(int pa, int pb, int k0, int bk, const P& p) {
   if (pb < pa) return true;                                   // no rows below T
   if (p.causal && k0 > pb) return true;                       // past the diagonal
   return p.window > 0 && k0 >= p.n_meta && pa - (k0 + bk - 1) >= p.window;
 }
 
 // whether some pair of the tile may be masked (it needs element masks)
-__device__ __forceinline__ bool tile_cut(int pa, int pb, int k0, int bk, const Params& p) {
+template <class P>
+__device__ __forceinline__ bool tile_cut(int pa, int pb, int k0, int bk, const P& p) {
   const int k1 = k0 + bk - 1;
   return k1 >= p.S || (p.causal && k1 > pa) ||
          (p.window > 0 && k1 >= p.n_meta && pb - k0 >= p.window);

@@ -1,13 +1,16 @@
 // K2's bf16 path: host-side declarations shared by the C entry point
 // (flash_attention.cu) and the files that compile the kernel
 // (flash_wgmma_d*.cu, one per head dim so that nvcc builds them in
-// parallel).  The kernel itself is in flash_wgmma.cuh.
+// parallel).  The kernel itself is in flash_wgmma.cuh.  K2 bwd's bf16
+// kernels (flash_bwd_wgmma.cuh) take encode_map from here too.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace k2 {
 
@@ -57,9 +60,28 @@ inline int smem_bytes(int bq, int bk, int d) {
 // a rank-4 bf16 tensor map over (d, rows, heads, batch) with the given
 // element strides of the last three, boxes of box_d x box_rows x 1 x 1, the
 // 128-byte swizzle where a box row is 128 bytes and the 64-byte one where it
-// is 64, and zero fill out of bounds (defined in flash_attention.cu)
-cudaError_t encode_map(CUtensorMap* map, const void* base, int d, int rows, int heads,
-                       int batch, const int64_t (&strides)[3], int box_d, int box_rows);
+// is 64, and zero fill out of bounds.  Inline, so that K2 and K2 bwd (two
+// libraries) compile the one definition.
+inline cudaError_t encode_map(CUtensorMap* map, const void* base, int d, int rows, int heads,
+                              int batch, const int64_t (&strides)[3], int box_d,
+                              int box_rows) {
+  hopper::EncodeTiled encode = hopper::encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[0]) * 2,
+                               static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[2]) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d), static_cast<cuuint32_t>(box_rows),
+                             1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_d * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        bytes, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 // launches the tile; instantiated in flash_wgmma_d*.cu
 template <int BQ, int BK, int D>

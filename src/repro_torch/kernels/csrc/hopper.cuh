@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels: K1's
-// bf16 GEMM (matmul_wgmma.cuh) and K2's bf16 flash-attention forward
-// (flash_wgmma.cuh).  Header only; every function is inlined where it is used.
+// bf16 GEMM (matmul_wgmma.cuh), K2's bf16 flash-attention forward
+// (flash_wgmma.cuh) and its gradient, K2 bwd (flash_bwd_wgmma.cuh).  Header
+// only; every function is inlined where it is used.
 //
 // What it carries, and the tricks K1 learned that K2 inherits:
 // - mbarrier init / expect_tx / arrive / wait / test, with a wait that traps

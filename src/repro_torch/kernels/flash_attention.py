@@ -29,12 +29,16 @@ any other size the bf16 kernel.
 * fp32, CUDA cores: the kernel has one tile, 64 x 32, which runs every
   request; the blocks are checked and clamped but choose nothing.
 
-The gradient is K2 bwd (``csrc/flash_attention_bwd.cu``), a library of its
-own: ``flash_attention_bwd_cuda`` launches it on CUDA tensors from the
-forward's output and row log-sum-exp, which the forward writes when asked
-(``return_lse``).  ``flash_attention_bwd_plain`` is its plain version, the
-gradient of ``flash_attention_plain`` by ``torch.autograd``, recomputed, as
-the JAX package's ``_vjp_bwd`` recomputes through its oracle.
+The gradient is K2 bwd, a library of its own whose C entry point
+(``csrc/flash_attention_bwd.cu``) dispatches by dtype: bf16 runs the
+tensor-core kernels of ``csrc/flash_bwd_wgmma.cuh`` (every product a
+``wgmma`` fed by TMA, 64-row tiles at every head dim), fp32 the CUDA-core
+kernels of ``flash_attention_bwd.cu``.  ``flash_attention_bwd_cuda``
+launches it on CUDA tensors from the forward's output and row
+log-sum-exp, which the forward writes when asked (``return_lse``).
+``flash_attention_bwd_plain`` is its plain version, the gradient of
+``flash_attention_plain`` by ``torch.autograd``, recomputed, as the JAX
+package's ``_vjp_bwd`` recomputes through its oracle.
 ``FlashAttention`` is the ``torch.autograd.Function`` that joins the two
 (the JAX package's ``custom_vjp``); ``ops.flash_attention`` takes it when
 an input needs a gradient.
@@ -54,7 +58,9 @@ from repro_torch.kernels.ref import flash_attention_ref
 LIBRARY = _build.Library("flash_attention", (
     "flash_attention.cu", "flash_wgmma_d32.cu", "flash_wgmma_d64.cu",
     "flash_wgmma_d128.cu"))
-LIBRARY_BWD = _build.Library("flash_attention_bwd", ("flash_attention_bwd.cu",))
+LIBRARY_BWD = _build.Library("flash_attention_bwd", (
+    "flash_attention_bwd.cu", "flash_bwd_wgmma_d32.cu", "flash_bwd_wgmma_d64.cu",
+    "flash_bwd_wgmma_d128.cu"))
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -77,6 +83,16 @@ TMA_ALIGN = 8               # bf16 values in 16 bytes: TMA's stride unit
 
 # fp32, the CUDA-core kernel (csrc/flash_attention.cu): one tile
 FP32_TILE = (64, 32)
+
+# K2 bwd: its two kernels, dK/dV and dQ, by the index its C entry point
+# takes.  bf16 (csrc/flash_bwd_wgmma.h): every tile 64 rows of d, two
+# resident and a ring of two stages of two, and the dK/dV kernel stages
+# each streamed q tile's lse and delta (fp32) beside the ring.  fp32
+# (csrc/flash_attention_bwd.cu): (64 query rows, 32 keys), fp32 tiles with
+# a padding column.
+BWD_KERNELS = ("dkdv", "dq")
+BWD_TILE = 64
+BWD_FP32_TILE = (64, 32)
 
 
 def _fp32(dtype_bytes) -> bool:
@@ -128,6 +144,20 @@ def smem_bytes(bq, bk, d, dtype_bytes: int = 2):
     if _fp32(dtype_bytes):
         return (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1)) * 4
     return ALIGN_PAD + bq * d * 2 + STAGES * 2 * bk * d * 2 + BARRIER_BYTES
+
+
+def bwd_smem_bytes(d, kernel: str, dtype_bytes: int = 2):
+    """Dynamic shared memory of a launch of K2 bwd's ``kernel`` ("dkdv" or
+    "dq") at head dim d; broadcasts over d.  bf16: ``ALIGN_PAD + (2 + 2 *
+    STAGES) * 64 * d * 2 + BARRIER_BYTES``, plus ``STAGES * 2 * 64 * 4``
+    bytes of staged lse and delta in the dK/dV kernel."""
+    d = np.asarray(d)
+    if _fp32(dtype_bytes):
+        bq, bk = BWD_FP32_TILE
+        tiles = 2 * bk * (d + 1) + 2 * bq * (d + 1) + 2 * bq
+        return (tiles + (2 if kernel == "dkdv" else 1) * bq * (bk + 1)) * 4
+    smem = ALIGN_PAD + (2 + 2 * STAGES) * BWD_TILE * d * 2 + BARRIER_BYTES
+    return smem + (STAGES * 2 * BWD_TILE * 4 if kernel == "dkdv" else 0)
 
 
 def fits(bq, bk, d, dtype_bytes: int = 2):
@@ -301,9 +331,27 @@ def _bwd_lib():
         fn.argtypes = ([i32, i32] + [ptr] * 10 + [i32] * 5 + [i64] * 15
                        + [ctypes.c_float, i32, i32, i32, ptr])
         fn.restype = i32
+        lib.flash_attention_bwd_smem.argtypes = [i32] * 3
+        lib.flash_attention_bwd_smem.restype = i32
         lib.flash_attention_bwd_error.argtypes = [i32]
         lib.flash_attention_bwd_error.restype = ctypes.c_char_p
     return lib
+
+
+def bwd_launch_smem(d: int, kernel: str, dtype_bytes: int = 2) -> int:
+    """The shared memory the built library requests for a launch of K2
+    bwd's ``kernel`` at head dim d, -1 where none is compiled (loads it)."""
+    return _bwd_lib().flash_attention_bwd_smem(0 if _fp32(dtype_bytes) else 1, d,
+                                               BWD_KERNELS.index(kernel))
+
+
+def _bwd_operands(q, k, v, o, do):
+    """q, k, v, o and do as K2 bwd reads them: d contiguous (else copied),
+    and for bf16 q, k, v and do through ``tma_operand``; o is read by the
+    delta pre-pass through its strides."""
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (tma_operand(x) for x in (q, k, v, do))
+    return tuple(x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, o, do))
 
 
 def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, scale: float,
@@ -311,8 +359,8 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, scale: float,
                              causal: bool = True, **_blocks):
     """Launch K2 bwd: ``(dq, dk, dv)`` of K2 for the output gradient ``do``,
     from the forward's ``o`` and ``lse`` ([B,H,T] fp32).  Shapes and dtypes
-    as the forward's; the last dim must be contiguous (else it is copied).
-    The tile is the kernel's own, so blocks do not change it."""
+    as the forward's; operands as ``_bwd_operands`` makes them.  The tile is
+    the kernel's own, so blocks do not change it."""
     global bwd_launches
     _check(q, k, v)
     b, t, h, d = q.shape
@@ -330,7 +378,7 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, scale: float,
     dv = torch.empty_like(dk)
     if q.numel() == 0 or s == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    q, k, v, o, do = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v, o, do))
+    q, k, v, o, do = _bwd_operands(q, k, v, o, do)
     lse = lse.contiguous()
     delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     lib = _bwd_lib()

@@ -6,12 +6,15 @@
 
 Builds Yi-6B at its published widths with ``--layers`` of its 32 layers
 (bf16 params, fp32 AdamW moments and gradient accumulation, per-layer
-remat; random weights from a seed), runs one warm-up step, then traces one
-train step with ``torch.profiler``.  It prints the step's wall time, the
-device time summed over all kernels, the device's idle share (1 - kernel
-time / wall time; one stream, so kernels do not overlap), the device time
-of the flash-attention kernels (K2 forward, K2 bwd) and of the GEMMs, and
-the kernels that take the most device time.
+remat; random weights from a seed), runs one warm-up step and one untraced
+step, then traces one train step with ``torch.profiler``.  It prints the
+traced step's wall time, the device time summed over all kernels, the
+device's idle share (1 - kernel time / wall time; one stream, so kernels
+do not overlap), the same share against the untraced step's wall time
+(the tracer's host work stretches the traced step once the device is
+fast), the device time of the flash-attention kernels (K2 forward, K2
+bwd, each kernel of a group on its own line) and of the GEMMs, and the
+kernels that take the most device time.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ from repro_torch.runtime.pipeline import DataPipeline, PipelineConfig  # noqa: E
 # kernel-name fragments of each group (mangled C++ names; cuBLAS's GEMMs)
 GROUPS = {
     "K2 forward (flash_wgmma_kernel)": ("flash_wgmma_kernel", "flash_fwd_kernel"),
-    "K2 bwd (delta, dkdv, dq kernels)": ("delta_kernel", "dkdv_kernel", "dq_kernel"),
+    "K2 bwd (delta, dkdv, dq kernels)": ("delta_kernel", "dkdv_kernel", "dq_kernel",
+                                         "dkdv_wgmma_kernel", "dq_wgmma_kernel"),
     "GEMMs (cuBLAS)": ("nvjet", "gemm", "xmma", "cutlass", "sm90_"),
 }
 
@@ -60,11 +64,12 @@ def main(argv=None) -> int:
     pipe = DataPipeline(cfg, ShapeConfig("train", "train", args.seq, args.global_batch),
                         PipelineConfig(seed=args.seed), device=device)
     params, opt, _, warm = train.run_step(step_fn, params, opt, next(pipe), 0, device)
+    params, opt, _, untraced = train.run_step(step_fn, params, opt, next(pipe), 1, device)
     batch = next(pipe)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        params, opt, metrics, _ = train.run_step(step_fn, params, opt, batch, 1, device)
+        params, opt, metrics, _ = train.run_step(step_fn, params, opt, batch, 2, device)
         wall = time.perf_counter() - t0
     print(f"[train-step] yi-6b widths, {args.layers} layers, {args.microbatches} x "
           f"{args.global_batch // args.microbatches} x {args.seq} tokens, flash="
@@ -74,11 +79,18 @@ def main(argv=None) -> int:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
     busy = sum(_device_us(e) for e in events)
+    print(f"[train-step] untraced step wall_ms={untraced * 1e3:.3f} idle_share="
+          f"{1 - busy / 1e3 / (untraced * 1e3):.4f} (the traced step's device time "
+          "against it)")
     for group, fragments in GROUPS.items():
         hit = [e for e in events if any(f in e.key for f in fragments)]
         us = sum(_device_us(e) for e in hit)
         print(f"[train-step] group {group}: {us / 1e3:.3f} ms, {us / busy:.1%} of "
               f"device time, {sum(e.count for e in hit)} launches")
+        if group.startswith("K2"):
+            for e in sorted(hit, key=_device_us, reverse=True):
+                print(f"[train-step]   {_device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
+                      f"{e.key[:70]}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
