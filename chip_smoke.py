@@ -62,11 +62,30 @@ Phases, each of which raises on failure (exit code != 0):
                --use-flash`` through its ``main``: loss improves over 14
                steps, ``--resume`` continues from the checkpoint,
                ``--inject-failure`` restores and reruns
+ 14. serve-gemma3  K2 at gemma3-27b's local-layer prefill shape (q
+               [4,1536,32,128], k/v [4,1536,16,128] bf16, causal, window
+               1024) against its plain version (3e-2), timed beside it, SDPA
+               with the window as a mask and the bound; then gemma3-27b at
+               full width and depth (62 layers, 52 of them sliding-window
+               with ring caches), bf16 random weights drawn on the card,
+               through ``serve.generate``: 4 x 1536-token prompts, 32 new
+               tokens (the rings wrap in prefill and again in decode); 62
+               K2 launches, 0 K2 bwd, tokens in [0, vocab), finite logits
+ 15. decode-vs-forward  prefill T - 1 tokens with flash, then 3 decode
+               steps, each step's logits against the plain full forward's
+               (max abs err < 2e-3), fp32, batch 2: gemma3 widths with 2
+               layers, windows (1024, 0), T = 1100; mixtral widths with 2
+               layers, window 512, T = 600, at the no-drop capacity factor
+ 16. serve-mixtral  mixtral-8x7b at its published widths, 16 of its 32
+               layers (the whole model is 93 GB in bf16, the cut ~47 GB),
+               bf16 random weights: 8 x 512-token prompts, 32 new tokens;
+               16 K2 launches, 0 K2 bwd, finite logits
 The last three lines are the ``nvidia-smi`` name/power-limit line, the
 kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import shutil
@@ -92,7 +111,7 @@ from repro_torch.kernels import matmul_blocked as mm  # noqa: E402
 from repro_torch.launch import serve, train, tune  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.runtime.pipeline import DataPipeline, PipelineConfig  # noqa: E402
-from repro_torch.runtime.tree import flatten  # noqa: E402
+from repro_torch.runtime.tree import flatten, leaves  # noqa: E402
 from repro_torch.weights import init_params  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense bf16 tensor-core rate
@@ -202,12 +221,15 @@ def sass_counts(library, opcodes=("HGMMA", "UTMALDG")):
     return counts
 
 
-def flash_work(b, t, s, h, kv, d, causal=True, dtype_bytes=2):
+def flash_work(b, t, s, h, kv, d, causal=True, dtype_bytes=2, window=0):
     """(flops, bytes) the function needs: each live (query, key) pair costs
     a d-long dot product and a d-long update, 2 flops per multiply-add; q
-    and k, v read once, o written once."""
+    and k, v read once, o written once.  A window keeps the ``window`` keys
+    up to each query's own."""
     if causal:
-        live = sum(min(s, max(0, r + s - t + 1)) for r in range(t))
+        live = sum(min(s, max(0, r + s - t + 1))
+                   - (max(0, r + s - t + 1 - window) if window else 0)
+                   for r in range(t))
     else:
         live = t * s
     return 4 * d * live * b * h, (2 * b * t * h + 2 * b * s * kv) * d * dtype_bytes
@@ -909,6 +931,156 @@ def phase_train_launcher():
           f"K2 bwd {fa.bwd_launches}", flush=True)
 
 
+# phase 14: gemma3-27b served whole, and the prefill shape of its local layers
+GEMMA3_SERVE = dict(batch=4, prompt=1536, gen=32)
+GEMMA3_LOCAL = dict(B=4, T=1536, H=32, KV=16, d=128, window=1024)
+# phase 15: (name, arch, layers, windows, T); fp32, batch 2, the reference
+# test's tolerance on the largest logit difference
+DECODE_CASES = [("gemma3 widths", "gemma3-27b", 2, (1024, 0), 1100),
+                ("mixtral widths", "mixtral-8x7b", 2, (512, 512), 600)]
+DECODE_TOL = 2e-3
+DECODE_STEPS = 3
+# phase 16: mixtral-8x7b at 16 of its 32 layers
+MIXTRAL_SERVE = dict(batch=8, prompt=512, gen=32, layers=16)
+
+
+def phase_gemma3_local(device):
+    """K2 with a window that masks, at gemma3-27b's local-layer prefill
+    shape: against its plain version, timed beside it, beside SDPA given the
+    window as a boolean mask (kv heads expanded outside the timing) and
+    beside the bound, which counts only the window's live pairs."""
+    c = GEMMA3_LOCAL
+    b, t, h, kvh, d, win = (c[x] for x in ("B", "T", "H", "KV", "d", "window"))
+    gen = torch.Generator(device=device).manual_seed(8)
+    q, k, v = qkv(gen, b, t, t, h, kvh, d, torch.bfloat16, device)
+    kw = dict(window=win)
+    got = ops.flash_attention(q, k, v, **kw)
+    err = check_close("gemma3 local shape", got, fa.flash_attention_plain(
+        q, k, v, scale=d ** -0.5, **kw), TOL[torch.bfloat16])
+    kernel_ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), iters=20)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale=d ** -0.5, **kw),
+                       iters=3, warmup=1)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    pos = torch.arange(t, device=device)
+    mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < win)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), iters=20)
+    flops, nbytes = flash_work(b, t, t, h, kvh, d, window=win)
+    bound_ms, bound_by, t_bytes, t_ops = bound(flops, nbytes)
+    print(f"[serve-gemma3] K2 at the local-layer shape q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)} bf16 causal window {win}: max abs err {err:.3e} (tol "
+          f"{TOL[torch.bfloat16]}); kernel_ms={kernel_ms:.4f} ({flops / kernel_ms / 1e9:.2f} "
+          f"TFLOP/s, {bound_ms / kernel_ms:.4f} of the bound) plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (SDPA, window as a mask) bound_ms={bound_ms:.5f} "
+          f"by {bound_by} ({nbytes / 1e6:.1f} MB -> {t_bytes:.5f} ms, "
+          f"{flops / 1e9:.2f} GFLOP -> {t_ops:.5f} ms)", flush=True)
+    del q, k, v, qt, kt, vt, got
+    torch.cuda.empty_cache()
+    return dict(local_ms=kernel_ms, local_plain_ms=plain_ms, local_library_ms=library_ms,
+                local_bound_ms=bound_ms, local_bound_by=bound_by, local_max_abs_err=err)
+
+
+def serve_model(tag, cfg, batch, prompt_len, gen_len, device, seed):
+    """``serve.generate`` on random bf16 weights drawn on the card: K2
+    launches (counted over the generate call alone), tokens and logits
+    checked, times and peak memory printed; the weights are freed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(x.numel() * x.element_size() for x in leaves(params)) / 1e9
+    prompts = torch.randint(2, cfg.vocab, (batch, prompt_len), generator=gen, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.bwd_launches = 0
+    out = serve.generate(cfg, params, prompts, gen_len=gen_len, temperature=0.0,
+                         generator=gen)
+    launches = {"fwd": fa.launches, "bwd": fa.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+    if launches != {"fwd": cfg.n_layers, "bwd": 0}:
+        raise SystemExit(f"[{tag}] K2 launches {launches}, expected {cfg.n_layers} "
+                         "forward (one a layer, in prefill) and 0 backward")
+    tokens = out.tokens
+    if tokens.shape != (batch, gen_len):
+        raise SystemExit(f"[{tag}] generated {tuple(tokens.shape)}, expected "
+                         f"{(batch, gen_len)}")
+    if not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab):
+        raise SystemExit(f"[{tag}] token outside [0, vocab)")
+    if not all(bool(torch.isfinite(lg).all()) for lg in out.logits):
+        raise SystemExit(f"[{tag}] non-finite logits")
+    decode_ms = out.decode_s / (gen_len - 1) * 1e3
+    tok_s = batch * gen_len / out.decode_s
+    print(f"[{tag}] {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers "
+          f"({cfg.n_params() / 1e9:.3f} B params, {weight_gb:.3f} GB of bf16 weights drawn "
+          f"in {init_s:.1f} s), batch {batch} x {prompt_len} prompt, {gen_len} new, greedy: "
+          f"prefill_ms={out.prefill_s * 1e3:.2f} decode_ms_per_step={decode_ms:.3f} "
+          f"tokens_per_s={tok_s:.1f} peak_mem_gb={peak / 1e9:.3f} "
+          f"k2_launches={launches['fwd']} k2_bwd_launches={launches['bwd']}; "
+          f"row 0 starts {tokens[0, :8].tolist()}", flush=True)
+    del params, out, prompts
+    torch.cuda.empty_cache()
+    return dict(launches=launches["fwd"], peak_mem_gb=peak / 1e9)
+
+
+def phase_serve_gemma3(device):
+    local = phase_gemma3_local(device)
+    c = GEMMA3_SERVE
+    report = serve_model("serve-gemma3", get_config("gemma3-27b"), c["batch"],
+                         c["prompt"], c["gen"], device, seed=9)
+    return local, report
+
+
+def phase_decode_vs_forward(device):
+    """The port's decode against its own plain full forward, across the
+    window, at two models' published widths (fp32, TF32 off)."""
+    for name, arch, layers, windows, t in DECODE_CASES:
+        cfg = get_config(arch).replace(n_layers=layers, windows=windows,
+                                       param_dtype="float32", compute_dtype="float32")
+        if cfg.moe is not None:        # drops depend on the batch: admit every token
+            cfg = cfg.replace(moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        gen = torch.Generator(device=device).manual_seed(10)
+        params = init_params(cfg, gen, device)
+        tokens = torch.randint(0, cfg.vocab, (2, t + DECODE_STEPS - 1), generator=gen,
+                               device=device)
+        with torch.inference_mode():
+            full, *_ = tfm.model_forward(cfg, params, tokens)
+            fa.launches = 0
+            last, cache = tfm.prefill(cfg, params, tokens[:, :t - 1], use_flash=True)
+            if fa.launches != layers:
+                raise SystemExit(f"[decode-vs-forward] {name}: {fa.launches} K2 launches "
+                                 f"in prefill, expected {layers}")
+            cache = tfm.grow_cache(cfg, cache, tokens.shape[1] + 1)
+            errs = [(last[:, 0] - full[:, t - 2]).abs().max().item()]
+            for pos in range(t - 1, tokens.shape[1]):
+                logits, cache = tfm.decode_step(cfg, params, cache, tokens[:, pos:pos + 1])
+                errs.append((logits[:, 0] - full[:, pos]).abs().max().item())
+        if not max(errs) < DECODE_TOL:
+            raise SystemExit(f"[decode-vs-forward] {name}: max abs errs {errs} over "
+                             f"{DECODE_TOL}")
+        print(f"[decode-vs-forward] {name} ({cfg.name}, {layers} layers, windows "
+              f"{windows}, fp32, batch 2): prefill {t - 1} tokens with flash, then "
+              f"{DECODE_STEPS} decode steps vs the plain forward at T = "
+              f"{tokens.shape[1]}: max abs err prefill {errs[0]:.3e}, steps "
+              f"{', '.join(f'{e:.3e}' for e in errs[1:])} (tol {DECODE_TOL})", flush=True)
+        del params, full, last, cache, logits
+        torch.cuda.empty_cache()
+
+
+def phase_serve_mixtral(device):
+    c = MIXTRAL_SERVE
+    whole = get_config("mixtral-8x7b")
+    cfg = whole.replace(n_layers=c["layers"], windows=(4096,) * c["layers"])
+    print(f"[serve-mixtral] depth cut: {c['layers']} of {whole.n_layers} layers, "
+          f"{cfg.n_params() * 2 / 1e9:.1f} of {whole.n_params() * 2 / 1e9:.1f} GB in bf16",
+          flush=True)
+    return serve_model("serve-mixtral", cfg, c["batch"], c["prompt"], c["gen"], device,
+                       seed=11)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -928,18 +1100,24 @@ def main() -> int:
     bwd_times = phase_k2_bwd_timing(device)
     train_report = phase_train(device, smi)
     phase_train_launcher()
+    gemma3_local, gemma3 = phase_serve_gemma3(device)
+    phase_decode_vs_forward(device)
+    mixtral = phase_serve_mixtral(device)
     record = {"kernels": [
         # the times are the bf16 kernel's at the serving shape (train_4k
-        # beside them); the fp32 kernel and the C entry point that picks
-        # between them are in flash_attention.cu (phase 3).  launches: the
-        # serve run's (phase 6); tune_launches: the tune run's (phase 8)
+        # beside them, and gemma3-27b's local-layer shape as local_*); the
+        # fp32 kernel and the C entry point that picks between them are in
+        # flash_attention.cu (phase 3).  launches: the serve run's (phase
+        # 6); tune_launches: the tune run's (phase 8); gemma3_launches and
+        # mixtral_launches: phases 14 and 16
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:32",
              launches=launches, tune_launches=tune_launches["flash"],
              train_launches=train_report["launches"]["fwd"],
-             max_abs_err=err, **times),
+             gemma3_launches=gemma3["launches"], mixtral_launches=mixtral["launches"],
+             max_abs_err=err, **times, **gemma3_local),
         # the times are the bf16 kernels' at train_4k (phase 11); the fp32
         # kernels and the C entry point that picks between them are in
         # flash_attention_bwd.cu (phase 10).  launches: the full-width train

@@ -62,6 +62,8 @@ LIBRARY_BWD = _build.Library("flash_attention_bwd", (
     "flash_attention_bwd.cu", "flash_bwd_wgmma_d32.cu", "flash_bwd_wgmma_d64.cu",
     "flash_bwd_wgmma_d128.cu"))
 HEAD_DIMS = (32, 64, 128)
+# where the other head dims (phi-3-vision's 96, h2o-danube's 120) are queued
+_OTHER_DIMS = "ROADMAP.md, K2, forward and bwd, at head dims 96 and 120"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # bf16, the wgmma kernel (csrc/flash_wgmma.cuh): a consumer warpgroup owns
@@ -193,7 +195,8 @@ def plan(t: int, s: int, d: int, *, block_q: int = 128, block_k: int = 128,
             f"consumer thread (bk/2 + d/2; {MAX_ACC_PER_THREAD[2]} at block_q "
             f"128) and "
             f"{int(smem_bytes(sq, sk, d, dtype_bytes))} bytes of shared memory "
-            f"against {SMEM_LIMIT_BYTES}")
+            f"against {SMEM_LIMIT_BYTES}"
+            + ("" if d in HEAD_DIMS else f"; head dim {d} waits on {_OTHER_DIMS}"))
     return tuple(int(x) for x in launch_tile(bq, bk, dtype_bytes))
 
 
@@ -247,7 +250,8 @@ def _check(q, k, v):
     if h % k.shape[2]:
         raise ValueError(f"kv heads {k.shape[2]} must divide query heads {h}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported; the kernel takes {HEAD_DIMS}")
+        raise ValueError(f"head dim {d} not supported; the kernel takes {HEAD_DIMS} "
+                         f"(other head dims: {_OTHER_DIMS})")
 
 
 def _strides(x) -> list[int]:

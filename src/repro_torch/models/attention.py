@@ -3,8 +3,9 @@
 The full-sequence path either calls the flash-attention kernel
 (``use_flash=True``) or computes softmax attention in plain torch, as the
 JAX package computes it outside any kernel.  Decode attends one new token
-against a full KV cache.  MLA, sliding-window ring caches and the meta-token
-prefix are not ported yet.
+against a full KV cache, or a ring cache of capacity ``window`` for a
+sliding-window layer, with an optional never-evicted prefix (meta tokens).
+MLA is not ported yet.
 """
 from __future__ import annotations
 
@@ -96,20 +97,19 @@ def gqa_forward(p, x, positions, *, window: int, theta: float, n_meta: int,
 
 
 # ---------------------------------------------------------------------------
-# GQA: decode path (full cache)
+# GQA: decode path (full or ring cache, optional static prefix)
 # ---------------------------------------------------------------------------
 
 def gqa_decode(p, x, cache, pos: int, *, window: int, theta: float, n_meta: int):
-    """x: [B,1,D]; cache: {"k","v": [B,S,KV,dh]}; ``pos`` the new token's position.
+    """x: [B,1,D]; cache: {"k","v": [B,S,KV,dh], optional "k_pre","v_pre"};
+    ``pos`` the new token's absolute position.
 
-    The JAX version returns an updated copy of the cache.  This one writes
-    the new key and value into ``cache`` in place at slot ``pos`` (no copy of
-    the whole cache per step) and returns the same tensors.
+    For windowed layers the cache is a ring buffer of capacity ``window``;
+    otherwise capacity is the max sequence length and slot == pos.  The JAX
+    version returns an updated copy of the cache.  This one writes the new
+    key and value into ``cache`` in place at the slot (no copy of the whole
+    cache per step) and returns the same tensors.
     """
-    if window > 0 or "k_pre" in cache:
-        raise NotImplementedError(
-            "ring caches and the meta-token prefix are not ported yet (ROADMAP.md, "
-            "remaining model families: sliding-window ring caches and meta tokens)")
     dh = p["wq"].shape[-1]
     positions = torch.arange(pos, pos + 1, device=x.device)   # no host copy
     q = apply_rope(torch.einsum("btd,dhk->bthk", x, p["wq"]), positions, theta)
@@ -117,9 +117,30 @@ def gqa_decode(p, x, cache, pos: int, *, window: int, theta: float, n_meta: int)
     v_new = torch.einsum("btd,dhk->bthk", x, p["wv"])
 
     k, v = cache["k"], cache["v"]
-    k[:, pos] = k_new[:, 0]
-    v[:, pos] = v_new[:, 0]
-    valid = torch.arange(k.shape[1], device=x.device) <= pos
-    y = _sdpa(q, k, v, valid[None, None, :], dh ** -0.5)
+    cap = k.shape[1]
+    slot = pos % cap if window > 0 else pos
+    k[:, slot] = k_new[:, 0]
+    v[:, slot] = v_new[:, 0]
+
+    n_prefix = cache["k_pre"].shape[1] if "k_pre" in cache else 0
+    idx = torch.arange(cap, device=x.device)
+    if window > 0:
+        age = torch.remainder(slot - idx, cap)       # 0 == just written
+        # ring slots are valid iff their absolute position (pos - age) has
+        # been written; prefix positions live in k_pre, never in the ring
+        valid = age <= pos - n_prefix
+    else:
+        valid = idx <= pos
+    mask = valid[None, None, :]                      # [1,1,S]
+
+    if "k_pre" in cache:                             # never-evicted prefix (meta)
+        k_all = torch.cat([cache["k_pre"], k], dim=1)
+        v_all = torch.cat([cache["v_pre"], v], dim=1)
+        pre = torch.ones((1, 1, n_prefix), dtype=torch.bool, device=x.device)
+        mask = torch.cat([pre, mask], dim=-1)
+    else:
+        k_all, v_all = k, v
+
+    y = _sdpa(q, k_all, v_all, mask, dh ** -0.5)
     out = torch.einsum("bthk,hkd->btd", y, p["wo"])
-    return out, {"k": k, "v": v}
+    return out, cache

@@ -1,4 +1,5 @@
-"""Generic decoder, dense attention-only subset (Yi-6B, deepseek-7b).
+"""Generic decoder: the attention-only families (Yi-6B, deepseek-7b,
+gemma3-27b, h2o-danube-3-4b, mixtral-8x7b).
 
 The layer sequence is decomposed into *stages*, maximal periodic runs of a
 repeating unit of layer descriptors, exactly as in the JAX package, so the
@@ -6,9 +7,11 @@ stacked per-stage weights keep their leading ``[R, ...]`` axis.  Where JAX
 runs a ``lax.scan`` over that axis, this port runs a Python loop over it.
 
 Parameters and caches are nested dicts / tuples of tensors in the JAX
-layout.  MoE, MLA, SSM and hybrid layers, sliding-window ring caches, meta
-tokens, tied or scaled embeddings, multi-token prediction and the vision /
-audio frontends raise ``NotImplementedError`` naming their ROADMAP.md item.
+layout: a sliding-window layer's decode cache is a ring of capacity
+``window`` (with the meta-token prefix beside it as ``k_pre``/``v_pre``), a
+global layer's a full cache.  MLA, SSM and hybrid layers, multi-token
+prediction and the vision / audio frontends raise ``NotImplementedError``
+naming their ROADMAP.md item.
 
 Where JAX wraps a stage's scan body in ``jax.checkpoint`` (``cfg.remat``),
 this port recomputes each layer in the backward with
@@ -23,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamSpec, cross_entropy, mlp, mlp_spec,
                                        rms_norm)
 
@@ -35,17 +39,9 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for the first part of ``cfg`` not ported yet."""
     families = "ROADMAP.md, remaining model families"
     gaps = [
-        (cfg.moe is not None or any(cfg.layer_moe),
-         f"mixture-of-experts FFNs ({families}: MoE)"),
         (cfg.mla is not None, f"MLA attention ({families}: MLA)"),
         (any(k != "attn" for k in cfg.kinds),
          f"SSM and hybrid layers ({families}: SSM)"),
-        (any(cfg.layer_windows) or cfg.meta_tokens > 0,
-         "sliding-window layers and meta tokens "
-         f"({families}: sliding-window ring caches and meta tokens)"),
-        (cfg.tie_embeddings or cfg.scale_embeddings,
-         "tied or scaled embeddings "
-         f"({families}: sliding-window ring caches and meta tokens)"),
         (cfg.frontend != "none" or cfg.n_codebooks > 1,
          f"the {cfg.frontend} frontend ({families}: frontends)"),
         (cfg.mtp_depth > 0,
@@ -108,16 +104,21 @@ def build_stages(cfg: ModelConfig, max_unit: int = 8):
 # Parameter specs
 # ---------------------------------------------------------------------------
 
-def _layer_spec(cfg: ModelConfig, lead: tuple):
+def _layer_spec(cfg: ModelConfig, desc: LayerDesc, lead: tuple):
     d = cfg.d_model
     la = ("layers",) * len(lead)
     dt = cfg.param_dtype
-    return {
+    spec = {
         "ln1": ParamSpec(lead + (d,), la + (None,), dt, init="zeros"),
         "attn": attn.gqa_spec(cfg, lead),
         "ln2": ParamSpec(lead + (d,), la + (None,), dt, init="zeros"),
-        "ffn": mlp_spec(d, cfg.d_ff, dt, stacked=lead[0] if lead else None),
     }
+    if desc.moe:
+        spec["ffn"] = moe_mod.moe_spec(cfg, lead)
+    else:
+        dff = cfg.dense_d_ff if cfg.moe is not None else cfg.d_ff
+        spec["ffn"] = mlp_spec(d, dff, dt, stacked=lead[0] if lead else None)
+    return spec
 
 
 def param_specs(cfg: ModelConfig):
@@ -125,11 +126,15 @@ def param_specs(cfg: ModelConfig):
     d, v = cfg.d_model, cfg.vocab
     dt = cfg.param_dtype
     spec = {"tok_emb": ParamSpec((v, d), ("vocab", "embed"), dt)}
+    if cfg.meta_tokens:
+        spec["meta"] = ParamSpec((cfg.meta_tokens, d), (None, "embed"), dt)
     spec["stages"] = tuple(
-        {f"u{j}": _layer_spec(cfg, (st.repeat,)) for j in range(len(st.unit))}
+        {f"u{j}": _layer_spec(cfg, desc, (st.repeat,))
+         for j, desc in enumerate(st.unit)}
         for st in build_stages(cfg))
     spec["final_norm"] = ParamSpec((d,), (None,), dt, init="zeros")
-    spec["head"] = ParamSpec((d, v), ("embed", "vocab"), dt)
+    if not cfg.tie_embeddings:
+        spec["head"] = ParamSpec((d, v), ("embed", "vocab"), dt)
     return spec
 
 
@@ -137,20 +142,45 @@ def param_specs(cfg: ModelConfig):
 # Layers
 # ---------------------------------------------------------------------------
 
+def _ring_pack(k, window: int, n_meta: int):
+    """Pack full-sequence keys/values into a ring cache of capacity window."""
+    b, t, kv, dh = k.shape
+    w = min(window, max(t - n_meta, 1))
+    start = max(n_meta, t - w)
+    positions = torch.arange(start, t, device=k.device)
+    ring = k.new_zeros((b, window, kv, dh))
+    ring[:, positions % window] = k[:, start:]
+    return ring
+
+
+def _ffn(cfg, desc, p, h):
+    """The layer's FFN: (y, aux_loss), the aux loss MoE's (0 when dense)."""
+    if desc.moe:
+        return moe_mod.moe_apply(cfg, p["ffn"], h, cfg.moe.router)
+    return mlp(p["ffn"], h, cfg.act), 0.0
+
+
 def layer_forward(cfg, desc, p, x, positions, n_meta, *, collect=False,
                   use_flash=False):
-    """One attention layer, full sequence.  Returns (x, cache_entry, aux_loss);
-    the aux loss is MoE's, so it is 0 here."""
+    """One attention layer, full sequence.  Returns (x, cache_entry, aux_loss)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     out = attn.gqa_forward(p["attn"], h, positions, window=desc.window,
                            theta=desc.theta, n_meta=n_meta,
                            return_kv=collect, use_flash=use_flash)
     entry = {}
     if collect:
-        out, (entry["k"], entry["v"]) = out
+        out, (k, v) = out
+        if desc.window > 0:
+            entry["k"] = _ring_pack(k, desc.window, n_meta)
+            entry["v"] = _ring_pack(v, desc.window, n_meta)
+            if n_meta:
+                entry["k_pre"] = k[:, :n_meta]
+                entry["v_pre"] = v[:, :n_meta]
+        else:
+            entry["k"], entry["v"] = k, v
     x = x + out
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["ffn"], h2, cfg.act), entry, 0.0
+    y, aux = _ffn(cfg, desc, p, rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + y, entry, aux
 
 
 def layer_decode(cfg, desc, p, x, cache, pos: int):
@@ -159,8 +189,8 @@ def layer_decode(cfg, desc, p, x, cache, pos: int):
     out, new = attn.gqa_decode(p["attn"], h, cache, pos, window=desc.window,
                                theta=desc.theta, n_meta=0)
     x = x + out
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(p["ffn"], h2, cfg.act), new
+    y, _ = _ffn(cfg, desc, p, rms_norm(x, p["ln2"], cfg.norm_eps))
+    return x + y, new
 
 
 # ---------------------------------------------------------------------------
@@ -195,12 +225,13 @@ def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
         for j, desc in enumerate(stage.unit):
             p = _take(sp[f"u{j}"], r)
             if remat:
-                # the layer has no randomness: no RNG state to keep
-                x = checkpoint(
+                # the layer has no randomness: no RNG state to keep; the
+                # aux loss comes out with x, as in the JAX package's carry
+                x, a = checkpoint(
                     lambda h, lp, d=desc: layer_forward(
-                        cfg, d, lp, h, positions, n_meta, use_flash=use_flash)[0],
+                        cfg, d, lp, h, positions, n_meta, use_flash=use_flash)[::2],
                     x, p, use_reentrant=False, preserve_rng_state=False)
-                e, a = {}, 0.0
+                e = {}
             else:
                 x, e, a = layer_forward(cfg, desc, p, x, positions, n_meta,
                                         collect=collect, use_flash=use_flash)
@@ -224,10 +255,17 @@ def stage_decode(cfg, stage: Stage, sp, x, cache, pos: int):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
-    return params["tok_emb"][tokens]
+    x = params["tok_emb"][tokens]
+    if cfg.scale_embeddings:
+        # the scale is rounded to the activation dtype first, as the JAX
+        # package rounds it (5376 ** 0.5 = 73.32 is 73.5 in bf16)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    return x
 
 
 def lm_head(cfg: ModelConfig, params, x):
+    if cfg.tie_embeddings:
+        return torch.einsum("btd,vd->btv", x, params["tok_emb"])
     return torch.einsum("btd,dv->btv", x, params["head"])
 
 
@@ -244,15 +282,21 @@ def model_forward(cfg: ModelConfig, params, tokens, image_embeds=None, *,
             "image inputs are not ported yet (ROADMAP.md, remaining model "
             "families: frontends)")
     x = embed_tokens(cfg, params, tokens)
+    n_prefix = 0
+    if cfg.meta_tokens:
+        meta = params["meta"][None].expand((x.shape[0],) + params["meta"].shape)
+        x = torch.cat([meta.to(x.dtype), x], dim=1)
+        n_prefix = cfg.meta_tokens
     positions = torch.arange(x.shape[1], device=x.device)
+    n_meta = cfg.meta_tokens                     # window-exempt prefix length
     caches, aux = [], 0.0
     for si, st in enumerate(build_stages(cfg)):
         x, c, a = stage_forward(cfg, st, params["stages"][si], x, positions,
-                                0, collect=collect, use_flash=use_flash)
+                                n_meta, collect=collect, use_flash=use_flash)
         caches.append(c)
         aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_head(cfg, params, x), x, tuple(caches), aux, 0
+    return lm_head(cfg, params, x[:, n_prefix:]), x, tuple(caches), aux, n_prefix
 
 
 def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
@@ -269,13 +313,20 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
 
 def train_loss(cfg: ModelConfig, params, batch, use_flash=False):
     """batch: {"tokens": [B,T]}.  Returns (loss, metrics): the mean
-    next-token cross entropy, as the JAX package's ``train_loss`` for the
-    dense families (no MoE aux loss, no multi-token prediction)."""
+    next-token cross entropy, plus ``cfg.moe_aux_coef`` times the MoE
+    load-balance loss for an MoE config, as the JAX package's
+    ``train_loss`` (no multi-token prediction)."""
     tokens = batch["tokens"]
-    logits, *_ = model_forward(cfg, params, tokens, batch.get("image_embeds"),
-                               use_flash=use_flash)
+    logits, _, _, aux, _ = model_forward(cfg, params, tokens,
+                                         batch.get("image_embeds"),
+                                         use_flash=use_flash)
     loss = cross_entropy(logits[:, :-1], tokens[:, 1:])
-    return loss, {"ce": loss, "loss": loss}
+    metrics = {"ce": loss}
+    if cfg.moe is not None:
+        loss = loss + cfg.moe_aux_coef * aux
+        metrics["aux"] = aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens_new):
@@ -296,19 +347,22 @@ def decode_step(cfg: ModelConfig, params, cache, tokens_new):
 def grow_cache(cfg: ModelConfig, cache, capacity: int):
     """Pad the full-attention caches along the sequence axis to ``capacity``.
 
+    Ring (windowed) caches and the meta-token prefix are already fixed-size.
     Call after :func:`prefill` to make room for decode steps.
     """
     new_stages = []
-    for sc in cache["stages"]:
-        grown = {}
-        for u, e in sc.items():
-            grown[u] = {}
-            for name, arr in e.items():                # [R,B,S,KV,dh]
-                if arr.shape[2] >= capacity:
-                    grown[u][name] = arr
-                    continue
-                new = arr.new_zeros(arr.shape[:2] + (capacity,) + arr.shape[3:])
-                new[:, :, :arr.shape[2]] = arr
-                grown[u][name] = new
-        new_stages.append(grown)
+    for st, sc in zip(build_stages(cfg), cache["stages"]):
+        sc = dict(sc)
+        for j, desc in enumerate(st.unit):
+            if desc.window > 0:
+                continue
+            e = dict(sc[f"u{j}"])
+            for name in ("k", "v"):
+                arr = e[name]                          # [R,B,S,KV,dh]
+                if arr.shape[2] < capacity:
+                    new = arr.new_zeros(arr.shape[:2] + (capacity,) + arr.shape[3:])
+                    new[:, :, :arr.shape[2]] = arr
+                    e[name] = new
+            sc[f"u{j}"] = e
+        new_stages.append(sc)
     return {"stages": tuple(new_stages), "pos": cache["pos"]}

@@ -36,7 +36,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "core.log", "core.roofline", "data.logstore", "eval.harness",
                  "configs.workloads", "artifacts", "launch.train",
                  "runtime.optim", "runtime.steps", "runtime.pipeline",
-                 "runtime.checkpoint", "runtime.fault", "runtime.tree"):
+                 "runtime.checkpoint", "runtime.fault", "runtime.tree",
+                 "models.moe"):
         assert f"repro_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))

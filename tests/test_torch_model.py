@@ -1,5 +1,12 @@
 """The port's model (forward, prefill, decode) against the JAX package's on
-the same weights: JAX's parameter tree carried across by params_from_jax."""
+the same weights: JAX's parameter tree carried across by params_from_jax.
+
+Each supported arch runs at its reduced config; gemma3-27b runs a second
+time with meta tokens and tied embeddings, which no ported arch uses yet.
+The windowed archs' reduced window is 32, so a 37-token prefill already
+wraps the ring and the decode steps wrap it again."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,19 +23,23 @@ from repro_torch.models import transformer as ttf
 from repro_torch.weights import init_params, params_from_jax
 
 TOL = 2e-3
-RUNS = ("yi-6b", "deepseek-7b")
+RUNS = ("yi-6b", "deepseek-7b", "gemma3-27b", "h2o-danube-3-4b", "mixtral-8x7b")
+META_TIED = dict(meta_tokens=8, tie_embeddings=True)
+PAIRS = [(arch, {}) for arch in RUNS] + [("gemma3-27b", META_TIED)]
 
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@pytest.fixture(scope="module", params=RUNS)
+@pytest.fixture(scope="module", params=PAIRS,
+                ids=lambda p: p[0] + ("+meta+tied" if p[1] else ""))
 def pair(request):
-    arch = request.param
-    cfg = reduced_config(arch)
-    jparams = init_param_tree(jtf.param_specs(jreduced_config(arch)),
-                              jax.random.PRNGKey(0))
+    arch, replace = request.param
+    cfg = reduced_config(arch).replace(**replace)
+    jparams = init_param_tree(
+        jtf.param_specs(jreduced_config(arch).replace(**replace)),
+        jax.random.PRNGKey(0))
     return cfg, jparams, params_from_jax(cfg, _np_tree(jparams))
 
 
@@ -56,8 +67,9 @@ def test_prefill_then_decode_matches_jax(pair):
     tlast, tcache = ttf.prefill(cfg, tparams, torch.tensor(tokens[:, :t0]),
                                 use_flash=True)
     _close(tlast, jlast)
-    jcache = jtf.grow_cache(cfg, jcache, 44)
-    tcache = ttf.grow_cache(cfg, tcache, 44)
+    capacity = tokens.shape[1] + cfg.meta_tokens + 4
+    jcache = jtf.grow_cache(cfg, jcache, capacity)
+    tcache = ttf.grow_cache(cfg, tcache, capacity)
     for pos in range(t0, t0 + 3):
         new = tokens[:, pos:pos + 1]
         jlog, jcache = jtf.decode_step(cfg, jparams, jcache, jnp.asarray(new))
@@ -81,13 +93,36 @@ def test_chunked_attention_matches_whole(monkeypatch):
 
 
 def test_grow_cache_pads_only_seq(pair):
-    cfg, _, tparams = pair
-    _, cache = ttf.prefill(cfg, tparams, torch.arange(16)[None] % cfg.vocab)
+    """The JAX package's rule: a global layer's k/v grow along the sequence
+    axis, zero-padded; a ring and the meta prefix keep their shape."""
+    cfg, jparams, tparams = pair
+    tokens = np.arange(16)[None] % cfg.vocab
+    _, cache = ttf.prefill(cfg, tparams, torch.tensor(tokens))
+    _, jcache = jtf.prefill(cfg, jparams, jnp.asarray(tokens))
     grown = ttf.grow_cache(cfg, cache, 64)
-    k, orig = grown["stages"][0]["u0"]["k"], cache["stages"][0]["u0"]["k"]
-    assert k.shape[2] == 64
-    assert torch.equal(k[:, :, :orig.shape[2]], orig)
-    assert not k[:, :, orig.shape[2]:].any()
+    jgrown = jtf.grow_cache(cfg, jcache, 64)
+    n_full = n_fixed = 0
+    for st, sc, gc, jgc in zip(ttf.build_stages(cfg), cache["stages"],
+                               grown["stages"], jgrown["stages"]):
+        for j, desc in enumerate(st.unit):
+            u = f"u{j}"
+            assert set(gc[u]) == set(jgc[u])
+            for name, orig in sc[u].items():
+                new = gc[u][name]
+                assert new.shape == jgc[u][name].shape, (u, name)
+                if desc.window == 0:
+                    assert new.shape[2] == 64
+                    assert torch.equal(new[:, :, :orig.shape[2]], orig)
+                    assert not new[:, :, orig.shape[2]:].any()
+                    n_full += 1
+                else:
+                    assert new is orig
+                    n_fixed += 1
+                _close(new, jgc[u][name])
+    assert n_full == 2 * sum(d.window == 0 for st in ttf.build_stages(cfg)
+                             for d in st.unit)
+    assert n_fixed == (2 + 2 * bool(cfg.meta_tokens)) * sum(
+        d.window > 0 for st in ttf.build_stages(cfg) for d in st.unit)
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in RUNS])
@@ -178,3 +213,88 @@ def test_params_from_jax_keeps_bfloat16():
     assert tparams["head"].dtype == torch.bfloat16
     np.testing.assert_array_equal(tparams["head"].float().numpy(),
                                   np.asarray(jparams["head"], np.float32))
+
+
+# Capacity-MoE drops depend on the batch: a token dropped in the T-token
+# forward is never dropped in a 1-token decode step, so the port's own
+# decode-vs-forward runs MoE archs with a capacity factor that admits every
+# routed token, as the JAX package's test_serve.py does.
+NO_DROP = {"mixtral-8x7b"}
+
+
+@pytest.mark.parametrize("arch,replace", PAIRS,
+                         ids=[a + ("+meta+tied" if r else "") for a, r in PAIRS])
+def test_decode_matches_forward(arch, replace, T=44, B=2, steps=3):
+    """The port alone: prefill T - steps tokens, then decode ``steps``
+    tokens; each step's logits are the full forward's at that position.
+    The reduced window is 32, so the decode steps run on a wrapped ring."""
+    cfg = reduced_config(arch).replace(**replace)
+    if arch in NO_DROP:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts) / cfg.moe.top_k))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (B, T)))
+    with torch.no_grad():
+        full, *_ = ttf.model_forward(cfg, params, tokens)
+        t0 = T - steps
+        last, cache = ttf.prefill(cfg, params, tokens[:, :t0], use_flash=True)
+        cache = ttf.grow_cache(cfg, cache, T + cfg.meta_tokens + 4)
+        torch.testing.assert_close(last[:, 0], full[:, t0 - 1], rtol=0, atol=TOL)
+        for pos in range(t0, T):
+            logits, cache = ttf.decode_step(cfg, params, cache, tokens[:, pos:pos + 1])
+            torch.testing.assert_close(logits[:, 0], full[:, pos], rtol=0, atol=TOL)
+            assert cache["pos"] == pos + 1 + cfg.meta_tokens
+
+
+def test_params_from_jax_carries_meta_and_the_tied_tree():
+    replace = dict(META_TIED, param_dtype="bfloat16")
+    cfg = reduced_config("gemma3-27b").replace(**replace)
+    jparams = init_param_tree(
+        jtf.param_specs(jreduced_config("gemma3-27b").replace(**replace)),
+        jax.random.PRNGKey(0))
+    tparams = params_from_jax(cfg, _np_tree(jparams))
+    assert "head" not in tparams and "head" not in jparams
+    assert tparams["meta"].shape == (8, cfg.d_model)
+    assert tparams["meta"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(tparams["meta"].float().numpy(),
+                                  np.asarray(jparams["meta"], np.float32))
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax(cfg, dict(_np_tree(jparams), head=np.zeros((cfg.d_model, cfg.vocab))))
+
+
+def test_moe_leaves_carry_across_with_an_fp32_router():
+    cfg = reduced_config("mixtral-8x7b").replace(param_dtype="bfloat16")
+    jparams = init_param_tree(
+        jtf.param_specs(jreduced_config("mixtral-8x7b").replace(param_dtype="bfloat16")),
+        jax.random.PRNGKey(0))
+    tparams = params_from_jax(cfg, _np_tree(jparams))
+    for si, stage in enumerate(tparams["stages"]):
+        for u, layer in stage.items():
+            ffn, jffn = layer["ffn"], jparams["stages"][si][u]["ffn"]
+            assert set(ffn) == {"router", "w_in", "w_gate", "w_out"}
+            assert ffn["router"].dtype == torch.float32
+            assert ffn["w_in"].dtype == torch.bfloat16
+            for name in ffn:
+                np.testing.assert_array_equal(ffn[name].float().numpy(),
+                                              np.asarray(jffn[name], np.float32))
+    drawn = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    router = drawn["stages"][0]["u0"]["ffn"]["router"]
+    assert router.dtype == torch.float32 and router.shape == (2, 128, 4)
+
+
+def test_scaled_embedding_is_bit_identical_in_bf16():
+    """gemma3's sqrt(d_model) scale is rounded to bf16 before the product
+    (73.32 -> 73.5 at d_model 5376), in both packages."""
+    cfg = get_config("gemma3-27b").replace(vocab=64)
+    assert cfg.scale_embeddings and cfg.param_dtype == "bfloat16"
+    table = np.random.default_rng(3).normal(size=(64, cfg.d_model)).astype(np.float32)
+    jtable = jnp.asarray(table, jnp.bfloat16)
+    ttable = torch.from_numpy(np.array(jtable.astype(jnp.float32))).to(torch.bfloat16)
+    tokens = np.random.default_rng(4).integers(0, 64, (2, 24))
+    want = jtf.embed_tokens(cfg, {"tok_emb": jtable}, jnp.asarray(tokens))
+    got = ttf.embed_tokens(cfg, {"tok_emb": ttable}, torch.from_numpy(tokens))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+    np.testing.assert_array_equal(
+        got.float().numpy(), (ttable[torch.from_numpy(tokens)].float() * 73.5).to(
+            torch.bfloat16).float().numpy())

@@ -28,14 +28,18 @@ def test_small_preset_matches_jax_config():
     assert repr(serve.build_config(ARCH, "small")) == repr(jcfg)
 
 
-def test_greedy_generation_matches_jax():
-    cfg = serve.build_config(ARCH, "small")
+# the windowed archs' small preset keeps the reduced window of 32, so a
+# 40-token prompt wraps its rings in prefill
+@pytest.mark.parametrize("arch,prompt_len", [(ARCH, PROMPT), ("gemma3-27b", 40),
+                                             ("mixtral-8x7b", 40)])
+def test_greedy_generation_matches_jax(arch, prompt_len):
+    cfg = serve.build_config(arch, "small")
     jparams = init_param_tree(jtf.param_specs(cfg), jax.random.PRNGKey(0))
     tparams = params_from_jax(cfg, jax.tree.map(np.asarray, jparams))
-    prompts = np.random.default_rng(0).integers(2, cfg.vocab, (B, PROMPT))
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab, (B, prompt_len))
 
     last, cache = jtf.prefill(cfg, jparams, jnp.asarray(prompts), use_flash=True)
-    cache = jtf.grow_cache(cfg, cache, PROMPT + GEN + 1)
+    cache = jtf.grow_cache(cfg, cache, prompt_len + GEN + 1)
     want_logits = [last[:, -1]]
     want = [jnp.argmax(want_logits[-1], axis=-1)]
     for _ in range(GEN - 1):

@@ -3,10 +3,11 @@ tokens: ``train_loss`` and its gradients, three train steps with gradient
 accumulation (the JAX package's no-mesh ``make_train_step``, jitted), and
 the launcher's loss, resume and failure-injection paths on the CPU.
 
-The model is Yi-6B's reduced config scaled to d_model 128, 2 layers,
-vocab 256 and 4 query heads over 2 kv heads: head dim 32, the smallest
-that the port's flash-attention kernel takes (it refuses 16, which
-d_model 64 would give)."""
+The models are Yi-6B's and mixtral-8x7b's reduced configs scaled to
+d_model 128, 2 layers, vocab 256 and 4 query heads over 2 kv heads: head
+dim 32, the smallest that the port's flash-attention kernel takes (it
+refuses 16, which d_model 64 would give).  Mixtral's loss carries the MoE
+load-balance term, whose gradient has to survive per-layer remat."""
 import os
 import subprocess
 import sys
@@ -35,11 +36,12 @@ from repro_torch.weights import opt_state_from_jax, params_from_jax
 ROOT = Path(__file__).resolve().parents[1]
 SCALE = dict(d_model=128, n_layers=2, vocab=256, heads=4)
 HP = dict(peak_lr=1e-3, warmup=2, total_steps=6)
+ARCHS = ("yi-6b", "mixtral-8x7b")
 
 
-def _configs(**replace):
-    return (jscale_config(jreduced_config("yi-6b"), **SCALE).replace(**replace),
-            scale_config(reduced_config("yi-6b"), **SCALE).replace(**replace))
+def _configs(arch="yi-6b", **replace):
+    return (jscale_config(jreduced_config(arch), **SCALE).replace(**replace),
+            scale_config(reduced_config(arch), **SCALE).replace(**replace))
 
 
 def _np(tree):
@@ -60,9 +62,9 @@ def _assert_tree_close(jtree, ttree, rel):
                                    err_msg=path)
 
 
-@pytest.fixture(scope="module")
-def loss_pair():
-    jcfg, tcfg = _configs()
+@pytest.fixture(scope="module", params=ARCHS)
+def loss_pair(request):
+    jcfg, tcfg = _configs(request.param)
     jparams = init_param_tree(jtf.param_specs(jcfg), jax.random.PRNGKey(0))
     tokens = np.random.default_rng(0).integers(0, SCALE["vocab"], (2, 64)).astype(np.int32)
     return jcfg, tcfg, jparams, tokens
@@ -80,7 +82,7 @@ def test_train_loss_and_grads_match_jax(loss_pair, use_flash):
     def jloss(p):
         return jtf.train_loss(jcfg, p, {"tokens": jnp.asarray(tokens)},
                               use_flash=use_flash)
-    (want, _), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jparams)
+    (want, jmetrics), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jparams)
     tparams = params_from_jax(tcfg, _np(jparams))
     flat = leaves(tparams)
     for x in flat:
@@ -90,14 +92,19 @@ def test_train_loss_and_grads_match_jax(loss_pair, use_flash):
     grads = unflatten(tparams, torch.autograd.grad(got, flat))
     assert metrics["loss"] is got
     np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-6)
+    if tcfg.moe is not None:                    # the aux loss is in the loss
+        aux = float(metrics["aux"].detach())
+        np.testing.assert_allclose(aux, float(jmetrics["aux"]), rtol=1e-6)
+        assert aux > 0 and float(metrics["ce"].detach()) != float(got.detach())
     _assert_tree_close(jgrads, grads, 1e-5)
 
 
 def test_remat_changes_no_gradient(loss_pair):
-    """Per-layer recomputation in the backward gives the gradients of the
-    plain backward bit for bit (the same ops run on the same inputs)."""
+    """Per-layer recomputation in the backward gives the loss and the
+    gradients of the plain backward bit for bit (the same ops run on the
+    same inputs); for MoE that includes the aux loss and its gradient."""
     _, tcfg, jparams, tokens = loss_pair
-    out = []
+    out, losses = [], []
     for remat in (True, False):
         cfg = tcfg.replace(remat=remat)
         params = params_from_jax(cfg, _np(jparams))
@@ -105,7 +112,9 @@ def test_remat_changes_no_gradient(loss_pair):
         for x in flat:
             x.requires_grad_(True)
         loss, _ = ttf.train_loss(cfg, params, {"tokens": torch.from_numpy(tokens)})
+        losses.append(loss.detach())
         out.append(torch.autograd.grad(loss, flat))
+    assert torch.equal(*losses)
     for a, b in zip(*out):
         assert torch.equal(a, b)
 
@@ -136,11 +145,11 @@ def test_unported_step_options_raise(kw, item):
         tsteps.make_train_step(tcfg, **kw)
 
 
-@pytest.fixture(scope="module")
-def three_steps():
+@pytest.fixture(scope="module", params=ARCHS)
+def three_steps(request):
     """Three steps of the JAX package's jitted no-mesh step and of the
     port's, from the same weights, on the same tokens, two microbatches."""
-    jcfg, tcfg = _configs(train_microbatches=2)
+    jcfg, tcfg = _configs(request.param, train_microbatches=2)
     jstep = jax.jit(jsteps.make_train_step(jcfg, jsteps.TrainHParams(**HP)))
     tstep = tsteps.make_train_step(tcfg, tsteps.TrainHParams(**HP))
     jp = init_param_tree(jtf.param_specs(jcfg), jax.random.PRNGKey(1))

@@ -2,10 +2,11 @@
 """Where the time of the port's serve run goes, on one CUDA card.
 
     python3 tools/profile_torch_serve.py [--arch yi-6b] [--batch 8]
-        [--prompt-len 512] [--decode-steps 8]
+        [--prompt-len 512] [--decode-steps 8] [--layers N]
 
-Builds the architecture at full width and depth in bf16 (random weights from
-a seed), warms up once, then traces one prefill and ``--decode-steps`` decode
+Builds the architecture at full width in bf16 (random weights from a seed),
+at full depth or at its first ``--layers`` layers (mixtral-8x7b's 93 GB do
+not fit one card), warms up once, then traces one prefill and ``--decode-steps`` decode
 steps with ``torch.profiler``.  For each phase it prints the wall time, the
 device time summed over all kernels, the device's idle share (1 - kernel
 time / wall time; one stream, so kernels do not overlap) and the kernels
@@ -60,10 +61,18 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--decode-steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to the first N layers (0: all)")
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
     cfg = get_config(args.arch)
+    if args.layers:
+        n = args.layers
+        cfg = cfg.replace(n_layers=n, windows=cfg.windows[:n],
+                          layer_kinds=cfg.layer_kinds[:n], moe_layers=cfg.moe_layers[:n])
+    print(f"[profile] {cfg.name}: {cfg.n_layers} layers, {cfg.n_params() / 1e9:.3f} B "
+          f"params, batch {args.batch} x {args.prompt_len} prompt", flush=True)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
     prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
