@@ -23,6 +23,7 @@ Phases, each of which raises on failure (exit code != 0):
   5. model     Yi-6B widths, 2 layers, fp32: model_forward flash vs plain
   6. serve     Yi-6B at full width and depth, bf16: 8 x 512-token prompts,
                32 generated tokens, through ``repro_torch.launch.serve.main``
+               (K2 launches: one an attention-bearing layer, in prefill)
   7. k1        blocked matmul against its plain version on the card: every
                compiled tile of both dtypes at bk 16/64/128/256 on the JAX
                tests' shapes and three ragged ones (bit-identical across the
@@ -75,11 +76,27 @@ Phases, each of which raises on failure (exit code != 0):
                steps, each step's logits against the plain full forward's
                (max abs err < 2e-3), fp32, batch 2: gemma3 widths with 2
                layers, windows (1024, 0), T = 1100; mixtral widths with 2
-               layers, window 512, T = 600, at the no-drop capacity factor
+               layers, window 512, T = 600, at the no-drop capacity factor;
+               hymba widths with 2 hybrid layers, windows (1024, 0), 128
+               meta tokens, T = 1100 (the window and four SSD chunk
+               boundaries crossed); mamba2 widths with 2 SSD layers,
+               T = 600 (not a chunk multiple: the padding runs)
  16. serve-mixtral  mixtral-8x7b at its published widths, 16 of its 32
                layers (the whole model is 93 GB in bf16, the cut ~47 GB),
                bf16 random weights: 8 x 512-token prompts, 32 new tokens;
                16 K2 launches, 0 K2 bwd, finite logits
+ 17. serve-hymba  K2 at hymba-1.5b's local-layer prefill shape (q
+               [8,1664,25,64], k/v [8,1664,5,64] bf16, causal, window 1024,
+               128 meta tokens) against its plain version (3e-2), timed
+               beside it, SDPA with the mask as a boolean and the bound;
+               then hymba-1.5b whole (32 hybrid layers, attention and the
+               SSD in parallel, 29 of them windowed), bf16 random weights,
+               through ``serve.generate``: 8 x 1536-token prompts, 32 new
+               tokens (the rings wrap in prefill and in decode); 32 K2
+               launches, 0 K2 bwd, tokens in [0, vocab), finite logits
+ 18. serve-mamba2  mamba2-370m whole (48 SSD layers, attention-free), bf16
+               random weights: 8 x 2048-token prompts (8 SSD chunks of
+               256), 32 new tokens; 0 K2 launches, finite logits
 The last three lines are the ``nvidia-smi`` name/power-limit line, the
 kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
@@ -131,6 +148,7 @@ CASES = [
     ("ragged t=75 s=203", 2, 75, 203, 4, 2, 32, 0, 0, True),
     ("d=128", 2, 256, 256, 8, 2, 128, 0, 0, True),
     ("non-causal", 2, 64, 128, 4, 2, 64, 0, 0, False),
+    ("window+meta d=64 group 5", 2, 160, 160, 10, 2, 64, 32, 8, True),   # hymba's kinds
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 SLICE = dict(B=8, T=512, H=32, KV=4, d=128)      # Yi-6B prefill in the serve run
@@ -221,15 +239,17 @@ def sass_counts(library, opcodes=("HGMMA", "UTMALDG")):
     return counts
 
 
-def flash_work(b, t, s, h, kv, d, causal=True, dtype_bytes=2, window=0):
+def flash_work(b, t, s, h, kv, d, causal=True, dtype_bytes=2, window=0, n_meta=0):
     """(flops, bytes) the function needs: each live (query, key) pair costs
     a d-long dot product and a d-long update, 2 flops per multiply-add; q
     and k, v read once, o written once.  A window keeps the ``window`` keys
-    up to each query's own."""
+    up to each query's own, and the ``n_meta`` first keys beside them."""
     if causal:
-        live = sum(min(s, max(0, r + s - t + 1))
-                   - (max(0, r + s - t + 1 - window) if window else 0)
-                   for r in range(t))
+        live = 0
+        for r in range(t):
+            hi = max(0, r + s - t + 1)             # the row sees keys [0, hi)
+            lo = max(0, hi - window) if window else 0
+            live += hi - lo + min(n_meta, lo)
     else:
         live = t * s
     return 4 * d * live * b * h, (2 * b * t * h + 2 * b * s * kv) * d * dtype_bytes
@@ -933,29 +953,44 @@ def phase_train_launcher():
 
 # phase 14: gemma3-27b served whole, and the prefill shape of its local layers
 GEMMA3_SERVE = dict(batch=4, prompt=1536, gen=32)
-GEMMA3_LOCAL = dict(B=4, T=1536, H=32, KV=16, d=128, window=1024)
+GEMMA3_LOCAL = dict(B=4, T=1536, H=32, KV=16, d=128, window=1024, meta=0)
 # phase 15: (name, arch, layers, windows, T); fp32, batch 2, the reference
 # test's tolerance on the largest logit difference
 DECODE_CASES = [("gemma3 widths", "gemma3-27b", 2, (1024, 0), 1100),
-                ("mixtral widths", "mixtral-8x7b", 2, (512, 512), 600)]
+                ("mixtral widths", "mixtral-8x7b", 2, (512, 512), 600),
+                ("hymba widths", "hymba-1.5b", 2, (1024, 0), 1100),
+                ("mamba2 widths", "mamba2-370m", 2, (0, 0), 600)]
 DECODE_TOL = 2e-3
 DECODE_STEPS = 3
 # phase 16: mixtral-8x7b at 16 of its 32 layers
 MIXTRAL_SERVE = dict(batch=8, prompt=512, gen=32, layers=16)
+# phase 17: hymba-1.5b served whole, and the prefill shape of its local
+# layers (1536 prompt tokens after 128 meta tokens)
+HYMBA_SERVE = dict(batch=8, prompt=1536, gen=32)
+HYMBA_LOCAL = dict(B=8, T=1664, H=25, KV=5, d=64, window=1024, meta=128)
+# phase 18: mamba2-370m served whole
+MAMBA2_SERVE = dict(batch=8, prompt=2048, gen=32)
 
 
-def phase_gemma3_local(device):
-    """K2 with a window that masks, at gemma3-27b's local-layer prefill
-    shape: against its plain version, timed beside it, beside SDPA given the
-    window as a boolean mask (kv heads expanded outside the timing) and
-    beside the bound, which counts only the window's live pairs."""
-    c = GEMMA3_LOCAL
-    b, t, h, kvh, d, win = (c[x] for x in ("B", "T", "H", "KV", "d", "window"))
-    gen = torch.Generator(device=device).manual_seed(8)
+def attention_layers(cfg) -> int:
+    """Layers with attention (``attn`` and ``hybrid``): one K2 launch each
+    in prefill."""
+    return sum(kind != "ssm" for kind in cfg.kinds)
+
+
+def phase_local_k2(tag, c, device, seed):
+    """K2 with a window that masks (and the meta prefix, where the model has
+    one), at a model's local-layer prefill shape: against its plain version,
+    timed beside it, beside SDPA given the mask as a boolean (kv heads
+    expanded outside the timing) and beside the bound, which counts only
+    the live pairs."""
+    b, t, h, kvh, d, win, meta = (c[x] for x in ("B", "T", "H", "KV", "d", "window",
+                                                 "meta"))
+    gen = torch.Generator(device=device).manual_seed(seed)
     q, k, v = qkv(gen, b, t, t, h, kvh, d, torch.bfloat16, device)
-    kw = dict(window=win)
+    kw = dict(window=win, n_meta=meta)
     got = ops.flash_attention(q, k, v, **kw)
-    err = check_close("gemma3 local shape", got, fa.flash_attention_plain(
+    err = check_close(f"{tag} local shape", got, fa.flash_attention_plain(
         q, k, v, scale=d ** -0.5, **kw), TOL[torch.bfloat16])
     kernel_ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), iters=20)
     plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale=d ** -0.5, **kw),
@@ -964,16 +999,18 @@ def phase_gemma3_local(device):
     kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
               for x in (k, v))
     pos = torch.arange(t, device=device)
-    mask = (pos[:, None] >= pos[None]) & (pos[:, None] - pos[None] < win)
+    mask = (pos[:, None] >= pos[None]) & ((pos[:, None] - pos[None] < win)
+                                         | (pos[None] < meta))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask), iters=20)
-    flops, nbytes = flash_work(b, t, t, h, kvh, d, window=win)
+    flops, nbytes = flash_work(b, t, t, h, kvh, d, window=win, n_meta=meta)
     bound_ms, bound_by, t_bytes, t_ops = bound(flops, nbytes)
-    print(f"[serve-gemma3] K2 at the local-layer shape q {tuple(q.shape)} k/v "
-          f"{tuple(k.shape)} bf16 causal window {win}: max abs err {err:.3e} (tol "
+    print(f"[{tag}] K2 at the local-layer shape q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)} bf16 causal window {win}, {meta} meta keys: max abs err "
+          f"{err:.3e} (tol "
           f"{TOL[torch.bfloat16]}); kernel_ms={kernel_ms:.4f} ({flops / kernel_ms / 1e9:.2f} "
           f"TFLOP/s, {bound_ms / kernel_ms:.4f} of the bound) plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} (SDPA, window as a mask) bound_ms={bound_ms:.5f} "
+          f"library_ms={library_ms:.4f} (SDPA, the mask as a boolean) bound_ms={bound_ms:.5f} "
           f"by {bound_by} ({nbytes / 1e6:.1f} MB -> {t_bytes:.5f} ms, "
           f"{flops / 1e9:.2f} GFLOP -> {t_ops:.5f} ms)", flush=True)
     del q, k, v, qt, kt, vt, got
@@ -1000,9 +1037,10 @@ def serve_model(tag, cfg, batch, prompt_len, gen_len, device, seed):
                          generator=gen)
     launches = {"fwd": fa.launches, "bwd": fa.bwd_launches}
     peak = torch.cuda.max_memory_allocated()
-    if launches != {"fwd": cfg.n_layers, "bwd": 0}:
-        raise SystemExit(f"[{tag}] K2 launches {launches}, expected {cfg.n_layers} "
-                         "forward (one a layer, in prefill) and 0 backward")
+    want = attention_layers(cfg)
+    if launches != {"fwd": want, "bwd": 0}:
+        raise SystemExit(f"[{tag}] K2 launches {launches}, expected {want} forward "
+                         "(one an attention-bearing layer, in prefill) and 0 backward")
     tokens = out.tokens
     if tokens.shape != (batch, gen_len):
         raise SystemExit(f"[{tag}] generated {tuple(tokens.shape)}, expected "
@@ -1026,7 +1064,7 @@ def serve_model(tag, cfg, batch, prompt_len, gen_len, device, seed):
 
 
 def phase_serve_gemma3(device):
-    local = phase_gemma3_local(device)
+    local = phase_local_k2("serve-gemma3", GEMMA3_LOCAL, device, seed=8)
     c = GEMMA3_SERVE
     report = serve_model("serve-gemma3", get_config("gemma3-27b"), c["batch"],
                          c["prompt"], c["gen"], device, seed=9)
@@ -1037,8 +1075,9 @@ def phase_decode_vs_forward(device):
     """The port's decode against its own plain full forward, across the
     window, at two models' published widths (fp32, TF32 off)."""
     for name, arch, layers, windows, t in DECODE_CASES:
-        cfg = get_config(arch).replace(n_layers=layers, windows=windows,
-                                       param_dtype="float32", compute_dtype="float32")
+        cfg = get_config(arch)
+        cfg = cfg.replace(n_layers=layers, windows=windows, layer_kinds=cfg.kinds[:layers],
+                          param_dtype="float32", compute_dtype="float32")
         if cfg.moe is not None:        # drops depend on the batch: admit every token
             cfg = cfg.replace(moe=dataclasses.replace(
                 cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
@@ -1050,10 +1089,10 @@ def phase_decode_vs_forward(device):
             full, *_ = tfm.model_forward(cfg, params, tokens)
             fa.launches = 0
             last, cache = tfm.prefill(cfg, params, tokens[:, :t - 1], use_flash=True)
-            if fa.launches != layers:
+            if fa.launches != attention_layers(cfg):
                 raise SystemExit(f"[decode-vs-forward] {name}: {fa.launches} K2 launches "
-                                 f"in prefill, expected {layers}")
-            cache = tfm.grow_cache(cfg, cache, tokens.shape[1] + 1)
+                                 f"in prefill, expected {attention_layers(cfg)}")
+            cache = tfm.grow_cache(cfg, cache, tokens.shape[1] + cfg.meta_tokens + 1)
             errs = [(last[:, 0] - full[:, t - 2]).abs().max().item()]
             for pos in range(t - 1, tokens.shape[1]):
                 logits, cache = tfm.decode_step(cfg, params, cache, tokens[:, pos:pos + 1])
@@ -1061,8 +1100,9 @@ def phase_decode_vs_forward(device):
         if not max(errs) < DECODE_TOL:
             raise SystemExit(f"[decode-vs-forward] {name}: max abs errs {errs} over "
                              f"{DECODE_TOL}")
-        print(f"[decode-vs-forward] {name} ({cfg.name}, {layers} layers, windows "
-              f"{windows}, fp32, batch 2): prefill {t - 1} tokens with flash, then "
+        print(f"[decode-vs-forward] {name} ({cfg.name}, {layers} {cfg.kinds[0]} layers, "
+              f"windows {windows}, {cfg.meta_tokens} meta tokens, fp32, batch 2): prefill "
+              f"{t - 1} tokens with flash, then "
               f"{DECODE_STEPS} decode steps vs the plain forward at T = "
               f"{tokens.shape[1]}: max abs err prefill {errs[0]:.3e}, steps "
               f"{', '.join(f'{e:.3e}' for e in errs[1:])} (tol {DECODE_TOL})", flush=True)
@@ -1079,6 +1119,20 @@ def phase_serve_mixtral(device):
           flush=True)
     return serve_model("serve-mixtral", cfg, c["batch"], c["prompt"], c["gen"], device,
                        seed=11)
+
+
+def phase_serve_hymba(device):
+    local = phase_local_k2("serve-hymba", HYMBA_LOCAL, device, seed=12)
+    c = HYMBA_SERVE
+    report = serve_model("serve-hymba", get_config("hymba-1.5b"), c["batch"], c["prompt"],
+                         c["gen"], device, seed=13)
+    return {f"hymba_{k}": v for k, v in local.items()}, report
+
+
+def phase_serve_mamba2(device):
+    c = MAMBA2_SERVE
+    return serve_model("serve-mamba2", get_config("mamba2-370m"), c["batch"], c["prompt"],
+                       c["gen"], device, seed=14)
 
 
 def main() -> int:
@@ -1103,13 +1157,16 @@ def main() -> int:
     gemma3_local, gemma3 = phase_serve_gemma3(device)
     phase_decode_vs_forward(device)
     mixtral = phase_serve_mixtral(device)
+    hymba_local, hymba = phase_serve_hymba(device)
+    phase_serve_mamba2(device)
     record = {"kernels": [
         # the times are the bf16 kernel's at the serving shape (train_4k
         # beside them, and gemma3-27b's local-layer shape as local_*); the
         # fp32 kernel and the C entry point that picks between them are in
         # flash_attention.cu (phase 3).  launches: the serve run's (phase
-        # 6); tune_launches: the tune run's (phase 8); gemma3_launches and
-        # mixtral_launches: phases 14 and 16
+        # 6); tune_launches: the tune run's (phase 8); gemma3_launches,
+        # mixtral_launches and hymba_launches: phases 14, 16 and 17, and
+        # hymba-1.5b's local-layer shape as hymba_local_*
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1117,7 +1174,8 @@ def main() -> int:
              launches=launches, tune_launches=tune_launches["flash"],
              train_launches=train_report["launches"]["fwd"],
              gemma3_launches=gemma3["launches"], mixtral_launches=mixtral["launches"],
-             max_abs_err=err, **times, **gemma3_local),
+             hymba_launches=hymba["launches"], max_abs_err=err, **times, **gemma3_local,
+             **hymba_local),
         # the times are the bf16 kernels' at train_4k (phase 11); the fp32
         # kernels and the C entry point that picks between them are in
         # flash_attention_bwd.cu (phase 10).  launches: the full-width train

@@ -1,11 +1,13 @@
 """Batched serving driver: prefill a prompt batch, decode with KV caches.
 
 Prefill runs every attention layer on the flash-attention kernel; decode
-attends each new token against full KV caches.  ``--preset full`` serves the
+attends each new token against its KV caches (full, or a ring for a
+windowed layer) and steps an SSM layer's recurrent state.  ``--preset full`` serves the
 architecture at its published widths and depth; the other presets scale the
 reduced config, as the JAX package's driver does.
 
     PYTHONPATH=src python -m repro_torch serve --arch yi-6b --preset full
+    PYTHONPATH=src python -m repro_torch serve --arch hymba-1.5b --preset full
     PYTHONPATH=src python -m repro_torch serve --preset small --device cpu
 """
 from __future__ import annotations

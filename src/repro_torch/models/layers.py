@@ -53,10 +53,15 @@ def init_leaf(spec: ParamSpec, generator: torch.Generator,
     dt = spec.torch_dtype
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dt, device=device)
-    if spec.init != "normal":
-        raise NotImplementedError(
-            f"init {spec.init!r} is not ported yet "
-            "(ROADMAP.md, remaining model families: SSM)")
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dt, device=device)
+    if spec.init in ("ssm_a", "ssm_dt"):          # per-head vectors: small
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32,
+                       device=device)
+        if spec.init == "ssm_a":                  # A_log in [log 1, log 16]
+            return torch.log(u * 15.0 + 1.0).to(dt)
+        u = u * (1e-1 - 1e-3) + 1e-3              # softplus^-1(U[1e-3, 1e-1])
+        return (u + torch.log(-torch.expm1(-u))).to(dt)
     fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
     scale = 0.02 if fan_in == 0 else min(0.02, (1.0 / fan_in) ** 0.5)
     out = torch.empty(spec.shape, dtype=dt, device=device)

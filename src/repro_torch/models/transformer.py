@@ -1,5 +1,6 @@
-"""Generic decoder: the attention-only families (Yi-6B, deepseek-7b,
-gemma3-27b, h2o-danube-3-4b, mixtral-8x7b).
+"""Generic decoder: the attention families (Yi-6B, deepseek-7b, gemma3-27b,
+h2o-danube-3-4b, mixtral-8x7b), the attention-free Mamba-2 (mamba2-370m)
+and the hybrid heads of hymba-1.5b.
 
 The layer sequence is decomposed into *stages*, maximal periodic runs of a
 repeating unit of layer descriptors, exactly as in the JAX package, so the
@@ -9,7 +10,8 @@ runs a ``lax.scan`` over that axis, this port runs a Python loop over it.
 Parameters and caches are nested dicts / tuples of tensors in the JAX
 layout: a sliding-window layer's decode cache is a ring of capacity
 ``window`` (with the meta-token prefix beside it as ``k_pre``/``v_pre``), a
-global layer's a full cache.  MLA, SSM and hybrid layers, multi-token
+global layer's a full cache, and an SSM or hybrid layer's carries the SSD's
+fp32 ``state`` and its ``conv`` window beside them.  MLA, multi-token
 prediction and the vision / audio frontends raise ``NotImplementedError``
 naming their ROADMAP.md item.
 
@@ -27,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, cross_entropy, mlp, mlp_spec,
                                        rms_norm)
 
@@ -40,8 +43,6 @@ def check_supported(cfg: ModelConfig) -> None:
     families = "ROADMAP.md, remaining model families"
     gaps = [
         (cfg.mla is not None, f"MLA attention ({families}: MLA)"),
-        (any(k != "attn" for k in cfg.kinds),
-         f"SSM and hybrid layers ({families}: SSM)"),
         (cfg.frontend != "none" or cfg.n_codebooks > 1,
          f"the {cfg.frontend} frontend ({families}: frontends)"),
         (cfg.mtp_depth > 0,
@@ -108,11 +109,17 @@ def _layer_spec(cfg: ModelConfig, desc: LayerDesc, lead: tuple):
     d = cfg.d_model
     la = ("layers",) * len(lead)
     dt = cfg.param_dtype
-    spec = {
-        "ln1": ParamSpec(lead + (d,), la + (None,), dt, init="zeros"),
-        "attn": attn.gqa_spec(cfg, lead),
-        "ln2": ParamSpec(lead + (d,), la + (None,), dt, init="zeros"),
-    }
+    spec = {"ln1": ParamSpec(lead + (d,), la + (None,), dt, init="zeros")}
+    if desc.kind in ("attn", "hybrid"):
+        spec["attn"] = attn.gqa_spec(cfg, lead)
+    if desc.kind in ("ssm", "hybrid"):
+        spec["ssm"] = ssm_mod.ssm_spec(cfg, lead)
+    if desc.kind == "hybrid":
+        spec["ln_a"] = ParamSpec(lead + (d,), la + (None,), dt, init="zeros")
+        spec["ln_s"] = ParamSpec(lead + (d,), la + (None,), dt, init="zeros")
+    if desc.kind == "ssm":                       # mamba block has no extra FFN
+        return spec
+    spec["ln2"] = ParamSpec(lead + (d,), la + (None,), dt, init="zeros")
     if desc.moe:
         spec["ffn"] = moe_mod.moe_spec(cfg, lead)
     else:
@@ -160,14 +167,26 @@ def _ffn(cfg, desc, p, h):
     return mlp(p["ffn"], h, cfg.act), 0.0
 
 
+def _ssd(cfg, p, h, collect, entry):
+    """The layer's SSD over the full sequence; under ``collect`` its decode
+    handoff (``state``, ``conv``) goes into ``entry``."""
+    if not collect:
+        return ssm_mod.ssd_forward(cfg, p["ssm"], h)
+    out, st = ssm_mod.ssd_forward(cfg, p["ssm"], h, return_state=True)
+    entry.update(st)
+    return out
+
+
 def layer_forward(cfg, desc, p, x, positions, n_meta, *, collect=False,
                   use_flash=False):
-    """One attention layer, full sequence.  Returns (x, cache_entry, aux_loss)."""
+    """One layer, full sequence.  Returns (x, cache_entry, aux_loss)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    entry = {}
+    if desc.kind == "ssm":                       # mamba block: no extra FFN
+        return x + _ssd(cfg, p, h, collect, entry), entry, 0.0
     out = attn.gqa_forward(p["attn"], h, positions, window=desc.window,
                            theta=desc.theta, n_meta=n_meta,
                            return_kv=collect, use_flash=use_flash)
-    entry = {}
     if collect:
         out, (k, v) = out
         if desc.window > 0:
@@ -178,19 +197,32 @@ def layer_forward(cfg, desc, p, x, positions, n_meta, *, collect=False,
                 entry["v_pre"] = v[:, :n_meta]
         else:
             entry["k"], entry["v"] = k, v
+    if desc.kind == "hybrid":                    # parallel attention + SSM
+        s_out = _ssd(cfg, p, h, collect, entry)
+        out = 0.5 * (rms_norm(out, p["ln_a"], cfg.norm_eps)
+                     + rms_norm(s_out, p["ln_s"], cfg.norm_eps))
     x = x + out
     y, aux = _ffn(cfg, desc, p, rms_norm(x, p["ln2"], cfg.norm_eps))
     return x + y, entry, aux
 
 
 def layer_decode(cfg, desc, p, x, cache, pos: int):
-    """One attention layer, one new token against its cache (updated in place)."""
+    """One layer, one new token against its cache (updated in place: the
+    attention half writes its k/v slot, the SSD half its state and conv
+    window, each reading only its own entries of a hybrid layer's cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    out, new = attn.gqa_decode(p["attn"], h, cache, pos, window=desc.window,
-                               theta=desc.theta, n_meta=0)
+    if desc.kind == "ssm":
+        out, _ = ssm_mod.ssd_decode(cfg, p["ssm"], h, cache)
+        return x + out, cache
+    out, _ = attn.gqa_decode(p["attn"], h, cache, pos, window=desc.window,
+                             theta=desc.theta, n_meta=0)
+    if desc.kind == "hybrid":
+        s_out, _ = ssm_mod.ssd_decode(cfg, p["ssm"], h, cache)
+        out = 0.5 * (rms_norm(out, p["ln_a"], cfg.norm_eps)
+                     + rms_norm(s_out, p["ln_s"], cfg.norm_eps))
     x = x + out
     y, _ = _ffn(cfg, desc, p, rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x + y, new
+    return x + y, cache
 
 
 # ---------------------------------------------------------------------------
@@ -347,14 +379,14 @@ def decode_step(cfg: ModelConfig, params, cache, tokens_new):
 def grow_cache(cfg: ModelConfig, cache, capacity: int):
     """Pad the full-attention caches along the sequence axis to ``capacity``.
 
-    Ring (windowed) caches and the meta-token prefix are already fixed-size.
-    Call after :func:`prefill` to make room for decode steps.
+    Ring (windowed) caches, the meta-token prefix and SSM states are already
+    fixed-size.  Call after :func:`prefill` to make room for decode steps.
     """
     new_stages = []
     for st, sc in zip(build_stages(cfg), cache["stages"]):
         sc = dict(sc)
         for j, desc in enumerate(st.unit):
-            if desc.window > 0:
+            if desc.window > 0 or desc.kind == "ssm":
                 continue
             e = dict(sc[f"u{j}"])
             for name in ("k", "v"):

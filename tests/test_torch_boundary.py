@@ -37,7 +37,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "configs.workloads", "artifacts", "launch.train",
                  "runtime.optim", "runtime.steps", "runtime.pipeline",
                  "runtime.checkpoint", "runtime.fault", "runtime.tree",
-                 "models.moe"):
+                 "models.moe", "models.ssm"):
         assert f"repro_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))

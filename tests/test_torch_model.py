@@ -2,9 +2,10 @@
 the same weights: JAX's parameter tree carried across by params_from_jax.
 
 Each supported arch runs at its reduced config; gemma3-27b runs a second
-time with meta tokens and tied embeddings, which no ported arch uses yet.
-The windowed archs' reduced window is 32, so a 37-token prefill already
-wraps the ring and the decode steps wrap it again."""
+time with meta tokens and tied embeddings.  The windowed archs' reduced
+window is 32, so a 37-token prefill already wraps the ring and the decode
+steps wrap it again; the SSM archs' reduced chunk is 16, so the same
+prefill ends in a ragged chunk (hymba's 8 meta tokens included)."""
 import dataclasses
 
 import jax
@@ -23,7 +24,8 @@ from repro_torch.models import transformer as ttf
 from repro_torch.weights import init_params, params_from_jax
 
 TOL = 2e-3
-RUNS = ("yi-6b", "deepseek-7b", "gemma3-27b", "h2o-danube-3-4b", "mixtral-8x7b")
+RUNS = ("yi-6b", "deepseek-7b", "gemma3-27b", "h2o-danube-3-4b", "mixtral-8x7b",
+        "hymba-1.5b", "mamba2-370m")
 META_TIED = dict(meta_tokens=8, tie_embeddings=True)
 PAIRS = [(arch, {}) for arch in RUNS] + [("gemma3-27b", META_TIED)]
 
@@ -76,7 +78,8 @@ def test_prefill_then_decode_matches_jax(pair):
         tlog, tcache = ttf.decode_step(cfg, tparams, tcache, torch.tensor(new))
         _close(tlog, jlog)
         assert tcache["pos"] == int(jcache["pos"])
-    _close(tcache["stages"][0]["u0"]["k"], jcache["stages"][0]["u0"]["k"])
+    for name, got in tcache["stages"][0]["u0"].items():
+        _close(got, jcache["stages"][0]["u0"][name])
 
 
 def test_chunked_attention_matches_whole(monkeypatch):
@@ -94,7 +97,8 @@ def test_chunked_attention_matches_whole(monkeypatch):
 
 def test_grow_cache_pads_only_seq(pair):
     """The JAX package's rule: a global layer's k/v grow along the sequence
-    axis, zero-padded; a ring and the meta prefix keep their shape."""
+    axis, zero-padded; a ring, the meta prefix and an SSM layer's state and
+    conv window keep their shape."""
     cfg, jparams, tparams = pair
     tokens = np.arange(16)[None] % cfg.vocab
     _, cache = ttf.prefill(cfg, tparams, torch.tensor(tokens))
@@ -110,7 +114,7 @@ def test_grow_cache_pads_only_seq(pair):
             for name, orig in sc[u].items():
                 new = gc[u][name]
                 assert new.shape == jgc[u][name].shape, (u, name)
-                if desc.window == 0:
+                if desc.window == 0 and name in ("k", "v"):
                     assert new.shape[2] == 64
                     assert torch.equal(new[:, :, :orig.shape[2]], orig)
                     assert not new[:, :, orig.shape[2]:].any()
@@ -119,10 +123,11 @@ def test_grow_cache_pads_only_seq(pair):
                     assert new is orig
                     n_fixed += 1
                 _close(new, jgc[u][name])
-    assert n_full == 2 * sum(d.window == 0 for st in ttf.build_stages(cfg)
-                             for d in st.unit)
+    descs = [d for st in ttf.build_stages(cfg) for d in st.unit]
+    attn = [d for d in descs if d.kind != "ssm"]
+    assert n_full == 2 * sum(d.window == 0 for d in attn)
     assert n_fixed == (2 + 2 * bool(cfg.meta_tokens)) * sum(
-        d.window > 0 for st in ttf.build_stages(cfg) for d in st.unit)
+        d.window > 0 for d in attn) + 2 * sum(d.kind != "attn" for d in descs)
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in RUNS])
@@ -298,3 +303,26 @@ def test_scaled_embedding_is_bit_identical_in_bf16():
     np.testing.assert_array_equal(
         got.float().numpy(), (ttable[torch.from_numpy(tokens)].float() * 73.5).to(
             torch.bfloat16).float().numpy())
+
+
+def test_ssm_leaves_carry_across_in_fp32():
+    """hymba's bf16 tree keeps the SSD's a_log, d_skip and dt_bias in fp32,
+    as the JAX package's specs say, whether carried across or drawn."""
+    cfg = reduced_config("hymba-1.5b").replace(param_dtype="bfloat16")
+    jparams = init_param_tree(
+        jtf.param_specs(jreduced_config("hymba-1.5b").replace(param_dtype="bfloat16")),
+        jax.random.PRNGKey(0))
+    tparams = params_from_jax(cfg, _np_tree(jparams))
+    drawn = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    fp32 = {"a_log", "d_skip", "dt_bias"}
+    for si, stage in enumerate(tparams["stages"]):
+        for u, layer in stage.items():
+            ssm, jssm = layer["ssm"], jparams["stages"][si][u]["ssm"]
+            assert set(ssm) == set(jssm) == set(drawn["stages"][si][u]["ssm"])
+            for name in ssm:
+                want = torch.float32 if name in fp32 else torch.bfloat16
+                assert ssm[name].dtype == drawn["stages"][si][u]["ssm"][name].dtype == want
+                np.testing.assert_array_equal(ssm[name].float().numpy(),
+                                              np.asarray(jssm[name], np.float32))
+            assert torch.equal(drawn["stages"][si][u]["ssm"]["d_skip"],
+                               torch.ones_like(ssm["d_skip"]))

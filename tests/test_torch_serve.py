@@ -29,9 +29,11 @@ def test_small_preset_matches_jax_config():
 
 
 # the windowed archs' small preset keeps the reduced window of 32, so a
-# 40-token prompt wraps its rings in prefill
+# 40-token prompt wraps its rings in prefill; the SSM archs' keeps the
+# reduced chunk of 16, so it ends in a ragged chunk
 @pytest.mark.parametrize("arch,prompt_len", [(ARCH, PROMPT), ("gemma3-27b", 40),
-                                             ("mixtral-8x7b", 40)])
+                                             ("mixtral-8x7b", 40), ("hymba-1.5b", 40),
+                                             ("mamba2-370m", 40)])
 def test_greedy_generation_matches_jax(arch, prompt_len):
     cfg = serve.build_config(arch, "small")
     jparams = init_param_tree(jtf.param_specs(cfg), jax.random.PRNGKey(0))
@@ -39,7 +41,8 @@ def test_greedy_generation_matches_jax(arch, prompt_len):
     prompts = np.random.default_rng(0).integers(2, cfg.vocab, (B, prompt_len))
 
     last, cache = jtf.prefill(cfg, jparams, jnp.asarray(prompts), use_flash=True)
-    cache = jtf.grow_cache(cfg, cache, prompt_len + GEN + 1)
+    # room for the meta prefix too, as serve.generate makes it
+    cache = jtf.grow_cache(cfg, cache, prompt_len + GEN + cfg.meta_tokens + 1)
     want_logits = [last[:, -1]]
     want = [jnp.argmax(want_logits[-1], axis=-1)]
     for _ in range(GEN - 1):

@@ -99,6 +99,30 @@ def test_train_loss_and_grads_match_jax(loss_pair, use_flash):
     _assert_tree_close(jgrads, grads, 1e-5)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-370m", "hymba-1.5b"])
+def test_ssm_train_loss_and_grads_match_jax(arch):
+    """The SSM families under per-layer remat (the configs' default), fp32:
+    the loss within 1e-6 and every gradient leaf within 1e-5 of its largest
+    entry, against the JAX package's jitted value_and_grad of train_loss
+    (what its no-mesh make_train_step takes).  Seq 64 runs four SSD chunks
+    of 16 for mamba2, and for hymba (8 meta tokens) a ragged fifth."""
+    jcfg, tcfg = _configs(arch)
+    assert tcfg.remat and jcfg.remat
+    jparams = init_param_tree(jtf.param_specs(jcfg), jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(0).integers(0, SCALE["vocab"], (2, 64)).astype(np.int32)
+    (want, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jtf.train_loss(jcfg, p, {"tokens": jnp.asarray(tokens)}),
+        has_aux=True))(jparams)
+    tparams = params_from_jax(tcfg, _np(jparams))
+    flat = leaves(tparams)
+    for x in flat:
+        x.requires_grad_(True)
+    got, _ = ttf.train_loss(tcfg, tparams, {"tokens": torch.from_numpy(tokens)})
+    grads = unflatten(tparams, torch.autograd.grad(got, flat))
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-6)
+    _assert_tree_close(jgrads, grads, 1e-5)
+
+
 def test_remat_changes_no_gradient(loss_pair):
     """Per-layer recomputation in the backward gives the loss and the
     gradients of the plain backward bit for bit (the same ops run on the

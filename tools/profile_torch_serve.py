@@ -9,8 +9,11 @@ at full depth or at its first ``--layers`` layers (mixtral-8x7b's 93 GB do
 not fit one card), warms up once, then traces one prefill and ``--decode-steps`` decode
 steps with ``torch.profiler``.  For each phase it prints the wall time, the
 device time summed over all kernels, the device's idle share (1 - kernel
-time / wall time; one stream, so kernels do not overlap) and the kernels
-that take the most device time.
+time / wall time; one stream, so kernels do not overlap), its split into
+GEMMs (cuBLAS), K2 (flash attention) and, for the SSM and hybrid families,
+the SSD block (its projections and its plain-torch scan, each timed under a
+``record_function`` range the tool puts around ``ssd_forward`` and
+``ssd_decode``), and the kernels that take the most device time.
 """
 from __future__ import annotations
 
@@ -25,10 +28,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
+from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.weights import init_params  # noqa: E402
 
@@ -39,15 +43,74 @@ def _device_us(evt) -> float:
     return evt.self_cuda_time_total if us is None else us
 
 
-def report(name: str, prof, wall_s: float, top: int = 8) -> None:
+SSD_RANGE = "ssd"
+
+
+def _ranged(fn):
+    def wrapped(*args, **kwargs):
+        with record_function(SSD_RANGE):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def _is_gemm(kernel: str) -> bool:
+    return any(tag in kernel.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass"))
+
+
+def _range_kernels(evt) -> list:
+    """(name, us, the launching op's input shapes) of every kernel launched
+    under a CPU event, children too."""
+    out = [(k.name, k.duration, evt.input_shapes) for k in evt.kernels]
+    for child in evt.cpu_children:
+        out += _range_kernels(child)
+    return out
+
+
+def _quadratic(shapes, chunk: int) -> bool:
+    """Whether an op's inputs span a [.., chunk, chunk] block: the SSD's
+    intra-chunk term (its [B, nc, nh, cl, cl] passes and products)."""
+    dims = [sh[-2:] for sh in shapes if isinstance(sh, (list, tuple)) and len(sh) >= 2]
+    return bool(dims) and max(d[0] for d in dims) == chunk == max(d[1] for d in dims)
+
+
+def split(prof, busy_ms: float, chunk: int) -> str:
+    """Device time of GEMMs, K2 and the SSD ranges: their GEMMs, the ops
+    over [.., chunk, chunk] blocks (GEMM or not) and the rest."""
+    # the range's own device-side annotation is not a kernel
+    kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name != SSD_RANGE]
+    names = {k for k, _ in kernels}
+    gemm = sum(us for k, us in kernels if _is_gemm(k)) / 1e3
+    k2 = sum(us for k, us in kernels if "flash" in k) / 1e3
+    # a CPU event's list also holds the range's own span (named after it),
+    # which is not a kernel: keep the entries named like a device kernel
+    ssd = [(k, us, _quadratic(shapes, chunk)) for e in prof.events()
+           if e.device_type == DeviceType.CPU and e.name == SSD_RANGE
+           for k, us, shapes in _range_kernels(e) if k in names]
+    ssd_all = sum(us for _, us, _ in ssd) / 1e3
+    ssd_gemm = sum(us for k, us, _ in ssd if _is_gemm(k)) / 1e3
+    quad = sum(us for _, us, q in ssd if q) / 1e3
+    quad_ew = sum(us for k, us, q in ssd if q and not _is_gemm(k)) / 1e3
+
+    def part(ms):
+        return f"{ms:.3f} ms ({ms / busy_ms:.1%})"
+    return (f"gemm={part(gemm)} k2={part(k2)} ssd={part(ssd_all)} [ssd gemm "
+            f"{part(ssd_gemm)}; ops over [.., {chunk}, {chunk}] blocks {part(quad)}, "
+            f"of which not GEMM {part(quad_ew)}; ssd not GEMM "
+            f"{part(ssd_all - ssd_gemm)}] rest={part(busy_ms - gemm - k2 - ssd_all + ssd_gemm)}")
+
+
+def report(name: str, prof, wall_s: float, chunk: int, top: int = 8) -> None:
     # device-side events only: an operator's CPU event also carries the
     # device time of the kernels it launched, which would count them twice
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+              and e.key != SSD_RANGE]
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     wall_ms = wall_s * 1e3
     print(f"[{name}] wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
           f"idle_share={1 - busy_ms / wall_ms:.4f}")
+    print(f"[{name}] split: {split(prof, busy_ms, chunk)}")
     for e in sorted(events, key=_device_us, reverse=True)[:top]:
         ms = _device_us(e) / 1e3
         print(f"[{name}]   {ms:9.3f} ms  {ms / busy_ms:6.1%}  x{e.count:<5d} "
@@ -66,6 +129,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
+    ssm_mod.ssd_forward = _ranged(ssm_mod.ssd_forward)
+    ssm_mod.ssd_decode = _ranged(ssm_mod.ssd_decode)
     cfg = get_config(args.arch)
     if args.layers:
         n = args.layers
@@ -77,7 +142,8 @@ def main(argv=None) -> int:
     params = init_params(cfg, gen, device)
     prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
         2, cfg.vocab, (args.batch, args.prompt_len))).to(device)
-    capacity = args.prompt_len + 2 * args.decode_steps + 2
+    capacity = args.prompt_len + 2 * args.decode_steps + cfg.meta_tokens + 2
+    chunk = cfg.ssm.chunk if cfg.ssm is not None else 0
 
     def prefill():
         last, cache = tfm.prefill(cfg, params, prompts, use_flash=True)
@@ -95,19 +161,21 @@ def main(argv=None) -> int:
         decode(last, cache, 2)
         torch.cuda.synchronize()
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
             last, cache = prefill()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        report("prefill", prof, wall)
+        report("prefill", prof, wall, chunk)
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             t0 = time.perf_counter()
             decode(last, cache, args.decode_steps)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        report(f"decode x{args.decode_steps}", prof, wall)
+        report(f"decode x{args.decode_steps}", prof, wall, chunk)
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
