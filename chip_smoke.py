@@ -13,13 +13,18 @@ Phases, each of which raises on failure (exit code != 0):
                instructions, each library's compiled tiles must be its
                rule's, and its shared memory per launch must be the rule's
   3. kernel    flash attention (K2) against its plain torch version on the
-               card: every compiled bf16 tile on every case (3e-2),
-               bit-identical across block_q at a fixed block_k, the fp32
-               kernel (2e-5), refused tiles raise, and a window of 1 (one
-               nonzero per row of P) reads back each row's own v exactly
+               card: every compiled bf16 tile on every case (3e-2), among
+               them head dims 96 (MHA; GQA with T = S = 200) and 120 (GQA
+               group 4, window 32 and 8 meta keys, T = S = 150), which run
+               on d = 128's layout; bit-identical across block_q at a fixed
+               block_k, the fp32 kernel (2e-5), refused tiles raise, and a
+               window of 1 (one nonzero per row of P) reads back each row's
+               own v exactly at every tile (a store past d, or padding that
+               is not zero, breaks it)
   4. timing    K2 at every compiled tile of d = 128, its plain version and
                the SDPA yardstick at the serving shape and at Yi-6B's
-               train_4k flash case, with the bound and its share
+               train_4k flash case, with the bound and its share; both
+               shapes held by the row check (below)
   5. model     Yi-6B widths, 2 layers, fp32: model_forward flash vs plain
   6. serve     Yi-6B at full width and depth, bf16: 8 x 512-token prompts,
                32 generated tokens, through ``repro_torch.launch.serve.main``
@@ -40,16 +45,20 @@ Phases, each of which raises on failure (exit code != 0):
                of the bound
  10. k2-bwd    the flash-attention gradient (K2 bwd) against its plain
                version (autograd through the plain forward) on phase 3's
-               cases, two causal T > S cases (rows that see no key) and two
-               at d = 128 (GQA with T = S = 200; a window and a meta prefix),
+               cases (d = 96 and 120 among them), two causal T > S cases
+               (rows that see no key) and two at d = 128 (GQA with T = S =
+               200; a window and a meta prefix),
                fp32 (1e-4) and bf16 (3e-2), each relative to the
                largest gradient entry; two launches bit-identical; the
                forward with lse bit-identical to the one without; refused
                head dims raise; the autograd Function's gradients are the
                kernel's
  11. k2-bwd-timing  K2 bwd at train_4k as the train run calls it (q
-               [1,4096,32,128], k/v [1,4096,4,128] bf16, causal) beside its
-               plain version, SDPA's backward and the bound
+               [1,4096,32,128], k/v [1,4096,4,128] bf16, causal), and at
+               phi-3-vision's (d = 96, MHA) and h2o-danube's (d = 120, group
+               4, window 4096) train_4k shapes, beside its plain version,
+               SDPA's backward and the bound on the real d; dq, dk and dv
+               also held by the row check
  12. train     Yi-6B at its published widths, 8 of its 32 layers, bf16
                params, fp32 AdamW moments and gradient accumulation, 8
                microbatches with per-layer remat, seq 4096, global batch 8,
@@ -58,17 +67,21 @@ Phases, each of which raises on failure (exit code != 0):
                memory, finite loss and gnorm, K2 and K2 bwd launches equal
                to their formulas); then one step at 2 layers and seq 1024,
                flash against plain attention: loss, gnorm and each
-               attention weight's gradient
+               attention weight's gradient, at Yi-6B's widths (d = 128),
+               phi-3-vision's (d = 96, 576 image positions first) and
+               h2o-danube's (d = 120, group 4, window cut to 512 so that it
+               masks), each with its K2 bwd launches counted
  13. train-launcher  ``python -m repro_torch train --preset small
                --use-flash`` through its ``main``: loss improves over 14
                steps, ``--resume`` continues from the checkpoint,
                ``--inject-failure`` restores and reruns
  14. serve-gemma3  K2 at gemma3-27b's local-layer prefill shape (q
                [4,1536,32,128], k/v [4,1536,16,128] bf16, causal, window
-               1024) against its plain version (3e-2), timed beside it, SDPA
-               with the window as a mask and the bound; then gemma3-27b at
-               full width and depth (62 layers, 52 of them sliding-window
-               with ring caches), bf16 random weights drawn on the card,
+               1024) against its plain version (row check), timed beside
+               it, SDPA with the window as a mask and the bound; then
+               gemma3-27b at full width and depth (62 layers, 52 of them
+               sliding-window with ring caches), bf16 random weights drawn
+               on the card,
                through ``serve.generate``: 4 x 1536-token prompts, 32 new
                tokens (the rings wrap in prefill and again in decode); 62
                K2 launches, 0 K2 bwd, tokens in [0, vocab), finite logits
@@ -80,15 +93,19 @@ Phases, each of which raises on failure (exit code != 0):
                hymba widths with 2 hybrid layers, windows (1024, 0), 128
                meta tokens, T = 1100 (the window and four SSD chunk
                boundaries crossed); mamba2 widths with 2 SSD layers,
-               T = 600 (not a chunk multiple: the padding runs)
+               T = 600 (not a chunk multiple: the padding runs);
+               phi-3-vision widths (d = 96) with its 576 image positions
+               before 600 text tokens; musicgen widths with 4 codebooks,
+               T = 600; h2o-danube widths (d = 120), window cut to 1024,
+               T = 1100
  16. serve-mixtral  mixtral-8x7b at its published widths, 16 of its 32
                layers (the whole model is 93 GB in bf16, the cut ~47 GB),
                bf16 random weights: 8 x 512-token prompts, 32 new tokens;
                16 K2 launches, 0 K2 bwd, finite logits
  17. serve-hymba  K2 at hymba-1.5b's local-layer prefill shape (q
                [8,1664,25,64], k/v [8,1664,5,64] bf16, causal, window 1024,
-               128 meta tokens) against its plain version (3e-2), timed
-               beside it, SDPA with the mask as a boolean and the bound;
+               128 meta tokens) against its plain version (row check),
+               timed beside it, SDPA with the mask as a boolean and the bound;
                then hymba-1.5b whole (32 hybrid layers, attention and the
                SSD in parallel, 29 of them windowed), bf16 random weights,
                through ``serve.generate``: 8 x 1536-token prompts, 32 new
@@ -97,6 +114,35 @@ Phases, each of which raises on failure (exit code != 0):
  18. serve-mamba2  mamba2-370m whole (48 SSD layers, attention-free), bf16
                random weights: 8 x 2048-token prompts (8 SSD chunks of
                256), 32 new tokens; 0 K2 launches, finite logits
+ 19. serve-h2o  K2 at h2o-danube-3-4b's prefill shape (q [2,6144,32,120],
+               k/v [2,6144,8,120] bf16, causal, window 4096) against its
+               plain version (row check), timed beside it, SDPA with the
+               window as a boolean mask and the bound; then h2o-danube-3-4b
+               whole (24 windowed layers, head dim 120), bf16 random weights,
+               through ``serve.generate``: 2 x 6144-token prompts (the
+               window masks and the rings wrap in prefill), 32 new tokens;
+               24 K2 launches, 0 K2 bwd, finite logits
+ 20. serve-phi3  K2 at phi-3-vision-4.2b's prefill shape (q/k/v
+               [4,1600,32,96], causal over 576 image and 1024 text
+               positions) as in phase 19, SDPA with is_causal; then
+               phi-3-vision-4.2b whole (32 layers, head dim 96): 4 x (576
+               image embeddings N(0, 0.02) + 1024 text tokens), 32 new; 32
+               K2 launches, 0 K2 bwd, finite logits
+ 21. serve-musicgen  K2 at musicgen-large's prefill shape (q/k/v
+               [8,512,32,64], causal) as in phase 20; then musicgen-large
+               whole (48 layers, 4 codebooks): 8 x 4 x 512-token prompts,
+               32 new steps of 4 codebook tokens; 48 K2 launches, 0 K2 bwd,
+               finite logits
+serve_model counts one K2 launch per attention-bearing layer.
+The whole shapes (phases 4, 11, 14, 17, 19-21) are held against the plain
+version run in fp32 on the same bf16 inputs by ||got - want|| / ||want||,
+since at thousands of keys a row's values are as small as the 3e-2
+absolute term of the case checks: over each row (one position and head's
+d values) of K2's output within ROW_TOL, and over each batch and head's
+[T, d] of dq, dk and dv within HEAD_TOL.  At each of those shapes (but
+4's) the check must also reject planted faults: the output with the
+columns of its second 64-wide box zeroed past row 1024, with those rows
+scaled by 0.9, and, where there is a window, K2 launched without it.
 The last three lines are the ``nvidia-smi`` name/power-limit line, the
 kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
@@ -115,6 +161,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -149,25 +196,76 @@ CASES = [
     ("d=128", 2, 256, 256, 8, 2, 128, 0, 0, True),
     ("non-causal", 2, 64, 128, 4, 2, 64, 0, 0, False),
     ("window+meta d=64 group 5", 2, 160, 160, 10, 2, 64, 32, 8, True),   # hymba's kinds
+    # phi-3-vision's head dim 96 and h2o-danube's 120, on d = 128's layout
+    ("d=96 mha", 2, 128, 128, 4, 4, 96, 0, 0, True),
+    ("d=96 gqa ragged", 2, 200, 200, 8, 2, 96, 0, 0, True),
+    ("d=120 g4 window+meta", 2, 150, 150, 8, 2, 120, 32, 8, True),
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 SLICE = dict(B=8, T=512, H=32, KV=4, d=128)      # Yi-6B prefill in the serve run
 TRAIN_4K = dict(B=1, T=4096, H=32, KV=32, d=128)  # Yi-6B's train_4k flash case (MHA)
-TRAIN_4K_GQA = dict(TRAIN_4K, KV=4)               # one sequence of the train run (phase 12)
 K2_DEFAULT = (128, 128)                          # the serving call's blocks
-# tiles the rule refuses, (block_q, block_k, d)
-K2_REFUSED = [(256, 64, 128), (64, 256, 128), (128, 256, 64), (512, 512, 32)]
+# tiles the rule refuses, (block_q, block_k, d): a third consumer
+# warpgroup, too many accumulators a thread (d = 96 and 120 count as 128),
+# S wider than one wgmma
+K2_REFUSED = [(256, 64, 128), (64, 256, 128), (128, 256, 64), (512, 512, 32),
+              (64, 256, 96), (64, 256, 120)]
+
+
+# the whole-shape checks (the serving shape, train_4k, each model's prefill
+# shape, K2 bwd's timing shapes) hold the error to the size of what it is
+# in: a causal row over n keys of N(0, 1) values has |O| near sqrt(e / n),
+# ~0.03 at n = 4096, as small as check_close's absolute term, which would
+# let a row be wrong by its whole size.  The limits are ||got - want|| /
+# ||want|| against the plain version run in fp32 on the same bf16 inputs
+# (in bf16 it rounds its scores to bf16 and strays ~1e-2 of a row itself):
+# over each row (one position and head's d values) of the forward, and over
+# each (batch, head)'s [T, d] of dq, dk and dv, where a row's own norm will
+# not do: a row whose true gradient is small (dq of a row that sees one
+# key is 0) carries the error of delta = rowsum(dO * O), O in bf16, which
+# scales with the row's other terms.  Read on an H100 80GB HBM3 (700 W):
+# rows at most 3.653e-03 over every whole shape, heads at most 2.712e-03;
+# the limits leave 2.7x and 3.7x
+ROW_TOL = 1e-2
+HEAD_TOL = 1e-2
+
+
+def plain_fp32(plain, *tensors, **kw):
+    """A plain version run in fp32 on bf16 inputs, its result in fp32."""
+    return plain(*(x.float() for x in tensors), **kw)
+
+
+def excess(got, want, tol):
+    """The largest error over assert_allclose(rtol=tol, atol=tol)'s limit."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() - (tol + tol * want.abs())).max().item()
 
 
 def check_close(name, got, want, tol):
     """assert_allclose(rtol=tol, atol=tol), as the JAX package's tests hold it."""
-    got, want = got.float(), want.float()
-    err = (got - want).abs()
-    excess = (err - (tol + tol * want.abs())).max().item()
-    max_err = err.max().item()
-    if not (excess <= 0 and torch.isfinite(got).all()):
+    max_err = (got.float() - want.float()).abs().max().item()
+    if not (excess(got, want, tol) <= 0 and torch.isfinite(got).all()):
         raise SystemExit(f"[kernel] {name}: max abs err {max_err:.3e} over tol {tol}")
     return max_err
+
+
+def rel_error(got, want, dim=-1):
+    """The largest ||got - want|| / ||want|| over ``dim``: the last (a row),
+    or (1, 3) of [B, T, H, d] (a batch and head's [T, d])."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=dim) / want.norm(dim=dim).clamp_min(1e-30)).max().item()
+
+
+def check_rel(name, got, want, tol, dim=-1):
+    """Every row (or head, by ``dim``) within ``tol`` of its own norm;
+    returns (the largest such error, max abs err)."""
+    rel = rel_error(got, want, dim)
+    max_err = (got.float() - want.float()).abs().max().item()
+    if not (rel <= tol and torch.isfinite(got).all()):
+        raise SystemExit(f"[kernel] {name}: an error is {rel:.3e} of its "
+                         f"{'row' if dim == -1 else 'head'}'s norm, over {tol} (max abs "
+                         f"err {max_err:.3e})")
+    return rel, max_err
 
 
 def rand(gen, shape, dtype, device):
@@ -395,10 +493,11 @@ def phase_kernel(device):
     q, k, v = qkv(gen, SLICE["B"], SLICE["T"], SLICE["T"], SLICE["H"],
                   SLICE["KV"], SLICE["d"], dt, device)
     got = ops.flash_attention(q, k, v)
-    want = fa.flash_attention_plain(q, k, v, scale=SLICE["d"] ** -0.5)
-    err = check_close("serving shape", got, want, TOL[dt])
+    want = plain_fp32(fa.flash_attention_plain, q, k, v, scale=SLICE["d"] ** -0.5)
+    rel, err = check_rel("serving shape", got, want, ROW_TOL)
     print(f"[kernel] serving shape q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 "
-          f"default tile {K2_DEFAULT} max abs err {err:.3e} (tol {TOL[dt]})", flush=True)
+          f"default tile {K2_DEFAULT} max row err {rel:.3e} of the row's norm (tol "
+          f"{ROW_TOL}), max abs err {err:.3e}", flush=True)
     print("[kernel] kernels checked against their plain versions: flash_attention_fwd "
           "(bf16 wgmma, fp32 CUDA cores)")
     return q, k, v, max(err, worst)
@@ -447,9 +546,10 @@ def phase_timing(q, k, v, device):
     q4, k4, v4 = qkv(gen, c["B"], c["T"], c["T"], c["H"], c["KV"], c["d"],
                      torch.bfloat16, device)
     got = ops.flash_attention(q4, k4, v4)
-    err = check_close("train_4k", got, fa.flash_attention_plain(
-        q4, k4, v4, scale=c["d"] ** -0.5), TOL[torch.bfloat16])
-    print(f"[timing] train_4k flash shape max abs err {err:.3e} (tol 3e-2)")
+    rel, err = check_rel("train_4k", got, plain_fp32(
+        fa.flash_attention_plain, q4, k4, v4, scale=c["d"] ** -0.5), ROW_TOL)
+    print(f"[timing] train_4k flash shape max row err {rel:.3e} of the row's norm (tol "
+          f"{ROW_TOL}), max abs err {err:.3e}")
     times["train_4k"] = time_flash("train_4k", q4, k4, v4, iters=20, plain_iters=3)
     return times
 
@@ -674,7 +774,9 @@ BWD_CASES = CASES + [
     ("d=128 ragged t=s=200", 2, 200, 200, 8, 2, 128, 0, 0, True),
     ("d=128 window+meta", 2, 160, 160, 4, 2, 128, 32, 8, True),
 ]
-BWD_REFUSED_DIMS = (48, 96)
+# head dims K2 bwd does not compile: no config of the zoo has them (every
+# config's is in fa.HEAD_DIMS), and each would need a layout of its own
+BWD_REFUSED_DIMS = (48, 80)
 
 
 def check_grads(name, got, want, tol):
@@ -745,62 +847,94 @@ def phase_k2_bwd(device):
     return worst_abs[torch.bfloat16], worst_rel
 
 
-def phase_k2_bwd_timing(device):
-    """K2 bwd at train_4k as the train run calls it (Yi-6B's GQA) beside its
-    plain version, SDPA's backward and the bound: 2.5 times the forward's
-    products (S recomputed, dV, dP, dK and dQ, each d-long per live pair),
-    q, k, v, o, dO and lse read once and dq, dk, dv written once."""
-    c = TRAIN_4K_GQA
-    gen = torch.Generator(device=device).manual_seed(6)
-    q, k, v = qkv(gen, c["B"], c["T"], c["T"], c["H"], c["KV"], c["d"],
-                  torch.bfloat16, device)
+# phase 11: K2 bwd at train_4k as the train run calls it (Yi-6B's GQA), and
+# at phi-3-vision's (d = 96, MHA) and h2o-danube's (d = 120, group 4, its
+# window of 4096, which at T = 4096 masks nothing) train_4k flash shapes:
+# (key, B, T, H, KV, d, window)
+BWD_TIMING = [("train_4k", 1, 4096, 32, 4, 128, 0),
+              ("phi3_train_4k", 1, 4096, 32, 32, 96, 0),
+              ("h2o_train_4k", 1, 4096, 32, 8, 120, 4096)]
+
+
+def time_k2_bwd(name, b, t, h, kvh, d, window, device, seed):
+    """K2 bwd at one causal shape beside its plain version, SDPA's backward
+    and the bound: 2.5 times the forward's products (S recomputed, dV, dP,
+    dK and dQ, each d-long per live pair, on the real d), q, k, v, o, dO and
+    lse read once and dq, dk, dv written once."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = qkv(gen, b, t, t, h, kvh, d, torch.bfloat16, device)
     g = rand(gen, q.shape, torch.bfloat16, device)
-    kw = dict(scale=c["d"] ** -0.5)
+    kw = dict(scale=d ** -0.5, window=window)
     o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     got = fa.flash_attention_bwd_cuda(q, k, v, o, g, lse, **kw)
-    want = fa.flash_attention_bwd_plain(q, k, v, o, g, **kw)
-    err = check_grads("train_4k", got, want, BWD_TOL[torch.bfloat16])
+    want = plain_fp32(fa.flash_attention_bwd_plain, q, k, v, o, g, **kw)
+    err = check_grads(name, got, want, BWD_TOL[torch.bfloat16])
+    heads = max(check_rel(f"{name} {which}", x, y, HEAD_TOL, dim=(1, 3))[0]
+                for x, y, which in zip(got, want, ("dq", "dk", "dv")))
+    for x, y, which in zip(got, want, ("dq", "dk", "dv")):
+        planted_faults(f"k2-bwd-timing {name} {which}", x, y, HEAD_TOL, dim=(1, 3))
     del got, want
     kernel_ms = time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, o, g, lse, **kw),
                         iters=5, warmup=2)
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, g, **kw),
                        iters=3, warmup=1)
-    # the yardstick: SDPA's backward alone, its forward's graph kept
+    # the yardstick: SDPA's backward alone, its forward's graph kept (the
+    # window masks nothing at these shapes, so it is the causal mask)
+    assert window == 0 or window >= t
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=c["KV"] != c["H"])
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=kvh != h)
     gt = g.transpose(1, 2).contiguous()
     library_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
                                                      retain_graph=True), iters=20)
-    fwd_flops, _ = flash_work(c["B"], c["T"], c["T"], c["H"], c["KV"], c["d"])
+    fwd_flops, _ = flash_work(b, t, t, h, kvh, d, window=window)
     flops = 2.5 * fwd_flops
-    b, t, h, kvh, d = c["B"], c["T"], c["H"], c["KV"], c["d"]
     nbytes = (2 * (3 * b * t * h * d + 2 * b * t * kvh * d)    # q, o, dO; k, v (bf16)
               + 4 * b * h * t                                  # lse (fp32)
               + 2 * (b * t * h * d + 2 * b * t * kvh * d))     # dq; dk, dv (bf16)
     bound_ms, bound_by, t_bytes, t_ops = bound(flops, nbytes)
-    print(f"[k2-bwd-timing] train_4k q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal: "
+    print(f"[k2-bwd-timing] {name} q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"
+          f"{f' window {window}' if window else ''}: "
           f"kernel_ms={kernel_ms:.4f} ({flops / kernel_ms / 1e9:.2f} TFLOP/s, "
           f"{bound_ms / kernel_ms:.4f} of the bound) plain_ms={plain_ms:.4f} "
           f"library_ms={library_ms:.4f} (SDPA backward, {bound_ms / library_ms:.4f} of "
           f"the bound) bound_ms={bound_ms:.5f} by {bound_by} ({nbytes / 1e6:.1f} MB -> "
           f"{t_bytes:.5f} ms, {flops / 1e9:.2f} GFLOP -> {t_ops:.5f} ms); max abs err "
-          f"{err[0]:.3e}, {err[1]:.3e} of max |grad|", flush=True)
+          f"{err[0]:.3e}, {err[1]:.3e} of max |grad|, max head err {heads:.3e} of the "
+          f"head's norm (tol {HEAD_TOL})", flush=True)
+    del q, k, v, g, o, lse, qt, kt, vt, out, gt
+    torch.cuda.empty_cache()
     return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, share_of_bound=bound_ms / kernel_ms,
-                shape="train_4k")
+                library_ms=library_ms, share_of_bound=bound_ms / kernel_ms)
+
+
+def phase_k2_bwd_timing(device):
+    """K2 bwd at each BWD_TIMING shape; the first's readings are the
+    record's own keys, the others' come under ``<key>_*``."""
+    times = {}
+    for i, (key, b, t, h, kvh, d, window) in enumerate(BWD_TIMING):
+        got = time_k2_bwd(key, b, t, h, kvh, d, window, device, seed=6 + i)
+        times.update(dict(got, shape=key) if i == 0 else
+                      {f"{key}_{k}": v for k, v in got.items()})
+    return times
 
 
 TRAIN = dict(layers=8, seq=4096, batch=8, micro=8, warmup_steps=1, timed_steps=3)
 TRAIN_CHECK = dict(layers=2, seq=1024, batch=8, micro=8)
+# the flash-vs-plain step at Yi-6B's widths (d = 128), then at phi-3-vision's
+# (d = 96; 576 image embeddings and 448 text tokens a sequence) and
+# h2o-danube's (d = 120, GQA group 4, the window cut from 4096 to 512 so
+# that it masks at seq 1024): (arch, config replacements)
+TRAIN_CHECKS = [("yi-6b", {}), ("phi-3-vision-4.2b", {}),
+                ("h2o-danube-3-4b", dict(windows=(512, 512)))]
 # flash vs plain attention, one step from the same bf16 weights, relative
 # differences: the loss (an fp32 mean over 8K tokens) and the gnorm (over
-# every parameter) read 1.29e-05 and 6.71e-06 on an H100 80GB HBM3, so the
-# limits leave 8x and 150x; each attention weight's gradient (wq, wk, wv,
-# wo of both layers, one microbatch) by its norm (read at most 1.91e-04)
+# every parameter) read at most 2.43e-05 and 1.79e-04 over Yi-6B's,
+# phi-3-vision's and h2o-danube's widths on an H100 80GB HBM3 (700 W), so
+# the limits leave 4x and 5x; each attention weight's gradient (wq, wk, wv,
+# wo of both layers, one microbatch) by its norm (read at most 3.43e-04)
 # and by its largest entry error over its largest entry (at most
-# 6.71e-03: bf16 gradients), where a head or one of dq, dk, dv gone wrong
-# would show whole
+# 1.10e-02, phi-3's: bf16 gradients), where a head or one of dq, dk, dv
+# gone wrong would show whole
 TRAIN_CHECK_TOL = dict(loss=1e-4, gnorm=1e-3, attn_norm=2e-3, attn_max=2e-2)
 
 
@@ -887,10 +1021,20 @@ def phase_train(device, smi):
     pipe.stop()
     torch.cuda.empty_cache()
 
-    # flash against plain attention, one step from the same weights
+    for arch, replace in TRAIN_CHECKS:
+        train_check(arch, replace, device)
+    torch.cuda.empty_cache()
+    return report
+
+
+def train_check(arch, replace, device):
+    """Flash against plain attention, one step from the same weights at an
+    arch's published widths, cut to 2 layers and seq 1024."""
     c = TRAIN_CHECK
-    cfg = get_config("yi-6b").replace(n_layers=c["layers"], train_microbatches=c["micro"])
+    cfg = get_config(arch).replace(n_layers=c["layers"], train_microbatches=c["micro"],
+                                   **replace)
     out, grads = {}, {}
+    fa.bwd_launches = 0
     for use_flash in (True, False):
         step_fn, params, opt, pipe = _train_setup(cfg, c["seq"], c["batch"], use_flash,
                                                   device, seed=7)
@@ -900,27 +1044,33 @@ def phase_train(device, smi):
         out[use_flash] = {k: float(metrics[k]) for k in ("loss", "gnorm")}
         del params, opt
         pipe.stop()
+    # one microbatch's gradients, then a step of c["micro"]: K2 bwd each layer
+    want_bwd = c["layers"] * (1 + c["micro"])
+    if fa.bwd_launches != want_bwd:
+        raise SystemExit(f"[train] {arch}: {fa.bwd_launches} K2 bwd launches, expected "
+                         f"{want_bwd}")
     errs = {k: abs(out[True][k] - out[False][k]) / abs(out[False][k]) for k in out[True]}
     if not all(errs[k] <= TRAIN_CHECK_TOL[k] for k in errs):
-        raise SystemExit(f"[train] flash {out[True]} vs plain {out[False]}: relative "
-                         f"differences {errs} over {TRAIN_CHECK_TOL}")
+        raise SystemExit(f"[train] {arch} flash {out[True]} vs plain {out[False]}: "
+                         f"relative differences {errs} over {TRAIN_CHECK_TOL}")
     for path, want in grads[False].items():
         got = grads[True][path]
         norm = abs(got.norm().item() - want.norm().item()) / want.norm().item()
         top = (got - want).abs().max().item() / want.abs().max().item()
-        print(f"[train]   d {path:<20} norm {want.norm().item():.4e} rel err {norm:.2e} "
-              f"(tol {TRAIN_CHECK_TOL['attn_norm']}), max abs err {top:.2e} of max "
-              f"|grad| (tol {TRAIN_CHECK_TOL['attn_max']})", flush=True)
+        print(f"[train]   {arch} d {path:<20} norm {want.norm().item():.4e} rel err "
+              f"{norm:.2e} (tol {TRAIN_CHECK_TOL['attn_norm']}), max abs err {top:.2e} of "
+              f"max |grad| (tol {TRAIN_CHECK_TOL['attn_max']})", flush=True)
         if not (norm <= TRAIN_CHECK_TOL["attn_norm"] and top <= TRAIN_CHECK_TOL["attn_max"]):
-            raise SystemExit(f"[train] flash vs plain: the gradient of {path} differs")
+            raise SystemExit(f"[train] {arch} flash vs plain: the gradient of {path} differs")
     del grads
-    print(f"[train] {c['layers']} layers, seq {c['seq']}, one step flash vs plain: loss "
+    print(f"[train] {arch} widths (d = {cfg.head_dim}, windows {cfg.layer_windows}, "
+          f"{cfg.image_tokens if cfg.frontend == 'vision' else 0} image positions), "
+          f"{c['layers']} layers, seq {c['seq']}, one step flash vs plain: loss "
           f"{out[True]['loss']:.5f} vs {out[False]['loss']:.5f} (rel {errs['loss']:.2e}, "
           f"tol {TRAIN_CHECK_TOL['loss']}), gnorm {out[True]['gnorm']:.5f} vs "
           f"{out[False]['gnorm']:.5f} (rel {errs['gnorm']:.2e}, tol "
-          f"{TRAIN_CHECK_TOL['gnorm']})", flush=True)
+          f"{TRAIN_CHECK_TOL['gnorm']}); K2 bwd launches {want_bwd}", flush=True)
     torch.cuda.empty_cache()
-    return report
 
 
 def phase_train_launcher():
@@ -959,7 +1109,12 @@ GEMMA3_LOCAL = dict(B=4, T=1536, H=32, KV=16, d=128, window=1024, meta=0)
 DECODE_CASES = [("gemma3 widths", "gemma3-27b", 2, (1024, 0), 1100),
                 ("mixtral widths", "mixtral-8x7b", 2, (512, 512), 600),
                 ("hymba widths", "hymba-1.5b", 2, (1024, 0), 1100),
-                ("mamba2 widths", "mamba2-370m", 2, (0, 0), 600)]
+                ("mamba2 widths", "mamba2-370m", 2, (0, 0), 600),
+                # d = 96 after the 576-position image prefix; 4 codebooks;
+                # d = 120 with the window cut to 1024 and T past it
+                ("phi-3-vision widths", "phi-3-vision-4.2b", 2, (0, 0), 600),
+                ("musicgen widths", "musicgen-large", 2, (0, 0), 600),
+                ("h2o-danube widths", "h2o-danube-3-4b", 2, (1024, 1024), 1100)]
 DECODE_TOL = 2e-3
 DECODE_STEPS = 3
 # phase 16: mixtral-8x7b at 16 of its 32 layers
@@ -970,6 +1125,16 @@ HYMBA_SERVE = dict(batch=8, prompt=1536, gen=32)
 HYMBA_LOCAL = dict(B=8, T=1664, H=25, KV=5, d=64, window=1024, meta=128)
 # phase 18: mamba2-370m served whole
 MAMBA2_SERVE = dict(batch=8, prompt=2048, gen=32)
+# phases 19-21: h2o-danube-3-4b, phi-3-vision-4.2b and musicgen-large served
+# whole, and K2 alone at each one's prefill shape first (phi-3's T counts
+# its 576 image positions before 1024 text tokens; musicgen's 512 frames
+# carry 4 codebooks each)
+H2O_SERVE = dict(batch=2, prompt=6144, gen=32)
+H2O_LOCAL = dict(B=2, T=6144, H=32, KV=8, d=120, window=4096, meta=0)
+PHI3_SERVE = dict(batch=4, prompt=1024, gen=32)
+PHI3_LOCAL = dict(B=4, T=1600, H=32, KV=32, d=96, window=0, meta=0)
+MUSICGEN_SERVE = dict(batch=8, prompt=512, gen=32)
+MUSICGEN_LOCAL = dict(B=8, T=512, H=32, KV=32, d=64, window=0, meta=0)
 
 
 def attention_layers(cfg) -> int:
@@ -978,45 +1143,80 @@ def attention_layers(cfg) -> int:
     return sum(kind != "ssm" for kind in cfg.kinds)
 
 
+def planted_faults(tag, got, want, tol, dim=-1, **more):
+    """The relative check over ``dim`` must reject ``got`` [B, T, H, d]
+    with the columns of its second 64-wide box zeroed past row 1024 (half
+    the columns at d = 64, past half the rows at T < 2048), with those rows
+    scaled by 0.9 (10 % low), and each of ``more`` (name: a faulty
+    output).  Prints each fault's error and whether check_close at
+    TOL[bf16] passes it (against the same fp32 plain output)."""
+    t, d = got.shape[1], got.shape[-1]
+    row, col = min(1024, t // 2), 64 if d > 64 else d // 2
+    zeroed, scaled = got.clone(), got.clone()
+    zeroed[:, row:, :, col:] = 0
+    scaled[:, row:] *= 0.9
+    faults = {f"columns {col}..{d - 1} zeroed past row {row}": zeroed,
+              f"rows past {row} scaled by 0.9": scaled, **more}
+    for fault, out in faults.items():
+        rel = rel_error(out, want, dim)
+        if not rel > tol:
+            raise SystemExit(f"[{tag}] planted fault ({fault}) passed the check: "
+                             f"{rel:.3e} of the norm")
+        print(f"[{tag}] planted fault ({fault}): error {rel:.3e} of the "
+              f"{'row' if dim == -1 else 'head'}'s norm, rejected; check_close at "
+              f"{TOL[torch.bfloat16]} would "
+              f"{'pass' if excess(out, want, TOL[torch.bfloat16]) <= 0 else 'reject'} it",
+              flush=True)
+
+
 def phase_local_k2(tag, c, device, seed):
-    """K2 with a window that masks (and the meta prefix, where the model has
-    one), at a model's local-layer prefill shape: against its plain version,
-    timed beside it, beside SDPA given the mask as a boolean (kv heads
-    expanded outside the timing) and beside the bound, which counts only
-    the live pairs."""
+    """K2 at a model's prefill shape (with a window that masks and the meta
+    prefix, where the model has them): against its plain version, timed
+    beside it, beside SDPA (given a window's mask as a boolean, kv heads
+    expanded outside the timing; causal alone, ``is_causal``) and beside
+    the bound, which counts only the live pairs."""
     b, t, h, kvh, d, win, meta = (c[x] for x in ("B", "T", "H", "KV", "d", "window",
                                                  "meta"))
     gen = torch.Generator(device=device).manual_seed(seed)
     q, k, v = qkv(gen, b, t, t, h, kvh, d, torch.bfloat16, device)
     kw = dict(window=win, n_meta=meta)
     got = ops.flash_attention(q, k, v, **kw)
-    err = check_close(f"{tag} local shape", got, fa.flash_attention_plain(
-        q, k, v, scale=d ** -0.5, **kw), TOL[torch.bfloat16])
+    want = plain_fp32(fa.flash_attention_plain, q, k, v, scale=d ** -0.5, **kw)
+    rel, err = check_rel(f"{tag} local shape", got, want, ROW_TOL)
+    planted_faults(tag, got, want, ROW_TOL,
+                   **({"window dropped": ops.flash_attention(q, k, v)} if win else {}))
+    del want
     kernel_ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), iters=20)
     plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, scale=d ** -0.5, **kw),
                        iters=3, warmup=1)
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (x.repeat_interleave(h // kvh, dim=2).transpose(1, 2).contiguous()
               for x in (k, v))
-    pos = torch.arange(t, device=device)
-    mask = (pos[:, None] >= pos[None]) & ((pos[:, None] - pos[None] < win)
-                                         | (pos[None] < meta))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask), iters=20)
+    if win:
+        pos = torch.arange(t, device=device)
+        mask = (pos[:, None] >= pos[None]) & ((pos[:, None] - pos[None] < win)
+                                             | (pos[None] < meta))
+        sdpa = dict(attn_mask=mask)
+    else:
+        sdpa = dict(is_causal=True)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa),
+                         iters=20)
     flops, nbytes = flash_work(b, t, t, h, kvh, d, window=win, n_meta=meta)
     bound_ms, bound_by, t_bytes, t_ops = bound(flops, nbytes)
-    print(f"[{tag}] K2 at the local-layer shape q {tuple(q.shape)} k/v "
-          f"{tuple(k.shape)} bf16 causal window {win}, {meta} meta keys: max abs err "
-          f"{err:.3e} (tol "
-          f"{TOL[torch.bfloat16]}); kernel_ms={kernel_ms:.4f} ({flops / kernel_ms / 1e9:.2f} "
+    print(f"[{tag}] K2 at the prefill shape q {tuple(q.shape)} k/v "
+          f"{tuple(k.shape)} bf16 causal window {win}, {meta} meta keys: max row err "
+          f"{rel:.3e} of the row's norm (tol {ROW_TOL}), max abs err {err:.3e}; "
+          f"kernel_ms={kernel_ms:.4f} ({flops / kernel_ms / 1e9:.2f} "
           f"TFLOP/s, {bound_ms / kernel_ms:.4f} of the bound) plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} (SDPA, the mask as a boolean) bound_ms={bound_ms:.5f} "
+          f"library_ms={library_ms:.4f} (SDPA, {'the mask as a boolean' if win else 'is_causal'}) "
+          f"bound_ms={bound_ms:.5f} "
           f"by {bound_by} ({nbytes / 1e6:.1f} MB -> {t_bytes:.5f} ms, "
           f"{flops / 1e9:.2f} GFLOP -> {t_ops:.5f} ms)", flush=True)
     del q, k, v, qt, kt, vt, got
     torch.cuda.empty_cache()
     return dict(local_ms=kernel_ms, local_plain_ms=plain_ms, local_library_ms=library_ms,
-                local_bound_ms=bound_ms, local_bound_by=bound_by, local_max_abs_err=err)
+                local_bound_ms=bound_ms, local_bound_by=bound_by, local_max_abs_err=err,
+                local_max_row_err=rel)
 
 
 def serve_model(tag, cfg, batch, prompt_len, gen_len, device, seed):
@@ -1030,11 +1230,12 @@ def serve_model(tag, cfg, batch, prompt_len, gen_len, device, seed):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_gb = sum(x.numel() * x.element_size() for x in leaves(params)) / 1e9
-    prompts = torch.randint(2, cfg.vocab, (batch, prompt_len), generator=gen, device=device)
+    prompts, image = serve.draw_inputs(cfg, batch, prompt_len, np.random.default_rng(seed),
+                                       device)
     torch.cuda.reset_peak_memory_stats()
     fa.launches = fa.bwd_launches = 0
     out = serve.generate(cfg, params, prompts, gen_len=gen_len, temperature=0.0,
-                         generator=gen)
+                         generator=gen, image_embeds=image)
     launches = {"fwd": fa.launches, "bwd": fa.bwd_launches}
     peak = torch.cuda.max_memory_allocated()
     want = attention_layers(cfg)
@@ -1042,25 +1243,31 @@ def serve_model(tag, cfg, batch, prompt_len, gen_len, device, seed):
         raise SystemExit(f"[{tag}] K2 launches {launches}, expected {want} forward "
                          "(one an attention-bearing layer, in prefill) and 0 backward")
     tokens = out.tokens
-    if tokens.shape != (batch, gen_len):
+    want_shape = prompts.shape[:-1] + (gen_len,)
+    if tokens.shape != want_shape:
         raise SystemExit(f"[{tag}] generated {tuple(tokens.shape)}, expected "
-                         f"{(batch, gen_len)}")
+                         f"{tuple(want_shape)}")
     if not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab):
         raise SystemExit(f"[{tag}] token outside [0, vocab)")
     if not all(bool(torch.isfinite(lg).all()) for lg in out.logits):
         raise SystemExit(f"[{tag}] non-finite logits")
     decode_ms = out.decode_s / (gen_len - 1) * 1e3
-    tok_s = batch * gen_len / out.decode_s
-    print(f"[{tag}] {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers "
-          f"({cfg.n_params() / 1e9:.3f} B params, {weight_gb:.3f} GB of bf16 weights drawn "
-          f"in {init_s:.1f} s), batch {batch} x {prompt_len} prompt, {gen_len} new, greedy: "
+    out_ms = (out.prefill_s * 1e3, decode_ms)
+    tok_s = batch * gen_len / out.decode_s          # a step's K codebooks count once
+    prefix = (f" after {image.shape[1]} image positions" if image is not None else
+              f" x {cfg.n_codebooks} codebooks" if cfg.n_codebooks > 1 else "")
+    print(f"[{tag}] {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, head dim "
+          f"{cfg.head_dim} ({cfg.n_params() / 1e9:.3f} B params, {weight_gb:.3f} GB of bf16 "
+          f"weights drawn in {init_s:.1f} s), batch {batch} x {prompt_len} prompt{prefix}, "
+          f"{gen_len} new, greedy: "
           f"prefill_ms={out.prefill_s * 1e3:.2f} decode_ms_per_step={decode_ms:.3f} "
           f"tokens_per_s={tok_s:.1f} peak_mem_gb={peak / 1e9:.3f} "
           f"k2_launches={launches['fwd']} k2_bwd_launches={launches['bwd']}; "
-          f"row 0 starts {tokens[0, :8].tolist()}", flush=True)
-    del params, out, prompts
+          f"row 0 starts {tokens[0, ..., :8].tolist()}", flush=True)
+    del params, out, prompts, image
     torch.cuda.empty_cache()
-    return dict(launches=launches["fwd"], peak_mem_gb=peak / 1e9)
+    return dict(launches=launches["fwd"], peak_mem_gb=peak / 1e9,
+                prefill_ms=out_ms[0], decode_ms_per_step=out_ms[1], tokens_per_s=tok_s)
 
 
 def phase_serve_gemma3(device):
@@ -1083,30 +1290,32 @@ def phase_decode_vs_forward(device):
                 cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
         gen = torch.Generator(device=device).manual_seed(10)
         params = init_params(cfg, gen, device)
-        tokens = torch.randint(0, cfg.vocab, (2, t + DECODE_STEPS - 1), generator=gen,
-                               device=device)
+        tokens, image = serve.draw_inputs(cfg, 2, t + DECODE_STEPS - 1,
+                                          np.random.default_rng(10), device)
+        n_prefix = cfg.meta_tokens + (0 if image is None else image.shape[1])
         with torch.inference_mode():
-            full, *_ = tfm.model_forward(cfg, params, tokens)
+            full, *_ = tfm.model_forward(cfg, params, tokens, image)
             fa.launches = 0
-            last, cache = tfm.prefill(cfg, params, tokens[:, :t - 1], use_flash=True)
+            last, cache = tfm.prefill(cfg, params, tokens[..., :t - 1], image, use_flash=True)
             if fa.launches != attention_layers(cfg):
                 raise SystemExit(f"[decode-vs-forward] {name}: {fa.launches} K2 launches "
                                  f"in prefill, expected {attention_layers(cfg)}")
-            cache = tfm.grow_cache(cfg, cache, tokens.shape[1] + cfg.meta_tokens + 1)
+            cache = tfm.grow_cache(cfg, cache, tokens.shape[-1] + n_prefix + 1)
             errs = [(last[:, 0] - full[:, t - 2]).abs().max().item()]
-            for pos in range(t - 1, tokens.shape[1]):
-                logits, cache = tfm.decode_step(cfg, params, cache, tokens[:, pos:pos + 1])
+            for pos in range(t - 1, tokens.shape[-1]):
+                logits, cache = tfm.decode_step(cfg, params, cache, tokens[..., pos:pos + 1])
                 errs.append((logits[:, 0] - full[:, pos]).abs().max().item())
         if not max(errs) < DECODE_TOL:
             raise SystemExit(f"[decode-vs-forward] {name}: max abs errs {errs} over "
                              f"{DECODE_TOL}")
         print(f"[decode-vs-forward] {name} ({cfg.name}, {layers} {cfg.kinds[0]} layers, "
-              f"windows {windows}, {cfg.meta_tokens} meta tokens, fp32, batch 2): prefill "
+              f"head dim {cfg.head_dim}, windows {windows}, {n_prefix} prefix positions, "
+              f"{cfg.n_codebooks} codebooks, fp32, batch 2): prefill "
               f"{t - 1} tokens with flash, then "
               f"{DECODE_STEPS} decode steps vs the plain forward at T = "
-              f"{tokens.shape[1]}: max abs err prefill {errs[0]:.3e}, steps "
+              f"{tokens.shape[-1]}: max abs err prefill {errs[0]:.3e}, steps "
               f"{', '.join(f'{e:.3e}' for e in errs[1:])} (tol {DECODE_TOL})", flush=True)
-        del params, full, last, cache, logits
+        del params, full, last, cache, logits, tokens, image
         torch.cuda.empty_cache()
 
 
@@ -1121,18 +1330,20 @@ def phase_serve_mixtral(device):
                        seed=11)
 
 
-def phase_serve_hymba(device):
-    local = phase_local_k2("serve-hymba", HYMBA_LOCAL, device, seed=12)
-    c = HYMBA_SERVE
-    report = serve_model("serve-hymba", get_config("hymba-1.5b"), c["batch"], c["prompt"],
-                         c["gen"], device, seed=13)
-    return {f"hymba_{k}": v for k, v in local.items()}, report
-
-
 def phase_serve_mamba2(device):
     c = MAMBA2_SERVE
     return serve_model("serve-mamba2", get_config("mamba2-370m"), c["batch"], c["prompt"],
                        c["gen"], device, seed=14)
+
+
+def phase_serve_whole(tag, arch, serve_c, local_c, device, seed):
+    """K2 alone at the arch's prefill shape, then the arch served whole;
+    the local readings come back under ``<key>_local_*``."""
+    key = tag.removeprefix("serve-")
+    local = phase_local_k2(tag, local_c, device, seed=seed)
+    report = serve_model(tag, get_config(arch), serve_c["batch"], serve_c["prompt"],
+                         serve_c["gen"], device, seed=seed + 1)
+    return {f"{key}_{k}": v for k, v in local.items()}, report
 
 
 def main() -> int:
@@ -1157,8 +1368,16 @@ def main() -> int:
     gemma3_local, gemma3 = phase_serve_gemma3(device)
     phase_decode_vs_forward(device)
     mixtral = phase_serve_mixtral(device)
-    hymba_local, hymba = phase_serve_hymba(device)
+    hymba_local, hymba = phase_serve_whole("serve-hymba", "hymba-1.5b", HYMBA_SERVE,
+                                           HYMBA_LOCAL, device, seed=12)
     phase_serve_mamba2(device)
+    h2o_local, h2o = phase_serve_whole("serve-h2o", "h2o-danube-3-4b", H2O_SERVE, H2O_LOCAL,
+                                       device, seed=15)
+    phi3_local, phi3 = phase_serve_whole("serve-phi3", "phi-3-vision-4.2b", PHI3_SERVE,
+                                         PHI3_LOCAL, device, seed=17)
+    musicgen_local, musicgen = phase_serve_whole("serve-musicgen", "musicgen-large",
+                                                 MUSICGEN_SERVE, MUSICGEN_LOCAL, device,
+                                                 seed=19)
     record = {"kernels": [
         # the times are the bf16 kernel's at the serving shape (train_4k
         # beside them, and gemma3-27b's local-layer shape as local_*); the
@@ -1166,7 +1385,8 @@ def main() -> int:
         # flash_attention.cu (phase 3).  launches: the serve run's (phase
         # 6); tune_launches: the tune run's (phase 8); gemma3_launches,
         # mixtral_launches and hymba_launches: phases 14, 16 and 17, and
-        # hymba-1.5b's local-layer shape as hymba_local_*
+        # hymba-1.5b's local-layer shape as hymba_local_*; h2o_, phi3_ and
+        # musicgen_launches and _local_*: phases 19-21 (d = 120, 96, 64)
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1174,12 +1394,15 @@ def main() -> int:
              launches=launches, tune_launches=tune_launches["flash"],
              train_launches=train_report["launches"]["fwd"],
              gemma3_launches=gemma3["launches"], mixtral_launches=mixtral["launches"],
-             hymba_launches=hymba["launches"], max_abs_err=err, **times, **gemma3_local,
-             **hymba_local),
-        # the times are the bf16 kernels' at train_4k (phase 11); the fp32
-        # kernels and the C entry point that picks between them are in
-        # flash_attention_bwd.cu (phase 10).  launches: the full-width train
-        # run's (phase 12)
+             hymba_launches=hymba["launches"], h2o_launches=h2o["launches"],
+             phi3_launches=phi3["launches"], musicgen_launches=musicgen["launches"],
+             max_abs_err=err, **times, **gemma3_local, **hymba_local, **h2o_local,
+             **phi3_local, **musicgen_local),
+        # the times are the bf16 kernels' at train_4k (phase 11), and at
+        # phi-3-vision's and h2o-danube's train_4k shapes as phi3_train_4k_*
+        # and h2o_train_4k_*; the fp32 kernels and the C entry point that
+        # picks between them are in flash_attention_bwd.cu (phase 10).
+        # launches: the full-width train run's (phase 12)
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_bwd_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",

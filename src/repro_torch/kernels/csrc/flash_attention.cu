@@ -27,9 +27,10 @@
 // it stops after the last tile a causal row can see and skips tiles the
 // window kills.  Q, K, V and P tiles of 64 x 32 are staged in shared memory
 // as fp32; each thread owns 4 rows x 4 score columns and 4 rows x d/8
-// accumulator columns in registers.  The products run in fp32 FMAs on CUDA
-// cores (67 TFLOP/s on the data sheet), and 2-byte or 4-byte elements are
-// loaded one at a time: a kernel for correctness, not for speed.
+// accumulator columns in registers (every head dim, 96 and 120 included,
+// is a multiple of the 8 threads across a row).  The products run in fp32
+// FMAs on CUDA cores (67 TFLOP/s on the data sheet), and 2-byte or 4-byte
+// elements are loaded one at a time: a kernel for correctness, not for speed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,6 +72,7 @@ constexpr int smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
   constexpr int DPT = D / TX;     // accumulator columns per thread
+  static_assert(D % TX == 0, "the threads of a row split d evenly");
   const int iq = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KVH);
   const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
@@ -220,6 +222,8 @@ cudaError_t launch_dtype(int d, const Params& p, cudaStream_t stream) {
   switch (d) {
     case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
+    case 96: return launch<T, 96>(p, stream);
+    case 120: return launch<T, 120>(p, stream);
     case 128: return launch<T, 128>(p, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -248,7 +252,10 @@ int flash_attention_tiles(int dtype, int* out, int cap) {
     out[3 * n + 2] = D_;        \
   }                             \
   ++n;
-  if (dtype == 0) { K2_LIST(BQ, BK, 32) K2_LIST(BQ, BK, 64) K2_LIST(BQ, BK, 128) }
+  if (dtype == 0) {
+    K2_LIST(BQ, BK, 32) K2_LIST(BQ, BK, 64) K2_LIST(BQ, BK, 96) K2_LIST(BQ, BK, 120)
+    K2_LIST(BQ, BK, 128)
+  }
   if (dtype == 1) { K2_TILES(K2_LIST) }
 #undef K2_LIST
   return n;
@@ -262,6 +269,8 @@ int flash_attention_smem(int dtype, int bq, int bk, int d) {
     switch (d) {
       case 32: return smem_floats<32>() * static_cast<int>(sizeof(float));
       case 64: return smem_floats<64>() * static_cast<int>(sizeof(float));
+      case 96: return smem_floats<96>() * static_cast<int>(sizeof(float));
+      case 120: return smem_floats<120>() * static_cast<int>(sizeof(float));
       case 128: return smem_floats<128>() * static_cast<int>(sizeof(float));
       default: return -1;
     }

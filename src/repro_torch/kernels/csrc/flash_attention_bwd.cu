@@ -55,9 +55,11 @@
 // them to the register tiers of more blocks an SM (96, 128, 168) and
 // spilled (the fp32 d = 32 and d = 64 dQ kernels).
 // Tiles are staged in shared memory as fp32 with a padding column (no bank
-// conflicts); a thread owns 4 x 4 elements of S and dP and 4 rows x d / 16
-// (dK, dV) or d / 8 (dQ) columns of the accumulators: 64 fp32 accumulators
-// a thread at d = 128 in both kernels.  The masked fill of K2's forward
+// conflicts); a thread owns 4 x 4 elements of S and dP, and d / 8 columns
+// of the accumulators (8 threads across d, which splits every compiled d)
+// for 2 keys (dK, dV) or 4 rows (dQ): 64 fp32 accumulators a thread at
+// d = 128 in both kernels.  The delta pre-pass runs at the real d in both
+// dtypes.  The masked fill of K2's forward
 // (-1e30) is not needed here: a masked pair gets P = 0 by selection, never
 // by exp of a difference of fills, so a fully masked tile gives no NaN.
 
@@ -76,9 +78,9 @@ constexpr int AX = 8;             // S, dP: threads across the keys of a tile
 constexpr int AY = NT / AX;       // 16 row groups
 constexpr int AR = BQ / AY;       // 4 rows a thread
 constexpr int AC = BK / AX;       // 4 keys a thread
-constexpr int KX = 16;            // dK, dV: threads across d
-constexpr int KY = NT / KX;       // 8 key groups
-constexpr int KR = BK / KY;       // 4 keys a thread
+constexpr int KX = 8;             // dK, dV: threads across d
+constexpr int KY = NT / KX;       // 16 key groups
+constexpr int KR = BK / KY;       // 2 keys a thread
 constexpr int QX = 8;             // dQ: threads across d
 constexpr int QY = NT / QX;       // 16 row groups
 constexpr int QR = BQ / QY;       // 4 rows a thread
@@ -220,6 +222,7 @@ __global__ void __launch_bounds__(256) delta_kernel(Params p) {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT, 1) dkdv_kernel(Params p) {
   constexpr int DC = D / KX;               // accumulator columns a thread
+  static_assert(D % KX == 0, "the threads across d split it evenly");
   const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int group = p.H / p.KV, k0 = kt * BK, off = p.S - p.T;
   extern __shared__ float smem[];
@@ -317,6 +320,7 @@ __global__ void __launch_bounds__(NT, 1) dkdv_kernel(Params p) {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT, 1) dq_kernel(Params p) {
   constexpr int DC = D / QX;               // accumulator columns a thread
+  static_assert(D % QX == 0, "the threads across d split it evenly");
   const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.H / p.KV), q0 = qt * BQ, off = p.S - p.T;
   extern __shared__ float smem[];
@@ -415,6 +419,8 @@ cudaError_t dispatch(int dtype, int d, const Params& p, const k2bwd::BwdArgs& a,
     switch (d) {
       case 32: return launch_fp32<32>(p, stream);
       case 64: return launch_fp32<64>(p, stream);
+      case 96: return launch_fp32<96>(p, stream);
+      case 120: return launch_fp32<120>(p, stream);
       case 128: return launch_fp32<128>(p, stream);
       default: return cudaErrorInvalidValue;
     }
@@ -423,6 +429,8 @@ cudaError_t dispatch(int dtype, int d, const Params& p, const k2bwd::BwdArgs& a,
     switch (d) {
       case 32: return launch_bf16<32>(p, a, stream);
       case 64: return launch_bf16<64>(p, a, stream);
+      case 96: return launch_bf16<96>(p, a, stream);
+      case 120: return launch_bf16<120>(p, a, stream);
       case 128: return launch_bf16<128>(p, a, stream);
       default: return cudaErrorInvalidValue;
     }
@@ -445,10 +453,18 @@ const char* flash_attention_bwd_error(int err) { return cudaGetErrorString((cuda
 // the dynamic shared memory a launch of kernel 0 (dK/dV) or 1 (dQ) requests
 // at head dim d for a dtype (0 fp32, 1 bf16), or -1 where none is compiled
 int flash_attention_bwd_smem(int dtype, int d, int kernel) {
-  if ((d != 32 && d != 64 && d != 128) || (kernel != 0 && kernel != 1)) return -1;
-  if (dtype == 1) return kernel == 0 ? k2bwd::dkdv_smem_bytes(d) : k2bwd::dq_smem_bytes(d);
+  if (kernel != 0 && kernel != 1) return -1;
+  if (dtype == 1 && (d == 32 || d == 64 || d == 96 || d == 120 || d == 128))
+    return kernel == 0 ? k2bwd::dkdv_smem_bytes(d) : k2bwd::dq_smem_bytes(d);
   if (dtype != 0) return -1;
-  return d == 32 ? smem_fp32<32>(kernel) : d == 64 ? smem_fp32<64>(kernel) : smem_fp32<128>(kernel);
+  switch (d) {
+    case 32: return smem_fp32<32>(kernel);
+    case 64: return smem_fp32<64>(kernel);
+    case 96: return smem_fp32<96>(kernel);
+    case 120: return smem_fp32<120>(kernel);
+    case 128: return smem_fp32<128>(kernel);
+    default: return -1;
+  }
 }
 
 // dtype: 0 = float32, 1 = bfloat16, for q, k, v, o, dout, dq, dk and dv.

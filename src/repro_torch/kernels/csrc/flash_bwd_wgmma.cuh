@@ -73,6 +73,12 @@
 //   elements: the wrapper passes q, k, v and dO through tma_operand (dO
 //   comes from autograd in any layout).  The tensor maps come from the one
 //   inline encode_map of flash_wgmma.h, which K2 compiles too.
+// - d = 96 and d = 120 run on d = 128's layout, as the forward does
+//   (Shape::kD): the tensor maps keep the real d, TMA zero-fills the
+//   columns past it, the padded columns of S^T, dP^T, S and dP add nothing,
+//   and those of dK, dV and dQ stay zero and are not stored.  Registers and
+//   shared memory are d = 128's (224 registers a dK/dV thread).  The
+//   delta pre-pass reads O and dO at the real d.
 // - The tile is fixed per head dim (64 x d for every tile), not tuned; the
 //   library reports each kernel's shared memory per launch
 //   (flash_attention_bwd_smem) and the Python rule must agree.
@@ -107,16 +113,22 @@ using k2::tile_dead;
 constexpr int kConsumerWarps = 4;                 // one consumer warpgroup
 constexpr int kThreads = (kConsumerWarps + 1) * 32;   // and one producer warp
 
+// D is the real head dim (tensor maps, the stores, the blind-row term); kD
+// the width the tiles, products and accumulators are laid out at
+// (k2::padded_dim: d = 96 and 120 on d = 128's layout, TMA zero-filling the
+// columns past d, as in the forward)
 template <int D>
 struct Shape {
-  static constexpr int kRow = (D < 64 ? D : 64) * 2;    // bytes of a swizzled row: 128 or 64
+  static constexpr int kD = k2::padded_dim(D);
+  static constexpr int kRow = (kD < 64 ? kD : 64) * 2;  // bytes of a swizzled row: 128 or 64
   static constexpr int kBoxD = kRow / 2;                // d values in a TMA box row
-  static constexpr int kChunks = D / kBoxD;             // boxes across d
+  static constexpr int kChunks = kD / kBoxD;            // boxes across d
   static constexpr int kSteps = kRow / 32;              // k16 steps in a swizzled row
   static constexpr uint64_t kLayout = kRow == 128 ? 1 : 2;
-  static constexpr int kTileBytes = kTile * D * 2;
-  static constexpr int kAcc = D / 2;                    // accumulators of a 64 x d product
-  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  static constexpr int kTileBytes = kTile * kD * 2;     // whole boxes, zero fill included
+  static constexpr int kAcc = kD / 2;                   // accumulators of a 64 x d product
+  static_assert(D == 32 || D == 64 || D == 96 || D == 120 || D == 128, "head dim");
+  static_assert(D % 8 == 0, "the stores write whole 8-column groups");
 };
 
 struct Params {
@@ -147,7 +159,7 @@ template <int D>
 __device__ __forceinline__ void product_ss(float (&acc)[32], uint32_t a, uint32_t b) {
   using Sh = Shape<D>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < Sh::kD / 16; ++kk) {
     const uint32_t at = (kk / Sh::kSteps) * Sh::kRow * kTile + (kk % Sh::kSteps) * 32;
     wgmma_ss<0>(acc, smem_desc(a + at, 16, 8 * Sh::kRow, Sh::kLayout),
                 smem_desc(b + at, 16, 8 * Sh::kRow, Sh::kLayout), kk > 0);
@@ -158,8 +170,8 @@ __device__ __forceinline__ void product_ss(float (&acc)[32], uint32_t a, uint32_
 // fragments, B a tile read N-major (imm-trans-b = 1): the leading offset
 // steps 64-wide d chunks, the stride 8-row groups
 template <int D>
-__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (&a)[4][4],
-                                           uint32_t b) {
+__device__ __forceinline__ void product_rs(float (&acc)[Shape<D>::kAcc],
+                                           const uint32_t (&a)[4][4], uint32_t b) {
   using Sh = Shape<D>;
 #pragma unroll
   for (int j = 0; j < kTile / 16; ++j)
@@ -320,7 +332,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // rows that see no key (causal, T > S) give every key dO / S, summed in
-  // a fixed order over the group's heads and the rows t < T - S
+  // a fixed order over the group's heads and the rows t < T - S (columns
+  // below the real d: dO has no others)
   if (p.causal && off < 0) {
     const int blind = min(-off, p.T);
     const float inv_s = 1.0f / static_cast<float>(p.S);
@@ -344,6 +357,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int key = rk + 8 * hf;
     if (key >= p.S) continue;
     const int64_t row = ((static_cast<int64_t>(b) * p.S + key) * p.KV + kvh) * D + col0;
+    // the columns below the real d only: past it dK and dV hold the padding's zeros
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int i = 4 * j + 2 * hf;
@@ -468,6 +482,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int t = row0 + 8 * hf;
     if (t >= p.T) continue;
     const int64_t row = ((static_cast<int64_t>(b) * p.T + t) * p.H + h) * D + col0;
+    // the columns below the real d only
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int i = 4 * j + 2 * hf;

@@ -9,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_wgmma.h"
+
 namespace k2bwd {
 
 // rows of every tile: the keys a dK/dV block owns and the query tiles it
@@ -44,13 +46,16 @@ struct BwdArgs {
 };
 
 // the dynamic shared memory of a launch of either kernel at head dim d: two
-// resident tiles, a ring of two stages of two tiles, the barriers, the
-// alignment padding, and for the dK/dV kernel the staged lse and delta
+// resident tiles, a ring of two stages of two tiles (at the padded head dim
+// of K2's forward, k2::padded_dim: d = 96 and 120 run on d = 128's layout),
+// the barriers, the alignment padding, and for the dK/dV kernel the staged
+// lse and delta
 inline int dkdv_smem_bytes(int d) {
-  return kAlignPad + (2 + 2 * kStages) * kTile * d * 2 + kBarrierBytes + kRowBytes;
+  return kAlignPad + (2 + 2 * kStages) * kTile * k2::padded_dim(d) * 2 + kBarrierBytes +
+         kRowBytes;
 }
 inline int dq_smem_bytes(int d) {
-  return kAlignPad + (2 + 2 * kStages) * kTile * d * 2 + kBarrierBytes;
+  return kAlignPad + (2 + 2 * kStages) * kTile * k2::padded_dim(d) * 2 + kBarrierBytes;
 }
 
 // launches the dK/dV and the dQ kernel (delta must be written before);

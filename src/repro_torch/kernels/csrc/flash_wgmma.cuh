@@ -59,6 +59,13 @@
 //   boxes per tile, d = 64 one; d = 32 is a 64-byte row, loaded with the
 //   64-byte swizzle and read through descriptors of that layout.  TMA
 //   zero-fills rows past T or S; the masks still drop keys past S.
+// - d = 96 and d = 120 run on d = 128's layout (padded_dim, flash_wgmma.h):
+//   the tensor maps keep the real d, so TMA zero-fills the second box's
+//   columns past d (each box still counts whole against its mbarrier, as a
+//   ragged row's does); the zero columns add nothing to S, O's columns past
+//   d stay zero and the store writes only those below d.  The products cost
+//   128/d of the real ones (4/3 at 96, 16/15 at 120); the bound counts the
+//   real d.
 //
 // What holds it back, left for later: the two consumer warpgroups do not
 // take turns (no ping-pong), the softmax of one tile does not overlap the
@@ -83,25 +90,29 @@ constexpr float kNeg = -1e30f;                 // finite fill: (-inf) - (-inf) w
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// D is the real head dim (tensor maps, the store); kD the width the tiles,
+// the products and the O accumulator are laid out at (padded_dim)
 template <int BQ, int BK, int D>
 struct Shape {
   static constexpr int kW = BQ / 64;                    // consumer warpgroups
   static constexpr int kThreads = (kW + 1) * 128;
-  static constexpr int kRow = (D < 64 ? D : 64) * 2;    // bytes of a swizzled row: 128 or 64
+  static constexpr int kD = padded_dim(D);
+  static constexpr int kRow = (kD < 64 ? kD : 64) * 2;  // bytes of a swizzled row: 128 or 64
   static constexpr int kBoxD = kRow / 2;                // d values in a TMA box row
-  static constexpr int kChunks = D / kBoxD;             // boxes across d
+  static constexpr int kChunks = kD / kBoxD;            // boxes across d
   static constexpr int kSteps = kRow / 32;              // k16 steps in a swizzled row
   static constexpr uint64_t kLayout = kRow == 128 ? 1 : 2;
-  static constexpr int kQBytes = BQ * D * 2;
-  static constexpr int kTileBytes = BK * D * 2;         // one K or one V tile
-  static constexpr int kSAcc = BK / 2, kOAcc = D / 2;   // accumulators a consumer thread holds
+  static constexpr int kQBytes = BQ * kD * 2;           // whole boxes, zero fill included
+  static constexpr int kTileBytes = BK * kD * 2;        // one K or one V tile
+  static constexpr int kSAcc = BK / 2, kOAcc = kD / 2;  // accumulators a consumer thread holds
   // Two consumer warpgroups launch at 168 registers (65536 / 384); the
   // producer gives back 128 x (168 - 40) = the consumers' 256 x (232 - 168).
   static constexpr int kProducerRegs = 40;
   static constexpr int kConsumerRegs = 232;
   static_assert(BQ == 64 || BQ == 128, "one or two consumer warpgroups");
   static_assert(BK % 64 == 0 && BK <= 256, "one wgmma for S");
-  static_assert(D == 32 || D == 64 || D == 128, "head dim");
+  static_assert(D == 32 || D == 64 || D == 96 || D == 120 || D == 128, "head dim");
+  static_assert(D % 8 == 0, "the store writes whole 8-column groups");
   static_assert(kSAcc + kOAcc <= (kW == 1 ? 160 : 128), "accumulators per thread");
 };
 
@@ -221,7 +232,7 @@ __global__ void __launch_bounds__(Shape<BQ, BK, D>::kThreads, 1)
       float sacc[Sh::kSAcc];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < Sh::kD / 16; ++kk) {
         const uint32_t at = (kk / Sh::kSteps) * Sh::kRow * 1u, step = (kk % Sh::kSteps) * 32;
         const uint64_t da = smem_desc(qa + at * BQ + step, 16, 8 * Sh::kRow, Sh::kLayout);
         const uint64_t db = smem_desc(sk + at * BK + step, 16, 8 * Sh::kRow, Sh::kLayout);
@@ -277,7 +288,7 @@ __global__ void __launch_bounds__(Shape<BQ, BK, D>::kThreads, 1)
         }
       }
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < Sh::kD / 8; ++j) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) o[4 * j + i] *= alpha[i / 2];
       }
@@ -308,6 +319,7 @@ __global__ void __launch_bounds__(Shape<BQ, BK, D>::kThreads, 1)
       p.lse[(static_cast<int64_t>(b) * p.H + h) * p.T + row] = (m[hf] + log2f(l[hf])) * kLn2;
     const float inv = 1.0f / fmaxf(l[hf], 1e-30f);
     __nv_bfloat16* out = p.o + b * p.sob + row * p.sot + h * p.soh;
+    // the columns below the real d only: past it O holds the padding's zeros
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + col0) =

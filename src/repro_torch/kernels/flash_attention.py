@@ -25,7 +25,9 @@ any other size the bf16 kernel.
   O, at most 160 with one consumer warpgroup and 128 with two, so
   ``bk = 256`` runs at ``bq = 64`` and ``d <= 64`` only.  The launch's
   shared memory is one Q tile, a ring of two stages of one K and one V
-  tile, the barriers and the alignment padding, against 227 KB.
+  tile, the barriers and the alignment padding, against 227 KB.  d = 96
+  and d = 120 run on d = 128's layout (``padded_dim``): their accumulators
+  and shared memory are d = 128's, and so are their tiles.
 * fp32, CUDA cores: the kernel has one tile, 64 x 32, which runs every
   request; the blocks are checked and clamped but choose nothing.
 
@@ -55,15 +57,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.matmul_blocked import SMEM_LIMIT_BYTES
 from repro_torch.kernels.ref import flash_attention_ref
 
-LIBRARY = _build.Library("flash_attention", (
-    "flash_attention.cu", "flash_wgmma_d32.cu", "flash_wgmma_d64.cu",
-    "flash_wgmma_d128.cu"))
-LIBRARY_BWD = _build.Library("flash_attention_bwd", (
-    "flash_attention_bwd.cu", "flash_bwd_wgmma_d32.cu", "flash_bwd_wgmma_d64.cu",
-    "flash_bwd_wgmma_d128.cu"))
-HEAD_DIMS = (32, 64, 128)
-# where the other head dims (phi-3-vision's 96, h2o-danube's 120) are queued
-_OTHER_DIMS = "ROADMAP.md, K2, forward and bwd, at head dims 96 and 120"
+HEAD_DIMS = (32, 64, 96, 120, 128)
+LIBRARY = _build.Library("flash_attention", ("flash_attention.cu", *(
+    f"flash_wgmma_d{d}.cu" for d in HEAD_DIMS)))
+LIBRARY_BWD = _build.Library("flash_attention_bwd", ("flash_attention_bwd.cu", *(
+    f"flash_bwd_wgmma_d{d}.cu" for d in HEAD_DIMS)))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # bf16, the wgmma kernel (csrc/flash_wgmma.cuh): a consumer warpgroup owns
@@ -101,6 +99,14 @@ def _fp32(dtype_bytes) -> bool:
     return dtype_bytes == 4
 
 
+def padded_dim(d):
+    """The head dim the bf16 kernels lay a tile out at (``padded_dim`` of
+    csrc/flash_wgmma.h): d itself up to 64, else 128.  d = 96 and 120 run on
+    d = 128's layout, TMA zero-filling the columns past d, so their
+    accumulators and shared memory are d = 128's.  Broadcasts."""
+    return np.where(np.asarray(d) <= 64, d, 128)
+
+
 def _compiled(bq, bk, d, dtype_bytes):
     """Whether the tile (bq, bk) at head dim d is compiled (broadcasts)."""
     bq, bk = np.asarray(bq, np.float64), np.asarray(bk, np.float64)
@@ -109,7 +115,7 @@ def _compiled(bq, bk, d, dtype_bytes):
         return (bq == FP32_TILE[0]) & (bk == FP32_TILE[1]) & dims
     limit = np.where(bq > WGMMA_M, MAX_ACC_PER_THREAD[2], MAX_ACC_PER_THREAD[1])
     return np.isin(bq, BQ_SIDES) & np.isin(bk, BK_SIDES) & dims \
-        & (bk / 2 + np.asarray(d) / 2 <= limit)
+        & (bk / 2 + padded_dim(d) / 2 <= limit)
 
 
 # every compiled (BQ, BK, d) by dtype_bytes: the lists csrc/flash_wgmma.h
@@ -139,26 +145,28 @@ def launch_tile(bq, bk, dtype_bytes: int = 2):
 
 def smem_bytes(bq, bk, d, dtype_bytes: int = 2):
     """Dynamic shared memory of a launch of the compiled tile (bq, bk) at
-    head dim d.  bf16: Q, two stages of one K and one V tile, the barriers
-    and the alignment padding.  fp32: the Q, K, V and P tiles in fp32 with
-    their padding columns.  Broadcasts over numpy arrays."""
+    head dim d.  bf16: Q, two stages of one K and one V tile (at the padded
+    head dim), the barriers and the alignment padding.  fp32: the Q, K, V
+    and P tiles in fp32 with their padding columns.  Broadcasts over numpy
+    arrays."""
     bq, bk, d = np.asarray(bq), np.asarray(bk), np.asarray(d)
     if _fp32(dtype_bytes):
         return (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1)) * 4
-    return ALIGN_PAD + bq * d * 2 + STAGES * 2 * bk * d * 2 + BARRIER_BYTES
+    dp = padded_dim(d)
+    return ALIGN_PAD + bq * dp * 2 + STAGES * 2 * bk * dp * 2 + BARRIER_BYTES
 
 
 def bwd_smem_bytes(d, kernel: str, dtype_bytes: int = 2):
     """Dynamic shared memory of a launch of K2 bwd's ``kernel`` ("dkdv" or
     "dq") at head dim d; broadcasts over d.  bf16: ``ALIGN_PAD + (2 + 2 *
-    STAGES) * 64 * d * 2 + BARRIER_BYTES``, plus ``STAGES * 2 * 64 * 4``
-    bytes of staged lse and delta in the dK/dV kernel."""
+    STAGES) * 64 * padded_dim(d) * 2 + BARRIER_BYTES``, plus ``STAGES * 2 *
+    64 * 4`` bytes of staged lse and delta in the dK/dV kernel."""
     d = np.asarray(d)
     if _fp32(dtype_bytes):
         bq, bk = BWD_FP32_TILE
         tiles = 2 * bk * (d + 1) + 2 * bq * (d + 1) + 2 * bq
         return (tiles + (2 if kernel == "dkdv" else 1) * bq * (bk + 1)) * 4
-    smem = ALIGN_PAD + (2 + 2 * STAGES) * BWD_TILE * d * 2 + BARRIER_BYTES
+    smem = ALIGN_PAD + (2 + 2 * STAGES) * BWD_TILE * padded_dim(d) * 2 + BARRIER_BYTES
     return smem + (STAGES * 2 * BWD_TILE * 4 if kernel == "dkdv" else 0)
 
 
@@ -195,8 +203,7 @@ def plan(t: int, s: int, d: int, *, block_q: int = 128, block_k: int = 128,
             f"consumer thread (bk/2 + d/2; {MAX_ACC_PER_THREAD[2]} at block_q "
             f"128) and "
             f"{int(smem_bytes(sq, sk, d, dtype_bytes))} bytes of shared memory "
-            f"against {SMEM_LIMIT_BYTES}"
-            + ("" if d in HEAD_DIMS else f"; head dim {d} waits on {_OTHER_DIMS}"))
+            f"against {SMEM_LIMIT_BYTES}")
     return tuple(int(x) for x in launch_tile(bq, bk, dtype_bytes))
 
 
@@ -250,8 +257,7 @@ def _check(q, k, v):
     if h % k.shape[2]:
         raise ValueError(f"kv heads {k.shape[2]} must divide query heads {h}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not supported; the kernel takes {HEAD_DIMS} "
-                         f"(other head dims: {_OTHER_DIMS})")
+        raise ValueError(f"head dim {d} not supported; the kernel takes {HEAD_DIMS}")
 
 
 def _strides(x) -> list[int]:

@@ -1,6 +1,7 @@
 """Generic decoder: the attention families (Yi-6B, deepseek-7b, gemma3-27b,
-h2o-danube-3-4b, mixtral-8x7b), the attention-free Mamba-2 (mamba2-370m)
-and the hybrid heads of hymba-1.5b.
+h2o-danube-3-4b, mixtral-8x7b), the attention-free Mamba-2 (mamba2-370m),
+the hybrid heads of hymba-1.5b, and the two modality frontends: the vision
+prefix of phi-3-vision-4.2b and the codebooks of musicgen-large.
 
 The layer sequence is decomposed into *stages*, maximal periodic runs of a
 repeating unit of layer descriptors, exactly as in the JAX package, so the
@@ -11,9 +12,14 @@ Parameters and caches are nested dicts / tuples of tensors in the JAX
 layout: a sliding-window layer's decode cache is a ring of capacity
 ``window`` (with the meta-token prefix beside it as ``k_pre``/``v_pre``), a
 global layer's a full cache, and an SSM or hybrid layer's carries the SSD's
-fp32 ``state`` and its ``conv`` window beside them.  MLA, multi-token
-prediction and the vision / audio frontends raise ``NotImplementedError``
-naming their ROADMAP.md item.
+fp32 ``state`` and its ``conv`` window beside them.  MLA and multi-token
+prediction raise ``NotImplementedError`` naming their ROADMAP.md item.
+
+The frontends are the JAX package's stubs: a vision config takes
+precomputed patch embeddings ``[B, image_tokens, d_model]``, projected by
+``img_proj`` and prepended to the text (attended causally, no logits); an
+audio config takes ``[B, K, T]`` tokens of K codebooks, sums their K
+embeddings and emits K heads (logits ``[B, T, K, V]``).
 
 Where JAX wraps a stage's scan body in ``jax.checkpoint`` (``cfg.remat``),
 this port recomputes each layer in the backward with
@@ -43,8 +49,6 @@ def check_supported(cfg: ModelConfig) -> None:
     families = "ROADMAP.md, remaining model families"
     gaps = [
         (cfg.mla is not None, f"MLA attention ({families}: MLA)"),
-        (cfg.frontend != "none" or cfg.n_codebooks > 1,
-         f"the {cfg.frontend} frontend ({families}: frontends)"),
         (cfg.mtp_depth > 0,
          f"multi-token prediction, deepseek-v3's ({families}: MLA / MoE)"),
     ]
@@ -130,18 +134,26 @@ def _layer_spec(cfg: ModelConfig, desc: LayerDesc, lead: tuple):
 
 def param_specs(cfg: ModelConfig):
     check_supported(cfg)
-    d, v = cfg.d_model, cfg.vocab
+    d, v, k = cfg.d_model, cfg.vocab, cfg.n_codebooks
     dt = cfg.param_dtype
-    spec = {"tok_emb": ParamSpec((v, d), ("vocab", "embed"), dt)}
+    if k > 1:
+        spec = {"tok_emb": ParamSpec((k, v, d), (None, "vocab", "embed"), dt)}
+    else:
+        spec = {"tok_emb": ParamSpec((v, d), ("vocab", "embed"), dt)}
     if cfg.meta_tokens:
         spec["meta"] = ParamSpec((cfg.meta_tokens, d), (None, "embed"), dt)
+    if cfg.frontend == "vision":
+        spec["img_proj"] = ParamSpec((d, d), ("embed", "embed_out"), dt)
     spec["stages"] = tuple(
         {f"u{j}": _layer_spec(cfg, desc, (st.repeat,))
          for j, desc in enumerate(st.unit)}
         for st in build_stages(cfg))
     spec["final_norm"] = ParamSpec((d,), (None,), dt, init="zeros")
     if not cfg.tie_embeddings:
-        spec["head"] = ParamSpec((d, v), ("embed", "vocab"), dt)
+        if k > 1:
+            spec["head"] = ParamSpec((k, d, v), (None, "embed", "vocab"), dt)
+        else:
+            spec["head"] = ParamSpec((d, v), ("embed", "vocab"), dt)
     return spec
 
 
@@ -287,7 +299,12 @@ def stage_decode(cfg, stage: Stage, sp, x, cache, pos: int):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
-    x = params["tok_emb"][tokens]
+    """tokens [B,T], or [B,K,T] for K codebooks (the sum of their K
+    embeddings, in the JAX package's order)."""
+    if cfg.n_codebooks > 1:
+        x = sum(params["tok_emb"][k][tokens[:, k]] for k in range(cfg.n_codebooks))
+    else:
+        x = params["tok_emb"][tokens]
     if cfg.scale_embeddings:
         # the scale is rounded to the activation dtype first, as the JAX
         # package rounds it (5376 ** 0.5 = 73.32 is 73.5 in bf16)
@@ -296,8 +313,11 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
 
 
 def lm_head(cfg: ModelConfig, params, x):
+    """Logits [B,T,V], or [B,T,K,V] for K codebooks."""
     if cfg.tie_embeddings:
         return torch.einsum("btd,vd->btv", x, params["tok_emb"])
+    if cfg.n_codebooks > 1:
+        return torch.einsum("btd,kdv->btkv", x, params["head"])
     return torch.einsum("btd,dv->btv", x, params["head"])
 
 
@@ -307,14 +327,17 @@ def lm_head(cfg: ModelConfig, params, x):
 
 def model_forward(cfg: ModelConfig, params, tokens, image_embeds=None, *,
                   collect=False, use_flash=False):
-    """Returns (logits, hidden, caches, aux, n_prefix)."""
+    """Returns (logits, hidden, caches, aux, n_prefix).  A vision config's
+    ``image_embeds`` [B,P,D] are cast to the activation dtype, projected and
+    prepended: the P prefix positions are attended causally (they are not
+    window-exempt meta tokens) and get no logits."""
     check_supported(cfg)
-    if image_embeds is not None:
-        raise NotImplementedError(
-            "image inputs are not ported yet (ROADMAP.md, remaining model "
-            "families: frontends)")
     x = embed_tokens(cfg, params, tokens)
     n_prefix = 0
+    if cfg.frontend == "vision" and image_embeds is not None:
+        img = image_embeds.to(x.dtype) @ params["img_proj"]
+        x = torch.cat([img, x], dim=1)
+        n_prefix = img.shape[1]
     if cfg.meta_tokens:
         meta = params["meta"][None].expand((x.shape[0],) + params["meta"].shape)
         x = torch.cat([meta.to(x.dtype), x], dim=1)
@@ -344,15 +367,20 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
 
 
 def train_loss(cfg: ModelConfig, params, batch, use_flash=False):
-    """batch: {"tokens": [B,T]}.  Returns (loss, metrics): the mean
-    next-token cross entropy, plus ``cfg.moe_aux_coef`` times the MoE
-    load-balance loss for an MoE config, as the JAX package's
-    ``train_loss`` (no multi-token prediction)."""
+    """batch: {"tokens": [B,T] | [B,K,T], "image_embeds"?: [B,P,D]}.
+    Returns (loss, metrics): the mean next-token cross entropy over the text
+    positions (for K codebooks the mean of the K per-codebook ones), plus
+    ``cfg.moe_aux_coef`` times the MoE load-balance loss for an MoE config,
+    as the JAX package's ``train_loss`` (no multi-token prediction)."""
     tokens = batch["tokens"]
     logits, _, _, aux, _ = model_forward(cfg, params, tokens,
                                          batch.get("image_embeds"),
                                          use_flash=use_flash)
-    loss = cross_entropy(logits[:, :-1], tokens[:, 1:])
+    if cfg.n_codebooks > 1:
+        loss = sum(cross_entropy(logits[:, :-1, k], tokens[:, k, 1:])
+                   for k in range(cfg.n_codebooks)) / cfg.n_codebooks
+    else:
+        loss = cross_entropy(logits[:, :-1], tokens[:, 1:])
     metrics = {"ce": loss}
     if cfg.moe is not None:
         loss = loss + cfg.moe_aux_coef * aux
@@ -362,7 +390,7 @@ def train_loss(cfg: ModelConfig, params, batch, use_flash=False):
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens_new):
-    """One decode step. tokens_new: [B,1].
+    """One decode step. tokens_new: [B,1] (or [B,K,1] for K codebooks).
 
     The caches in ``cache`` are written in place; the returned cache holds
     the same tensors with ``pos`` advanced by one.

@@ -48,6 +48,23 @@ def test_flash_matches_jax_sweep(t, h, kv, d, win, meta, dtype):
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
 
+# phi-3-vision's head dim 96 and h2o-danube's 120, which the bf16 kernel
+# runs on d = 128's layout: GQA with a window and a meta prefix, MHA, and a
+# ragged T = S that fills no block
+@pytest.mark.parametrize("t,h,kv,win,meta,block", [
+    (128, 4, 2, 32, 8, 64),       # GQA + window + always-visible meta prefix
+    (128, 4, 4, 0, 0, 32),        # MHA causal
+    (100, 8, 2, 16, 0, 32),       # ragged T = S, group 4, window
+])
+@pytest.mark.parametrize("d", [96, 120])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_matches_jax_at_padded_head_dims(t, h, kv, win, meta, block, d, dtype):
+    arrays = _inputs(t + h + d, 1, t, t, h, kv, d)
+    got, want = _both(arrays, dtype, window=win, n_meta=meta, block_q=block,
+                      block_k=block)
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
 @pytest.mark.parametrize("t,s,block", [
     (100, 100, 32),               # causal, T and S not block multiples (padded)
     (64, 192, 64),                # T < S, right-aligned causal mask
@@ -136,27 +153,37 @@ def test_refs_match_jax(dtype):
 # at most 160 with one consumer warpgroup (255 registers a thread) and 128
 # with two (168 registers a thread).  Shared memory: 1024 bytes of alignment padding, Q (bq x d
 # bf16), two stages of one K and one V tile (bk x d bf16 each), and 8 bytes
-# for Q's barrier plus 16 a stage.
+# for Q's barrier plus 16 a stage.  d = 96 and 120 are laid out at d = 128
+# (TMA zero-fills the columns past d), so every sum counts them as 128.
+PADDED = {32: 32, 64: 64, 96: 128, 120: 128, 128: 128}
+
+
 def _smem_bf16(bq, bk, d):
+    d = PADDED[d]
     return 1024 + bq * d * 2 + 2 * (2 * bk * d * 2) + 8 + 2 * 16
 
 
 def test_compiled_tiles_follow_the_register_and_shared_memory_sums():
-    want = [(bq, bk, d) for d in (32, 64, 128) for bq in (64, 128)
+    want = [(bq, bk, d) for d in (32, 64, 96, 120, 128) for bq in (64, 128)
             for bk in (64, 128, 256)
-            if bk // 2 + d // 2 <= (160 if bq == 64 else 128)]
+            if bk // 2 + PADDED[d] // 2 <= (160 if bq == 64 else 128)]
     assert list(tfa.INSTANTIATED[2]) == want
-    assert len(want) == 14 and (64, 256, 64) in want
+    assert len(want) == 22 and (64, 256, 64) in want
     assert (64, 256, 128) not in want and (128, 256, 32) not in want
+    # 96 and 120 take d = 128's tiles, (64, 256) not among them
+    for d in (96, 120):
+        assert [t[:2] for t in want if t[2] == d] == [t[:2] for t in want if t[2] == 128]
     for bq, bk, d in want:
         assert tfa.smem_bytes(bq, bk, d) == _smem_bf16(bq, bk, d) <= 232_448
         assert tfa.fits(bq, bk, d)
-    assert _smem_bf16(128, 128, 128) == 164_904
+    assert _smem_bf16(128, 128, 128) == _smem_bf16(128, 128, 96) == 164_904
     # fp32: one CUDA-core tile of 64 x 32 at every head dim, its Q, K, V and
-    # P tiles in fp32 with a padding column
-    assert tfa.INSTANTIATED[4] == ((64, 32, 32), (64, 32, 64), (64, 32, 128))
+    # P tiles in fp32 with a padding column, at the real d
+    assert tfa.INSTANTIATED[4] == tuple((64, 32, d) for d in (32, 64, 96, 120, 128))
     assert tfa.smem_bytes(64, 32, 128, 4) == \
         (64 * 129 + 32 * 129 + 32 * 128 + 64 * 33) * 4
+    assert tfa.smem_bytes(64, 32, 120, 4) == \
+        (64 * 121 + 32 * 121 + 32 * 120 + 64 * 33) * 4
 
 
 @pytest.mark.parametrize("blocks,launch", [
@@ -176,6 +203,9 @@ def test_launch_tile_covers_the_blocks(blocks, launch):
     (100, 200, 64, False),        # covered by (128, 256): 160 accumulators at 168 registers
     (256, 64, 128, False),        # a third consumer warpgroup is not compiled
     (64, 256, 128, False),        # 128 + 64 accumulators a thread
+    (128, 128, 96, True), (64, 128, 120, True),   # on d = 128's layout
+    (64, 256, 96, False),         # padded to 128: 128 + 64 accumulators
+    (64, 200, 120, False),
     (128, 256, 32, False),        # 128 + 16 with two consumer warpgroups
     (64, 512, 32, False),         # S wider than one wgmma
     (64, 64, 48, False),          # not a head dim the kernel takes
@@ -192,6 +222,8 @@ def test_fits_is_the_compiled_set(bq, bk, d, ok):
     ((64, 192, 64), (512, 512), 2, (64, 256)),             # clamped to T and S
     ((4096, 4096, 128), (64, 128), 2, (64, 128)),
     ((4096, 4096, 128), (128, 128), 4, (64, 32)),          # fp32: its one tile
+    ((6144, 6144, 120), (128, 128), 2, (128, 128)),        # h2o-danube's prefill
+    ((1600, 1600, 96), (100, 64), 2, (128, 64)),           # phi-3-vision's, covering
 ])
 def test_plan_clamps_blocks_and_covers_them(shape, blocks, dtype_bytes, launch):
     t, s, d = shape
@@ -201,7 +233,7 @@ def test_plan_clamps_blocks_and_covers_them(shape, blocks, dtype_bytes, launch):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("blocks,d", [((256, 64), 128), ((64, 256), 128),
-                                      ((0, 64), 64)])
+                                      ((0, 64), 64), ((64, 256), 96), ((64, 256), 120)])
 def test_a_refused_tile_raises_on_the_cpu_too(dtype, blocks, d):
     q, k, v = (torch.tensor(a).to(TDT[dtype]) for a in _inputs(7, 1, 512, 512, 2, 1, d))
     if dtype == "float32" and min(blocks) >= 1:

@@ -445,12 +445,20 @@ def test_tune_kernel_with_the_simulator_predicts_the_flash_pairs(tmp_path):
 
 
 def test_evaluate_kernels_skips_a_head_dim_k2_does_not_compile():
-    """phi-3-vision's head dim is 96: the H100 rule admits no flash tile
-    there, so its flash cases have no row (its GEMM cases all do)."""
+    """K2 compiles every head dim of the zoo's attention (phi-3-vision's 96
+    and h2o-danube's 120 on d = 128's layout), so no case is skipped: each
+    flash case of both archs has a row, and its measured argmin tile is one
+    the rule admits at its head dim.  A head dim K2 does not compile (48)
+    still has no tile."""
+    archs = ["phi-3-vision-4.2b", "h2o-danube-3-4b"]
     report = tharness.evaluate_kernels(backend=ttiming.SimulatorBackend(seed=0),
-                                       arch_ids=["phi-3-vision-4.2b"])
-    cases = twl.zoo_cases(["phi-3-vision-4.2b"])
-    assert {c.k for c in cases if c.kernel == "flash"} == {96}
-    assert report["config"]["n_cases"] == len(cases)
-    assert [r["kernel"] for r in report["rows"]] == \
-        ["matmul"] * sum(c.kernel == "matmul" for c in cases)
+                                       arch_ids=archs)
+    cases = twl.zoo_cases(archs)
+    flash = {c.label: c for c in cases if c.kernel == "flash"}
+    assert {c.k for c in flash.values()} == {96, 120}
+    assert report["config"]["n_cases"] == report["config"]["n_rows"] == len(cases)
+    rows = [r for r in report["rows"] if r["kernel"] == "flash"]
+    assert sorted(r["label"] for r in rows) == sorted(flash)
+    for r in rows:
+        assert fa.fits(*r["argmin_tile"], flash[r["label"]].k), r
+    assert not fa.fits(64, 64, 48)

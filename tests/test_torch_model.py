@@ -5,7 +5,10 @@ Each supported arch runs at its reduced config; gemma3-27b runs a second
 time with meta tokens and tied embeddings.  The windowed archs' reduced
 window is 32, so a 37-token prefill already wraps the ring and the decode
 steps wrap it again; the SSM archs' reduced chunk is 16, so the same
-prefill ends in a ragged chunk (hymba's 8 meta tokens included)."""
+prefill ends in a ragged chunk (hymba's 8 meta tokens included).
+phi-3-vision-4.2b runs with its 16 image embeddings prepended and
+musicgen-large on [B, 4, T] codebook tokens, through every test of the
+fixture."""
 import dataclasses
 
 import jax
@@ -19,19 +22,33 @@ from repro.models import layers as jlayers
 from repro.models import transformer as jtf
 from repro.models.layers import init_param_tree
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
+from repro_torch.launch import serve
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttf
 from repro_torch.weights import init_params, params_from_jax
 
 TOL = 2e-3
 RUNS = ("yi-6b", "deepseek-7b", "gemma3-27b", "h2o-danube-3-4b", "mixtral-8x7b",
-        "hymba-1.5b", "mamba2-370m")
+        "hymba-1.5b", "mamba2-370m", "phi-3-vision-4.2b", "musicgen-large")
 META_TIED = dict(meta_tokens=8, tie_embeddings=True)
 PAIRS = [(arch, {}) for arch in RUNS] + [("gemma3-27b", META_TIED)]
 
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+def _jax(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _torch(x):
+    return None if x is None else torch.from_numpy(x)
+
+
+def _prefix(cfg, img) -> int:
+    """Positions before the text: meta tokens or the image."""
+    return cfg.meta_tokens + (0 if img is None else img.shape[1])
 
 
 @pytest.fixture(scope="module", params=PAIRS,
@@ -53,27 +70,27 @@ def _close(got, want):
 @pytest.mark.parametrize("use_flash", [False, True])
 def test_model_forward_matches_jax(pair, use_flash):
     cfg, jparams, tparams = pair
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 48))
-    want, *_ = jtf.model_forward(cfg, jparams, jnp.asarray(tokens))
-    got, *_ = ttf.model_forward(cfg, tparams, torch.tensor(tokens),
+    tokens, img = serve.draw_inputs(cfg, 2, 48, np.random.default_rng(1))
+    want, *_ = jtf.model_forward(cfg, jparams, jnp.asarray(tokens), _jax(img))
+    got, *_ = ttf.model_forward(cfg, tparams, torch.tensor(tokens), _torch(img),
                                 use_flash=use_flash)
     _close(got, want)
 
 
 def test_prefill_then_decode_matches_jax(pair):
     cfg, jparams, tparams = pair
-    tokens = np.random.default_rng(2).integers(0, cfg.vocab, (2, 40))
+    tokens, img = serve.draw_inputs(cfg, 2, 40, np.random.default_rng(2))
     t0 = 37
-    jlast, jcache = jtf.prefill(cfg, jparams, jnp.asarray(tokens[:, :t0]),
+    jlast, jcache = jtf.prefill(cfg, jparams, jnp.asarray(tokens[..., :t0]), _jax(img),
                                 use_flash=True)
-    tlast, tcache = ttf.prefill(cfg, tparams, torch.tensor(tokens[:, :t0]),
+    tlast, tcache = ttf.prefill(cfg, tparams, torch.tensor(tokens[..., :t0]), _torch(img),
                                 use_flash=True)
     _close(tlast, jlast)
-    capacity = tokens.shape[1] + cfg.meta_tokens + 4
+    capacity = tokens.shape[-1] + _prefix(cfg, img) + 4
     jcache = jtf.grow_cache(cfg, jcache, capacity)
     tcache = ttf.grow_cache(cfg, tcache, capacity)
     for pos in range(t0, t0 + 3):
-        new = tokens[:, pos:pos + 1]
+        new = tokens[..., pos:pos + 1]
         jlog, jcache = jtf.decode_step(cfg, jparams, jcache, jnp.asarray(new))
         tlog, tcache = ttf.decode_step(cfg, tparams, tcache, torch.tensor(new))
         _close(tlog, jlog)
@@ -101,8 +118,11 @@ def test_grow_cache_pads_only_seq(pair):
     conv window keep their shape."""
     cfg, jparams, tparams = pair
     tokens = np.arange(16)[None] % cfg.vocab
-    _, cache = ttf.prefill(cfg, tparams, torch.tensor(tokens))
-    _, jcache = jtf.prefill(cfg, jparams, jnp.asarray(tokens))
+    if cfg.n_codebooks > 1:
+        tokens = np.stack([tokens] * cfg.n_codebooks, axis=1)
+    img = serve.draw_inputs(cfg, 1, 16, np.random.default_rng(3))[1]
+    _, cache = ttf.prefill(cfg, tparams, torch.tensor(tokens), _torch(img))
+    _, jcache = jtf.prefill(cfg, jparams, jnp.asarray(tokens), _jax(img))
     grown = ttf.grow_cache(cfg, cache, 64)
     jgrown = jtf.grow_cache(cfg, jcache, 64)
     n_full = n_fixed = 0
@@ -238,17 +258,17 @@ def test_decode_matches_forward(arch, replace, T=44, B=2, steps=3):
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, capacity_factor=float(cfg.moe.n_experts) / cfg.moe.top_k))
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (B, T)))
+    tokens, img = (_torch(x) for x in serve.draw_inputs(cfg, B, T, np.random.default_rng(1)))
     with torch.no_grad():
-        full, *_ = ttf.model_forward(cfg, params, tokens)
+        full, *_ = ttf.model_forward(cfg, params, tokens, img)
         t0 = T - steps
-        last, cache = ttf.prefill(cfg, params, tokens[:, :t0], use_flash=True)
-        cache = ttf.grow_cache(cfg, cache, T + cfg.meta_tokens + 4)
+        last, cache = ttf.prefill(cfg, params, tokens[..., :t0], img, use_flash=True)
+        cache = ttf.grow_cache(cfg, cache, T + _prefix(cfg, img) + 4)
         torch.testing.assert_close(last[:, 0], full[:, t0 - 1], rtol=0, atol=TOL)
         for pos in range(t0, T):
-            logits, cache = ttf.decode_step(cfg, params, cache, tokens[:, pos:pos + 1])
+            logits, cache = ttf.decode_step(cfg, params, cache, tokens[..., pos:pos + 1])
             torch.testing.assert_close(logits[:, 0], full[:, pos], rtol=0, atol=TOL)
-            assert cache["pos"] == pos + 1 + cfg.meta_tokens
+            assert cache["pos"] == pos + 1 + _prefix(cfg, img)
 
 
 def test_params_from_jax_carries_meta_and_the_tied_tree():

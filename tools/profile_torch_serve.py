@@ -13,7 +13,10 @@ time / wall time; one stream, so kernels do not overlap), its split into
 GEMMs (cuBLAS), K2 (flash attention) and, for the SSM and hybrid families,
 the SSD block (its projections and its plain-torch scan, each timed under a
 ``record_function`` range the tool puts around ``ssd_forward`` and
-``ssd_decode``), and the kernels that take the most device time.
+``ssd_decode``), and the kernels that take the most device time.  A vision
+config's prompts follow ``image_tokens`` image embeddings N(0, 0.02) drawn
+from the seed, and an audio config's are ``[batch, K, prompt_len]``
+codebook tokens, as ``serve.main`` draws them.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.weights import init_params  # noqa: E402
@@ -137,22 +141,25 @@ def main(argv=None) -> int:
         cfg = cfg.replace(n_layers=n, windows=cfg.windows[:n],
                           layer_kinds=cfg.layer_kinds[:n], moe_layers=cfg.moe_layers[:n])
     print(f"[profile] {cfg.name}: {cfg.n_layers} layers, {cfg.n_params() / 1e9:.3f} B "
-          f"params, batch {args.batch} x {args.prompt_len} prompt", flush=True)
+          f"params, batch {args.batch} x {args.prompt_len} prompt"
+          f"{f' after {cfg.image_tokens} image positions' if cfg.frontend == 'vision' else ''}"
+          f"{f' x {cfg.n_codebooks} codebooks' if cfg.n_codebooks > 1 else ''}", flush=True)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
-    prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
-        2, cfg.vocab, (args.batch, args.prompt_len))).to(device)
-    capacity = args.prompt_len + 2 * args.decode_steps + cfg.meta_tokens + 2
+    prompts, image = serve.draw_inputs(cfg, args.batch, args.prompt_len,
+                                       np.random.default_rng(args.seed), device)
+    n_image = 0 if image is None else image.shape[1]
+    capacity = args.prompt_len + 2 * args.decode_steps + cfg.meta_tokens + n_image + 2
     chunk = cfg.ssm.chunk if cfg.ssm is not None else 0
 
     def prefill():
-        last, cache = tfm.prefill(cfg, params, prompts, use_flash=True)
+        last, cache = tfm.prefill(cfg, params, prompts, image, use_flash=True)
         return last, tfm.grow_cache(cfg, cache, capacity)
 
     def decode(last, cache, steps):
         tok = last[:, -1].argmax(dim=-1)
         for _ in range(steps):
-            logits, cache = tfm.decode_step(cfg, params, cache, tok[:, None])
+            logits, cache = tfm.decode_step(cfg, params, cache, tok[..., None])
             tok = logits[:, -1].argmax(dim=-1)
         return cache
 
