@@ -97,7 +97,10 @@ Phases, each of which raises on failure (exit code != 0):
                phi-3-vision widths (d = 96) with its 576 image positions
                before 600 text tokens; musicgen widths with 4 codebooks,
                T = 600; h2o-danube widths (d = 120), window cut to 1024,
-               T = 1100
+               T = 1100; deepseek-v3 widths, its first 2 layers (dense MLA:
+               d_model 7168, 128 heads, kv rank 512; the absorbed latent
+               decode against the decompressed forward), T = 600, 0 K2
+               launches
  16. serve-mixtral  mixtral-8x7b at its published widths, 16 of its 32
                layers (the whole model is 93 GB in bf16, the cut ~47 GB),
                bf16 random weights: 8 x 512-token prompts, 32 new tokens;
@@ -133,7 +136,17 @@ Phases, each of which raises on failure (exit code != 0):
                whole (48 layers, 4 codebooks): 8 x 4 x 512-token prompts,
                32 new steps of 4 codebook tokens; 48 K2 launches, 0 K2 bwd,
                finite logits
-serve_model counts one K2 launch per attention-bearing layer.
+ 22. serve-deepseek  deepseek-v3-671b at its published widths, 5 of its 61
+               layers (3 dense MLA layers, 2 MLA + 256-expert MoE layers;
+               the whole model is 1344 GB in bf16, the cut ~55 GB), bf16
+               random weights drawn on the card, through
+               ``serve.generate``: 8 x 512-token prompts, 32 new tokens
+               (MoE drops at capacity factor 1.25; decode routes 8 tokens
+               over 256 experts); 0 K2 launches (MLA attends in plain torch,
+               as the reference does), 0 K2 bwd, tokens in [0, vocab),
+               finite logits, peak memory under 80 GB
+serve_model counts one K2 launch per attention-bearing layer of a GQA
+model, and none for MLA.
 The whole shapes (phases 4, 11, 14, 17, 19-21) are held against the plain
 version run in fp32 on the same bf16 inputs by ||got - want|| / ||want||,
 since at thousands of keys a row's values are as small as the 3e-2
@@ -1114,7 +1127,9 @@ DECODE_CASES = [("gemma3 widths", "gemma3-27b", 2, (1024, 0), 1100),
                 # d = 120 with the window cut to 1024 and T past it
                 ("phi-3-vision widths", "phi-3-vision-4.2b", 2, (0, 0), 600),
                 ("musicgen widths", "musicgen-large", 2, (0, 0), 600),
-                ("h2o-danube widths", "h2o-danube-3-4b", 2, (1024, 1024), 1100)]
+                ("h2o-danube widths", "h2o-danube-3-4b", 2, (1024, 1024), 1100),
+                # dense MLA layers: the absorbed decode over the latent cache
+                ("deepseek-v3 widths", "deepseek-v3-671b", 2, (0, 0), 600)]
 DECODE_TOL = 2e-3
 DECODE_STEPS = 3
 # phase 16: mixtral-8x7b at 16 of its 32 layers
@@ -1135,12 +1150,28 @@ PHI3_SERVE = dict(batch=4, prompt=1024, gen=32)
 PHI3_LOCAL = dict(B=4, T=1600, H=32, KV=32, d=96, window=0, meta=0)
 MUSICGEN_SERVE = dict(batch=8, prompt=512, gen=32)
 MUSICGEN_LOCAL = dict(B=8, T=512, H=32, KV=32, d=64, window=0, meta=0)
+# phase 22: deepseek-v3-671b at 5 of its 61 layers (its 3 dense and 2 of its
+# MoE layers: both stages repeat, so both stacked latent caches are written
+# in place at every step)
+DEEPSEEK_SERVE = dict(batch=8, prompt=512, gen=32, layers=5)
+MEMORY_GB = 80
 
 
 def attention_layers(cfg) -> int:
-    """Layers with attention (``attn`` and ``hybrid``): one K2 launch each
-    in prefill."""
+    """Layers with GQA attention (``attn`` and ``hybrid``): one K2 launch
+    each in prefill.  MLA takes none: the reference's MLA attends in plain
+    jnp, and so does the port's."""
+    if cfg.mla is not None:
+        return 0
     return sum(kind != "ssm" for kind in cfg.kinds)
+
+
+def attention_desc(cfg) -> str:
+    if cfg.mla is None:
+        return f"head dim {cfg.head_dim}"
+    m = cfg.mla
+    return (f"MLA (q rank {m.q_lora_rank}, kv rank {m.kv_lora_rank}, qk head dim "
+            f"{m.qk_nope_dim + m.qk_rope_dim}, v head dim {m.v_head_dim})")
 
 
 def planted_faults(tag, got, want, tol, dim=-1, **more):
@@ -1256,8 +1287,8 @@ def serve_model(tag, cfg, batch, prompt_len, gen_len, device, seed):
     tok_s = batch * gen_len / out.decode_s          # a step's K codebooks count once
     prefix = (f" after {image.shape[1]} image positions" if image is not None else
               f" x {cfg.n_codebooks} codebooks" if cfg.n_codebooks > 1 else "")
-    print(f"[{tag}] {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, head dim "
-          f"{cfg.head_dim} ({cfg.n_params() / 1e9:.3f} B params, {weight_gb:.3f} GB of bf16 "
+    print(f"[{tag}] {cfg.name} d_model {cfg.d_model}, {cfg.n_layers} layers, "
+          f"{attention_desc(cfg)} ({cfg.n_params() / 1e9:.3f} B params, {weight_gb:.3f} GB of bf16 "
           f"weights drawn in {init_s:.1f} s), batch {batch} x {prompt_len} prompt{prefix}, "
           f"{gen_len} new, greedy: "
           f"prefill_ms={out.prefill_s * 1e3:.2f} decode_ms_per_step={decode_ms:.3f} "
@@ -1309,7 +1340,7 @@ def phase_decode_vs_forward(device):
             raise SystemExit(f"[decode-vs-forward] {name}: max abs errs {errs} over "
                              f"{DECODE_TOL}")
         print(f"[decode-vs-forward] {name} ({cfg.name}, {layers} {cfg.kinds[0]} layers, "
-              f"head dim {cfg.head_dim}, windows {windows}, {n_prefix} prefix positions, "
+              f"{attention_desc(cfg)}, windows {windows}, {n_prefix} prefix positions, "
               f"{cfg.n_codebooks} codebooks, fp32, batch 2): prefill "
               f"{t - 1} tokens with flash, then "
               f"{DECODE_STEPS} decode steps vs the plain forward at T = "
@@ -1328,6 +1359,22 @@ def phase_serve_mixtral(device):
           flush=True)
     return serve_model("serve-mixtral", cfg, c["batch"], c["prompt"], c["gen"], device,
                        seed=11)
+
+
+def phase_serve_deepseek(device):
+    c = DEEPSEEK_SERVE
+    whole = get_config("deepseek-v3-671b")
+    cfg = whole.replace(n_layers=c["layers"])
+    moe = sum(cfg.layer_moe[:c["layers"]])
+    print(f"[serve-deepseek] depth cut: {c['layers']} of {whole.n_layers} layers "
+          f"({c['layers'] - moe} dense, {moe} MoE), {cfg.n_params() * 2 / 1e9:.1f} of "
+          f"{whole.n_params() * 2 / 1e9:.1f} GB in bf16", flush=True)
+    report = serve_model("serve-deepseek", cfg, c["batch"], c["prompt"], c["gen"], device,
+                         seed=21)
+    if not report["peak_mem_gb"] < MEMORY_GB:
+        raise SystemExit(f"[serve-deepseek] peak memory {report['peak_mem_gb']:.3f} GB, "
+                         f"over {MEMORY_GB}")
+    return report
 
 
 def phase_serve_mamba2(device):
@@ -1378,6 +1425,7 @@ def main() -> int:
     musicgen_local, musicgen = phase_serve_whole("serve-musicgen", "musicgen-large",
                                                  MUSICGEN_SERVE, MUSICGEN_LOCAL, device,
                                                  seed=19)
+    deepseek = phase_serve_deepseek(device)
     record = {"kernels": [
         # the times are the bf16 kernel's at the serving shape (train_4k
         # beside them, and gemma3-27b's local-layer shape as local_*); the
@@ -1386,7 +1434,8 @@ def main() -> int:
         # 6); tune_launches: the tune run's (phase 8); gemma3_launches,
         # mixtral_launches and hymba_launches: phases 14, 16 and 17, and
         # hymba-1.5b's local-layer shape as hymba_local_*; h2o_, phi3_ and
-        # musicgen_launches and _local_*: phases 19-21 (d = 120, 96, 64)
+        # musicgen_launches and _local_*: phases 19-21 (d = 120, 96, 64);
+        # deepseek_launches: phase 22 (MLA: 0)
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1396,6 +1445,7 @@ def main() -> int:
              gemma3_launches=gemma3["launches"], mixtral_launches=mixtral["launches"],
              hymba_launches=hymba["launches"], h2o_launches=h2o["launches"],
              phi3_launches=phi3["launches"], musicgen_launches=musicgen["launches"],
+             deepseek_launches=deepseek["launches"],
              max_abs_err=err, **times, **gemma3_local, **hymba_local, **h2o_local,
              **phi3_local, **musicgen_local),
         # the times are the bf16 kernels' at train_4k (phase 11), and at

@@ -1,11 +1,19 @@
-"""Attention: GQA over the full sequence (prefill) and one decode step.
+"""Attention: GQA and MLA (DeepSeek-V3) over the full sequence (prefill)
+and one decode step.
 
-The full-sequence path either calls the flash-attention kernel
+GQA's full-sequence path either calls the flash-attention kernel
 (``use_flash=True``) or computes softmax attention in plain torch, as the
-JAX package computes it outside any kernel.  Decode attends one new token
-against a full KV cache, or a ring cache of capacity ``window`` for a
+JAX package computes it outside any kernel.  Its decode attends one new
+token against a full KV cache, or a ring cache of capacity ``window`` for a
 sliding-window layer, with an optional never-evicted prefix (meta tokens).
-MLA is not ported yet.
+
+MLA never calls the kernel, as in the JAX package: its full-sequence path
+decompresses the latent into per-head keys (qk head dim nope + rope) and
+values (v head dim) and attends in plain torch.  Its decode keeps only the
+latent cache (``ckv`` and the shared roped key ``krope``) and attends in the
+absorbed form: the query is projected into the latent space, scores and
+context are taken against ``ckv`` in fp32, and the context is decompressed
+per head afterwards.
 """
 from __future__ import annotations
 
@@ -13,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import ParamSpec, apply_rope, causal_window_mask
+from repro_torch.models.layers import ParamSpec, apply_rope, causal_window_mask, rms_norm
 
 
 # ---------------------------------------------------------------------------
@@ -29,6 +37,26 @@ def gqa_spec(cfg: ModelConfig, lead: tuple = ()):
         "wk": ParamSpec(lead + (d, kv, hd), la + ("embed", "kv", "head_dim"), dt),
         "wv": ParamSpec(lead + (d, kv, hd), la + ("embed", "kv", "head_dim"), dt),
         "wo": ParamSpec(lead + (h, hd, d), la + ("heads", "head_dim", "embed_out"), dt),
+    }
+
+
+def mla_spec(cfg: ModelConfig, lead: tuple = ()):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    la = ("layers",) * len(lead)
+    dt = cfg.param_dtype
+    return {
+        "wq_a": ParamSpec(lead + (d, m.q_lora_rank), la + ("embed", None), dt),
+        "q_norm": ParamSpec(lead + (m.q_lora_rank,), la + (None,), dt, init="zeros"),
+        "wq_b": ParamSpec(lead + (m.q_lora_rank, h, m.qk_nope_dim + m.qk_rope_dim),
+                          la + (None, "heads", "head_dim"), dt),
+        "wkv_a": ParamSpec(lead + (d, m.kv_lora_rank + m.qk_rope_dim),
+                           la + ("embed", None), dt),
+        "kv_norm": ParamSpec(lead + (m.kv_lora_rank,), la + (None,), dt, init="zeros"),
+        "wkv_b": ParamSpec(lead + (m.kv_lora_rank, h, m.qk_nope_dim + m.v_head_dim),
+                           la + (None, "heads", "head_dim"), dt),
+        "wo": ParamSpec(lead + (h, m.v_head_dim, d),
+                        la + ("heads", "head_dim", "embed_out"), dt),
     }
 
 
@@ -61,7 +89,8 @@ def _attend(q, k, v, positions, window, n_meta, scale):
 
 
 def _sdpa(q, k, v, mask, scale):
-    """q:[B,T,H,dh] k,v:[B,S,KV,dh] (KV divides H); mask:[1,T,S] bool."""
+    """q,k:[B,T|S,H|KV,dh] v:[B,S,KV,dv] (KV divides H; MLA's dv differs
+    from dh); mask:[1,T,S] bool."""
     g = q.shape[2] // k.shape[2]
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
@@ -143,4 +172,83 @@ def gqa_decode(p, x, cache, pos: int, *, window: int, theta: float, n_meta: int)
 
     y = _sdpa(q, k_all, v_all, mask, dh ** -0.5)
     out = torch.einsum("bthk,hkd->btd", y, p["wo"])
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: full-sequence path
+# ---------------------------------------------------------------------------
+
+def mla_forward(cfg: ModelConfig, p, x, positions, *, n_meta: int = 0,
+                return_latent: bool = False):
+    """x: [B,T,D]; positions: [T].  Returns y, and under ``return_latent``
+    the decode cache's latent ``(c [B,T,rank], k_rope [B,T,rope])``."""
+    m = cfg.mla
+    b, t, _ = x.shape
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+
+    q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("btr,rhk->bthk", q, p["wq_b"])
+    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c, k_rope = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # one head
+
+    kvd = torch.einsum("btr,rhk->bthk", c, p["wkv_b"])           # decompress
+    k_nope, v = kvd.split([m.qk_nope_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, t, cfg.n_heads, m.qk_rope_dim)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+
+    y = _attend(q_full, k, v, positions, 0, n_meta, scale)
+    out = torch.einsum("bthk,hkd->btd", y, p["wo"])
+    if return_latent:
+        return out, (c, k_rope[:, :, 0, :])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLA: decode path (absorbed, latent cache)
+# ---------------------------------------------------------------------------
+
+def mla_decode(cfg: ModelConfig, p, x, cache, pos: int):
+    """x: [B,1,D]; cache: {"ckv": [B,S,rank], "krope": [B,S,rope]}.
+
+    The new token's latent is written into ``cache`` in place at ``pos``
+    and the same tensors are returned.  The casts are the JAX package's:
+    ``q_lat`` in the activation dtype, scores, softmax and ``o_lat`` in
+    fp32, ``o_lat`` back in the activation dtype before ``w_uv``.
+    """
+    m = cfg.mla
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    positions = torch.arange(pos, pos + 1, device=x.device)   # no host copy
+
+    q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("btr,rhk->bthk", q, p["wq_b"])[:, 0]        # [B,H,nope+rope]
+    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope[:, None], positions, cfg.rope_theta)[:, 0]
+
+    c_new, kr_new = (x @ p["wkv_a"])[:, 0].split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    c_new = rms_norm(c_new, p["kv_norm"], cfg.norm_eps)
+    kr_new = apply_rope(kr_new[:, None, None, :], positions, cfg.rope_theta)[:, 0, 0]
+
+    ckv, krope = cache["ckv"], cache["krope"]
+    ckv[:, pos] = c_new
+    krope[:, pos] = kr_new
+
+    # absorbed projections
+    w_uk, w_uv = p["wkv_b"].split([m.qk_nope_dim, m.v_head_dim], dim=-1)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, w_uk)
+    ckv32 = ckv.float()
+    s = torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv32)
+    s = s + torch.einsum("bhn,bsn->bhs", q_rope.float(), krope.float())
+    s = s * scale
+    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
+    s = s.masked_fill(~valid[None, None], torch.finfo(torch.float32).min)
+    probs = torch.softmax(s, dim=-1)
+
+    o_lat = torch.einsum("bhs,bsr->bhr", probs, ckv32)
+    v = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), w_uv)
+    out = torch.einsum("bhv,hvd->bd", v, p["wo"])[:, None]
     return out, cache

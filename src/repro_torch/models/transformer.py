@@ -1,7 +1,8 @@
 """Generic decoder: the attention families (Yi-6B, deepseek-7b, gemma3-27b,
-h2o-danube-3-4b, mixtral-8x7b), the attention-free Mamba-2 (mamba2-370m),
-the hybrid heads of hymba-1.5b, and the two modality frontends: the vision
-prefix of phi-3-vision-4.2b and the codebooks of musicgen-large.
+h2o-danube-3-4b, mixtral-8x7b), MLA with multi-token prediction
+(deepseek-v3-671b), the attention-free Mamba-2 (mamba2-370m), the hybrid
+heads of hymba-1.5b, and the two modality frontends: the vision prefix of
+phi-3-vision-4.2b and the codebooks of musicgen-large.
 
 The layer sequence is decomposed into *stages*, maximal periodic runs of a
 repeating unit of layer descriptors, exactly as in the JAX package, so the
@@ -11,9 +12,9 @@ runs a ``lax.scan`` over that axis, this port runs a Python loop over it.
 Parameters and caches are nested dicts / tuples of tensors in the JAX
 layout: a sliding-window layer's decode cache is a ring of capacity
 ``window`` (with the meta-token prefix beside it as ``k_pre``/``v_pre``), a
-global layer's a full cache, and an SSM or hybrid layer's carries the SSD's
-fp32 ``state`` and its ``conv`` window beside them.  MLA and multi-token
-prediction raise ``NotImplementedError`` naming their ROADMAP.md item.
+global layer's a full cache, an MLA layer's the latent ``ckv`` and
+``krope``, and an SSM or hybrid layer's carries the SSD's fp32 ``state`` and
+its ``conv`` window beside them.
 
 The frontends are the JAX package's stubs: a vision config takes
 precomputed patch embeddings ``[B, image_tokens, d_model]``, projected by
@@ -38,23 +39,6 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, cross_entropy, mlp, mlp_spec,
                                        rms_norm)
-
-
-# ---------------------------------------------------------------------------
-# What the port runs
-# ---------------------------------------------------------------------------
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for the first part of ``cfg`` not ported yet."""
-    families = "ROADMAP.md, remaining model families"
-    gaps = [
-        (cfg.mla is not None, f"MLA attention ({families}: MLA)"),
-        (cfg.mtp_depth > 0,
-         f"multi-token prediction, deepseek-v3's ({families}: MLA / MoE)"),
-    ]
-    for missing, what in gaps:
-        if missing:
-            raise NotImplementedError(f"{cfg.name}: {what} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -115,7 +99,8 @@ def _layer_spec(cfg: ModelConfig, desc: LayerDesc, lead: tuple):
     dt = cfg.param_dtype
     spec = {"ln1": ParamSpec(lead + (d,), la + (None,), dt, init="zeros")}
     if desc.kind in ("attn", "hybrid"):
-        spec["attn"] = attn.gqa_spec(cfg, lead)
+        spec["attn"] = (attn.mla_spec(cfg, lead) if cfg.mla is not None
+                        else attn.gqa_spec(cfg, lead))
     if desc.kind in ("ssm", "hybrid"):
         spec["ssm"] = ssm_mod.ssm_spec(cfg, lead)
     if desc.kind == "hybrid":
@@ -133,7 +118,6 @@ def _layer_spec(cfg: ModelConfig, desc: LayerDesc, lead: tuple):
 
 
 def param_specs(cfg: ModelConfig):
-    check_supported(cfg)
     d, v, k = cfg.d_model, cfg.vocab, cfg.n_codebooks
     dt = cfg.param_dtype
     if k > 1:
@@ -154,7 +138,22 @@ def param_specs(cfg: ModelConfig):
             spec["head"] = ParamSpec((k, d, v), (None, "embed", "vocab"), dt)
         else:
             spec["head"] = ParamSpec((d, v), ("embed", "vocab"), dt)
+    if cfg.mtp_depth:
+        blk = _layer_spec(cfg, _mtp_desc(cfg), ())
+        blk["ffn"] = mlp_spec(d, cfg.dense_d_ff or cfg.d_ff or 4 * d, dt)  # dense in MoE archs
+        spec["mtp"] = {
+            "proj": ParamSpec((2 * d, d), (None, "embed_out"), dt),
+            "ln_h": ParamSpec((d,), (None,), dt, init="zeros"),
+            "ln_e": ParamSpec((d,), (None,), dt, init="zeros"),
+            "block": blk,
+            "ln_out": ParamSpec((d,), (None,), dt, init="zeros"),
+        }
     return spec
+
+
+def _mtp_desc(cfg: ModelConfig) -> LayerDesc:
+    """The multi-token prediction block: a global attention layer, dense."""
+    return LayerDesc("attn", 0, False, cfg.rope_theta)
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +188,18 @@ def _ssd(cfg, p, h, collect, entry):
     return out
 
 
+def _attn_forward(cfg, desc, p, h, positions, n_meta, collect, use_flash):
+    """The layer's attention over the full sequence, and under ``collect``
+    its cache tensors: MLA's latent (MLA takes no flash, as in the JAX
+    package) or GQA's k, v."""
+    if cfg.mla is not None:
+        return attn.mla_forward(cfg, p["attn"], h, positions, n_meta=n_meta,
+                                return_latent=collect)
+    return attn.gqa_forward(p["attn"], h, positions, window=desc.window,
+                            theta=desc.theta, n_meta=n_meta,
+                            return_kv=collect, use_flash=use_flash)
+
+
 def layer_forward(cfg, desc, p, x, positions, n_meta, *, collect=False,
                   use_flash=False):
     """One layer, full sequence.  Returns (x, cache_entry, aux_loss)."""
@@ -196,10 +207,10 @@ def layer_forward(cfg, desc, p, x, positions, n_meta, *, collect=False,
     entry = {}
     if desc.kind == "ssm":                       # mamba block: no extra FFN
         return x + _ssd(cfg, p, h, collect, entry), entry, 0.0
-    out = attn.gqa_forward(p["attn"], h, positions, window=desc.window,
-                           theta=desc.theta, n_meta=n_meta,
-                           return_kv=collect, use_flash=use_flash)
-    if collect:
+    out = _attn_forward(cfg, desc, p, h, positions, n_meta, collect, use_flash)
+    if collect and cfg.mla is not None:
+        out, (entry["ckv"], entry["krope"]) = out
+    elif collect:
         out, (k, v) = out
         if desc.window > 0:
             entry["k"] = _ring_pack(k, desc.window, n_meta)
@@ -220,14 +231,18 @@ def layer_forward(cfg, desc, p, x, positions, n_meta, *, collect=False,
 
 def layer_decode(cfg, desc, p, x, cache, pos: int):
     """One layer, one new token against its cache (updated in place: the
-    attention half writes its k/v slot, the SSD half its state and conv
-    window, each reading only its own entries of a hybrid layer's cache)."""
+    attention half writes its k/v slot or MLA's latent slot, the SSD half
+    its state and conv window, each reading only its own entries of a
+    hybrid layer's cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if desc.kind == "ssm":
         out, _ = ssm_mod.ssd_decode(cfg, p["ssm"], h, cache)
         return x + out, cache
-    out, _ = attn.gqa_decode(p["attn"], h, cache, pos, window=desc.window,
-                             theta=desc.theta, n_meta=0)
+    if cfg.mla is not None:
+        out, _ = attn.mla_decode(cfg, p["attn"], h, cache, pos)
+    else:
+        out, _ = attn.gqa_decode(p["attn"], h, cache, pos, window=desc.window,
+                                 theta=desc.theta, n_meta=0)
     if desc.kind == "hybrid":
         s_out, _ = ssm_mod.ssd_decode(cfg, p["ssm"], h, cache)
         out = 0.5 * (rms_norm(out, p["ln_a"], cfg.norm_eps)
@@ -331,7 +346,6 @@ def model_forward(cfg: ModelConfig, params, tokens, image_embeds=None, *,
     ``image_embeds`` [B,P,D] are cast to the activation dtype, projected and
     prepended: the P prefix positions are attended causally (they are not
     window-exempt meta tokens) and get no logits."""
-    check_supported(cfg)
     x = embed_tokens(cfg, params, tokens)
     n_prefix = 0
     if cfg.frontend == "vision" and image_embeds is not None:
@@ -366,16 +380,33 @@ def prefill(cfg: ModelConfig, params, tokens, image_embeds=None,
     return logits[:, -1:], cache
 
 
+def _mtp_loss(cfg: ModelConfig, params, hidden, tokens, n_prefix: int):
+    """DeepSeek-V3's multi-token prediction (depth 1): from the final hidden
+    state at t and the embedding of token t + 1, predict token t + 2."""
+    mp = params["mtp"]
+    h = hidden[:, n_prefix:]                      # [B,T,D] text region
+    emb = embed_tokens(cfg, params, tokens)
+    h_in = torch.cat([rms_norm(h[:, :-1], mp["ln_h"], cfg.norm_eps),
+                      rms_norm(emb[:, 1:], mp["ln_e"], cfg.norm_eps)], dim=-1) @ mp["proj"]
+    positions = torch.arange(h_in.shape[1], device=h_in.device)
+    # one layer called directly, as the reference calls it: no meta tokens,
+    # no remat
+    h1, _, _ = layer_forward(cfg, _mtp_desc(cfg), mp["block"], h_in, positions, 0)
+    logits = lm_head(cfg, params, rms_norm(h1, mp["ln_out"], cfg.norm_eps))   # [B,T-1,V]
+    return cross_entropy(logits[:, :-1], tokens[:, 2:])
+
+
 def train_loss(cfg: ModelConfig, params, batch, use_flash=False):
     """batch: {"tokens": [B,T] | [B,K,T], "image_embeds"?: [B,P,D]}.
     Returns (loss, metrics): the mean next-token cross entropy over the text
     positions (for K codebooks the mean of the K per-codebook ones), plus
-    ``cfg.moe_aux_coef`` times the MoE load-balance loss for an MoE config,
-    as the JAX package's ``train_loss`` (no multi-token prediction)."""
+    ``cfg.moe_aux_coef`` times the MoE load-balance loss for an MoE config
+    and ``cfg.mtp_loss_weight`` times the multi-token prediction loss where
+    ``cfg.mtp_depth`` is set, as the JAX package's ``train_loss``."""
     tokens = batch["tokens"]
-    logits, _, _, aux, _ = model_forward(cfg, params, tokens,
-                                         batch.get("image_embeds"),
-                                         use_flash=use_flash)
+    logits, hidden, _, aux, n_prefix = model_forward(cfg, params, tokens,
+                                                     batch.get("image_embeds"),
+                                                     use_flash=use_flash)
     if cfg.n_codebooks > 1:
         loss = sum(cross_entropy(logits[:, :-1, k], tokens[:, k, 1:])
                    for k in range(cfg.n_codebooks)) / cfg.n_codebooks
@@ -385,6 +416,10 @@ def train_loss(cfg: ModelConfig, params, batch, use_flash=False):
     if cfg.moe is not None:
         loss = loss + cfg.moe_aux_coef * aux
         metrics["aux"] = aux
+    if cfg.mtp_depth:
+        mtp = _mtp_loss(cfg, params, hidden, tokens, n_prefix)
+        loss = loss + cfg.mtp_loss_weight * mtp
+        metrics["mtp"] = mtp
     metrics["loss"] = loss
     return loss, metrics
 
@@ -405,20 +440,22 @@ def decode_step(cfg: ModelConfig, params, cache, tokens_new):
 
 
 def grow_cache(cfg: ModelConfig, cache, capacity: int):
-    """Pad the full-attention caches along the sequence axis to ``capacity``.
+    """Pad the full-attention and MLA caches along the sequence axis to
+    ``capacity``.
 
     Ring (windowed) caches, the meta-token prefix and SSM states are already
     fixed-size.  Call after :func:`prefill` to make room for decode steps.
     """
+    names = ("ckv", "krope") if cfg.mla is not None else ("k", "v")
     new_stages = []
     for st, sc in zip(build_stages(cfg), cache["stages"]):
         sc = dict(sc)
         for j, desc in enumerate(st.unit):
-            if desc.window > 0 or desc.kind == "ssm":
+            if desc.kind == "ssm" or (desc.window > 0 and cfg.mla is None):
                 continue
             e = dict(sc[f"u{j}"])
-            for name in ("k", "v"):
-                arr = e[name]                          # [R,B,S,KV,dh]
+            for name in names:
+                arr = e[name]                  # [R,B,S,KV,dh]; MLA's [R,B,S,r]
                 if arr.shape[2] < capacity:
                     new = arr.new_zeros(arr.shape[:2] + (capacity,) + arr.shape[3:])
                     new[:, :, :arr.shape[2]] = arr

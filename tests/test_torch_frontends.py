@@ -10,8 +10,8 @@ package on the same weights and numpy inputs.
 - The frontends: phi-3-vision-4.2b's image prefix and musicgen-large's four
   codebooks, ``train_loss`` and its gradients, with and without flash; the
   image prefix moves the logits but not their alignment to the text.
-- Which archs the port refuses (only deepseek-v3-671b's MLA and MTP), and
-  the new parameter leaves carried across in bf16.
+- That the port refuses no arch, and the new parameter leaves carried
+  across in bf16.
 
 Forward and prefill + decode parity for both frontend archs are cases of
 ``tests/test_torch_model.py``'s fixture."""
@@ -29,7 +29,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.launch import serve
 from repro_torch.models import transformer as ttf
 from repro_torch.runtime.tree import leaves, unflatten
-from repro_torch.weights import params_from_jax
+from repro_torch.weights import init_params, params_from_jax
 from test_torch_train import _assert_tree_close, _np
 
 TOL = 2e-3                 # tests/test_torch_model.py's, on logits
@@ -140,15 +140,16 @@ def test_image_prefix_moves_logits_but_not_their_text_alignment():
     assert np.isfinite(losses).all() and losses[0] != losses[1]
 
 
-def test_only_deepseek_v3_is_refused():
-    refused = []
+def test_no_arch_is_refused():
+    """Every arch's reduced config builds its parameter specs and runs its
+    forward, its frontend's inputs included."""
     for arch in ARCH_IDS:
-        try:
-            ttf.param_specs(reduced_config(arch))
-        except NotImplementedError as err:
-            assert "ROADMAP.md" in str(err) and "MLA" in str(err)
-            refused.append(arch)
-    assert refused == ["deepseek-v3-671b"]
+        cfg = reduced_config(arch)
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        tokens, img = serve.draw_inputs(cfg, 1, 12, np.random.default_rng(0), "cpu")
+        with torch.no_grad():
+            logits, *_ = ttf.model_forward(cfg, params, tokens, img)
+        assert logits.shape[:2] == (1, 12) and bool(torch.isfinite(logits).all()), arch
 
 
 @pytest.mark.parametrize("arch", FRONTENDS)

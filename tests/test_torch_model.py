@@ -7,8 +7,9 @@ window is 32, so a 37-token prefill already wraps the ring and the decode
 steps wrap it again; the SSM archs' reduced chunk is 16, so the same
 prefill ends in a ragged chunk (hymba's 8 meta tokens included).
 phi-3-vision-4.2b runs with its 16 image embeddings prepended and
-musicgen-large on [B, 4, T] codebook tokens, through every test of the
-fixture."""
+musicgen-large on [B, 4, T] codebook tokens, and deepseek-v3-671b on MLA's
+latent caches (its multi-token prediction leaves ride along in the tree),
+through every test of the fixture."""
 import dataclasses
 
 import jax
@@ -29,7 +30,8 @@ from repro_torch.weights import init_params, params_from_jax
 
 TOL = 2e-3
 RUNS = ("yi-6b", "deepseek-7b", "gemma3-27b", "h2o-danube-3-4b", "mixtral-8x7b",
-        "hymba-1.5b", "mamba2-370m", "phi-3-vision-4.2b", "musicgen-large")
+        "hymba-1.5b", "mamba2-370m", "phi-3-vision-4.2b", "musicgen-large",
+        "deepseek-v3-671b")
 META_TIED = dict(meta_tokens=8, tie_embeddings=True)
 PAIRS = [(arch, {}) for arch in RUNS] + [("gemma3-27b", META_TIED)]
 
@@ -113,9 +115,9 @@ def test_chunked_attention_matches_whole(monkeypatch):
 
 
 def test_grow_cache_pads_only_seq(pair):
-    """The JAX package's rule: a global layer's k/v grow along the sequence
-    axis, zero-padded; a ring, the meta prefix and an SSM layer's state and
-    conv window keep their shape."""
+    """The JAX package's rule: a global layer's k/v (MLA's latent ckv and
+    krope) grow along the sequence axis, zero-padded; a ring, the meta
+    prefix and an SSM layer's state and conv window keep their shape."""
     cfg, jparams, tparams = pair
     tokens = np.arange(16)[None] % cfg.vocab
     if cfg.n_codebooks > 1:
@@ -134,7 +136,7 @@ def test_grow_cache_pads_only_seq(pair):
             for name, orig in sc[u].items():
                 new = gc[u][name]
                 assert new.shape == jgc[u][name].shape, (u, name)
-                if desc.window == 0 and name in ("k", "v"):
+                if desc.window == 0 and name in ("k", "v", "ckv", "krope"):
                     assert new.shape[2] == 64
                     assert torch.equal(new[:, :, :orig.shape[2]], orig)
                     assert not new[:, :, orig.shape[2]:].any()
@@ -148,12 +150,6 @@ def test_grow_cache_pads_only_seq(pair):
     assert n_full == 2 * sum(d.window == 0 for d in attn)
     assert n_fixed == (2 + 2 * bool(cfg.meta_tokens)) * sum(
         d.window > 0 for d in attn) + 2 * sum(d.kind != "attn" for d in descs)
-
-
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in RUNS])
-def test_unsupported_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttf.param_specs(reduced_config(arch))
 
 
 def test_configs_match_jax():
@@ -244,7 +240,7 @@ def test_params_from_jax_keeps_bfloat16():
 # forward is never dropped in a 1-token decode step, so the port's own
 # decode-vs-forward runs MoE archs with a capacity factor that admits every
 # routed token, as the JAX package's test_serve.py does.
-NO_DROP = {"mixtral-8x7b"}
+NO_DROP = {"mixtral-8x7b", "deepseek-v3-671b"}
 
 
 @pytest.mark.parametrize("arch,replace", PAIRS,
@@ -346,3 +342,38 @@ def test_ssm_leaves_carry_across_in_fp32():
                                               np.asarray(jssm[name], np.float32))
             assert torch.equal(drawn["stages"][si][u]["ssm"]["d_skip"],
                                torch.ones_like(ssm["d_skip"]))
+
+
+def test_mla_and_mtp_leaves_carry_across_in_bf16():
+    """deepseek-v3's MLA leaves (norm scales among them) and its
+    multi-token prediction subtree, carried across in bf16 bit for bit:
+    the same leaves, shapes and dtypes as drawn by the port."""
+    arch = "deepseek-v3-671b"
+    cfg = reduced_config(arch).replace(param_dtype="bfloat16")
+    jparams = init_param_tree(
+        jtf.param_specs(jreduced_config(arch).replace(param_dtype="bfloat16")),
+        jax.random.PRNGKey(0))
+    tparams = params_from_jax(cfg, _np_tree(jparams))
+    drawn = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mla = {"wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wkv_b", "wo"}
+    pairs = [(tparams["stages"][si][u]["attn"], jparams["stages"][si][u]["attn"],
+              drawn["stages"][si][u]["attn"])
+             for si, stage in enumerate(tparams["stages"]) for u in stage]
+    mtp, jmtp = tparams["mtp"], jparams["mtp"]
+    assert set(mtp) == {"proj", "ln_h", "ln_e", "block", "ln_out"}
+    assert set(mtp["block"]) == {"ln1", "attn", "ln2", "ffn"}
+    assert set(mtp["block"]["ffn"]) == {"wi", "wg", "wo"}           # dense
+    assert mtp["proj"].shape == (2 * cfg.d_model, cfg.d_model)
+    pairs += [(mtp, jmtp, drawn["mtp"]), (mtp["block"]["attn"], jmtp["block"]["attn"],
+                                          drawn["mtp"]["block"]["attn"]),
+              (mtp["block"]["ffn"], jmtp["block"]["ffn"], drawn["mtp"]["block"]["ffn"])]
+    for got, want, new in pairs:
+        if "wq_a" in got:
+            assert set(got) == mla
+        for name, leaf in got.items():
+            if isinstance(leaf, dict):
+                continue
+            assert leaf.dtype == new[name].dtype == torch.bfloat16
+            assert leaf.shape == new[name].shape
+            np.testing.assert_array_equal(leaf.float().numpy(),
+                                          np.asarray(want[name], np.float32))

@@ -31,11 +31,13 @@ def test_small_preset_matches_jax_config():
 # the windowed archs' small preset keeps the reduced window of 32, so a
 # 40-token prompt wraps its rings in prefill; the SSM archs' keeps the
 # reduced chunk of 16, so it ends in a ragged chunk; phi-3-vision's prompt
-# follows 16 image embeddings and musicgen's is 4 codebook streams
+# follows 16 image embeddings and musicgen's is 4 codebook streams;
+# deepseek-v3's decodes against MLA's latent caches
 @pytest.mark.parametrize("arch,prompt_len", [(ARCH, PROMPT), ("gemma3-27b", 40),
                                              ("mixtral-8x7b", 40), ("hymba-1.5b", 40),
                                              ("mamba2-370m", 40), ("phi-3-vision-4.2b", 24),
-                                             ("musicgen-large", 24)])
+                                             ("musicgen-large", 24),
+                                             ("deepseek-v3-671b", 40)])
 def test_greedy_generation_matches_jax(arch, prompt_len):
     cfg = serve.build_config(arch, "small")
     jparams = init_param_tree(jtf.param_specs(cfg), jax.random.PRNGKey(0))

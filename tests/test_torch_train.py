@@ -154,11 +154,35 @@ def test_remat_dots_policy_raises_naming_its_item(loss_pair):
         ttf.train_loss(cfg, params, {"tokens": torch.from_numpy(tokens)})
 
 
-def test_mtp_message_names_its_roadmap_item():
-    cfg = reduced_config("yi-6b").replace(mtp_depth=1)
-    with pytest.raises(NotImplementedError,
-                       match="remaining model families: MLA / MoE"):
-        ttf.check_supported(cfg)
+@pytest.mark.parametrize("remat", [True, False])
+def test_mla_mtp_train_loss_and_grads_match_jax(remat):
+    """deepseek-v3-671b's reduced config (MLA, two dense layers and a
+    sigmoid-routed MoE layer, multi-token prediction), fp32, with and
+    without per-layer remat on both sides: ce, aux, mtp and the loss within
+    1e-6, every gradient leaf within 1e-5 of its largest entry, and every
+    leaf of the MTP subtree gets a gradient (its norms' too)."""
+    arch = "deepseek-v3-671b"
+    jcfg = jreduced_config(arch).replace(remat=remat)
+    tcfg = reduced_config(arch).replace(remat=remat)
+    assert tcfg.mla is not None and tcfg.mtp_depth == 1 and any(tcfg.layer_moe)
+    jparams = init_param_tree(jtf.param_specs(jcfg), jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(0).integers(0, tcfg.vocab, (2, 48)).astype(np.int32)
+    (_, jmetrics), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jtf.train_loss(jcfg, p, {"tokens": jnp.asarray(tokens)}),
+        has_aux=True))(jparams)
+    tparams = params_from_jax(tcfg, _np(jparams))
+    flat = leaves(tparams)
+    for x in flat:
+        x.requires_grad_(True)
+    got, metrics = ttf.train_loss(tcfg, tparams, {"tokens": torch.from_numpy(tokens)})
+    grads = unflatten(tparams, torch.autograd.grad(got, flat))
+    assert set(metrics) == set(jmetrics) == {"ce", "aux", "mtp", "loss"}
+    for key in metrics:
+        np.testing.assert_allclose(float(metrics[key].detach()), float(jmetrics[key]),
+                                   rtol=1e-6, err_msg=key)
+    _assert_tree_close(jgrads, grads, 1e-5)
+    mtp = flatten(grads["mtp"])
+    assert len(mtp) == 16 and all(bool(g.abs().max() > 0) for _, g in mtp)
 
 
 @pytest.mark.parametrize("kw,item", [({"compress_fn": lambda g: g}, "compress.py"),

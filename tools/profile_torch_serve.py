@@ -10,10 +10,13 @@ not fit one card), warms up once, then traces one prefill and ``--decode-steps``
 steps with ``torch.profiler``.  For each phase it prints the wall time, the
 device time summed over all kernels, the device's idle share (1 - kernel
 time / wall time; one stream, so kernels do not overlap), its split into
-GEMMs (cuBLAS), K2 (flash attention) and, for the SSM and hybrid families,
-the SSD block (its projections and its plain-torch scan, each timed under a
-``record_function`` range the tool puts around ``ssd_forward`` and
-``ssd_decode``), and the kernels that take the most device time.  A vision
+GEMMs (cuBLAS), K2 (flash attention) and three blocks, each timed under a
+``record_function`` range the tool puts around its functions: attention
+(``gqa_forward``/``gqa_decode``, MLA's ``mla_forward``/``mla_decode``:
+projections and the plain softmax attention), the MoE (``moe_apply``: the
+expert GEMMs, the token gather and ``index_add_`` scatter, routing) and, for
+the SSM and hybrid families, the SSD (its projections and its plain-torch
+scan); then the kernels that take the most device time.  A vision
 config's prompts follow ``image_tokens`` image embeddings N(0, 0.02) drawn
 from the seed, and an audio config's are ``[batch, K, prompt_len]``
 codebook tokens, as ``serve.main`` draws them.
@@ -36,6 +39,8 @@ from torch.profiler import ProfilerActivity, profile, record_function  # noqa: E
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.weights import init_params  # noqa: E402
@@ -47,14 +52,25 @@ def _device_us(evt) -> float:
     return evt.self_cuda_time_total if us is None else us
 
 
-SSD_RANGE = "ssd"
+# range name: the module and the functions it wraps
+RANGES = {"attention": (attn, ("gqa_forward", "gqa_decode", "mla_forward", "mla_decode")),
+          "moe": (moe_mod, ("moe_apply",)),
+          "ssd": (ssm_mod, ("ssd_forward", "ssd_decode"))}
 
 
-def _ranged(fn):
+def _ranged(fn, name: str):
     def wrapped(*args, **kwargs):
-        with record_function(SSD_RANGE):
+        with record_function(name):
             return fn(*args, **kwargs)
     return wrapped
+
+
+def wrap_ranges() -> None:
+    """Put each range around its functions (the model calls them through
+    their modules, so the wrappers are what it calls)."""
+    for name, (module, fns) in RANGES.items():
+        for fn in fns:
+            setattr(module, fn, _ranged(getattr(module, fn), name))
 
 
 def _is_gemm(kernel: str) -> bool:
@@ -78,30 +94,43 @@ def _quadratic(shapes, chunk: int) -> bool:
 
 
 def split(prof, busy_ms: float, chunk: int) -> str:
-    """Device time of GEMMs, K2 and the SSD ranges: their GEMMs, the ops
-    over [.., chunk, chunk] blocks (GEMM or not) and the rest."""
-    # the range's own device-side annotation is not a kernel
+    """Device time of GEMMs, K2 and each range that ran: its GEMMs and the
+    rest of it (K2 apart); for the MoE its gather and scatter (``index``
+    kernels), for the SSD its ops over [.., chunk, chunk] blocks."""
+    # a range's own device-side annotation is not a kernel
     kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-               if e.device_type == DeviceType.CUDA and e.name != SSD_RANGE]
+               if e.device_type == DeviceType.CUDA and e.name not in RANGES]
     names = {k for k, _ in kernels}
     gemm = sum(us for k, us in kernels if _is_gemm(k)) / 1e3
     k2 = sum(us for k, us in kernels if "flash" in k) / 1e3
-    # a CPU event's list also holds the range's own span (named after it),
-    # which is not a kernel: keep the entries named like a device kernel
-    ssd = [(k, us, _quadratic(shapes, chunk)) for e in prof.events()
-           if e.device_type == DeviceType.CPU and e.name == SSD_RANGE
-           for k, us, shapes in _range_kernels(e) if k in names]
-    ssd_all = sum(us for _, us, _ in ssd) / 1e3
-    ssd_gemm = sum(us for k, us, _ in ssd if _is_gemm(k)) / 1e3
-    quad = sum(us for _, us, q in ssd if q) / 1e3
-    quad_ew = sum(us for k, us, q in ssd if q and not _is_gemm(k)) / 1e3
 
     def part(ms):
         return f"{ms:.3f} ms ({ms / busy_ms:.1%})"
-    return (f"gemm={part(gemm)} k2={part(k2)} ssd={part(ssd_all)} [ssd gemm "
-            f"{part(ssd_gemm)}; ops over [.., {chunk}, {chunk}] blocks {part(quad)}, "
-            f"of which not GEMM {part(quad_ew)}; ssd not GEMM "
-            f"{part(ssd_all - ssd_gemm)}] rest={part(busy_ms - gemm - k2 - ssd_all + ssd_gemm)}")
+    out, other = [f"gemm={part(gemm)} k2={part(k2)}"], 0.0
+    for rng in RANGES:
+        # a CPU event's list also holds the range's own span (named after
+        # it), which is not a kernel: keep the entries named like a kernel
+        ks = [(k, us, shapes) for e in prof.events()
+              if e.device_type == DeviceType.CPU and e.name == rng
+              for k, us, shapes in _range_kernels(e) if k in names]
+        if not ks:
+            continue
+        total = sum(us for _, us, _ in ks) / 1e3
+        rng_gemm = sum(us for k, us, _ in ks if _is_gemm(k)) / 1e3
+        rest = total - rng_gemm - sum(us for k, us, _ in ks if "flash" in k) / 1e3
+        other += rest
+        detail = [f"gemm {part(rng_gemm)}", f"not GEMM or K2 {part(rest)}"]
+        if rng == "moe":
+            index = sum(us for k, us, _ in ks if "index" in k.lower()) / 1e3
+            detail.append(f"gather and index_add {part(index)}")
+        if rng == "ssd":
+            quad = [(k, us) for k, us, shapes in ks if _quadratic(shapes, chunk)]
+            detail.append(f"ops over [.., {chunk}, {chunk}] blocks "
+                          f"{part(sum(us for _, us in quad) / 1e3)}, of which not GEMM "
+                          f"{part(sum(us for k, us in quad if not _is_gemm(k)) / 1e3)}")
+        out.append(f"{rng}={part(total)} [{'; '.join(detail)}]")
+    out.append(f"rest={part(busy_ms - gemm - k2 - other)}")
+    return " ".join(out)
 
 
 def report(name: str, prof, wall_s: float, chunk: int, top: int = 8) -> None:
@@ -109,7 +138,7 @@ def report(name: str, prof, wall_s: float, chunk: int, top: int = 8) -> None:
     # device time of the kernels it launched, which would count them twice
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and _device_us(e) > 0
-              and e.key != SSD_RANGE]
+              and e.key not in RANGES]
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     wall_ms = wall_s * 1e3
     print(f"[{name}] wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
@@ -133,8 +162,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
-    ssm_mod.ssd_forward = _ranged(ssm_mod.ssd_forward)
-    ssm_mod.ssd_decode = _ranged(ssm_mod.ssd_decode)
+    wrap_ranges()
     cfg = get_config(args.arch)
     if args.layers:
         n = args.layers
