@@ -72,9 +72,12 @@ Phases, each of which raises on failure (exit code != 0):
                h2o-danube's (d = 120, group 4, window cut to 512 so that it
                masks), each with its K2 bwd launches counted
  13. train-launcher  ``python -m repro_torch train --preset small
-               --use-flash`` through its ``main``: loss improves over 14
-               steps, ``--resume`` continues from the checkpoint,
-               ``--inject-failure`` restores and reruns
+               --use-flash`` through its ``main``, on a mesh planned by
+               ``plan_mesh`` for one NCCL rank (1x1; a one-rank mesh places
+               nothing, so the launcher runs the plain step on it): loss
+               improves over 14 steps, ``--resume`` continues from the
+               checkpoint, ``--inject-failure 6`` re-meshes onto the same
+               one rank (``plan_mesh(max(1, 1 - 1))``), restores and reruns
  14. serve-gemma3  K2 at gemma3-27b's local-layer prefill shape (q
                [4,1536,32,128], k/v [4,1536,16,128] bf16, causal, window
                1024) against its plain version (row check), timed beside
@@ -145,6 +148,29 @@ Phases, each of which raises on failure (exit code != 0):
                over 256 experts); 0 K2 launches (MLA attends in plain torch,
                as the reference does), 0 K2 bwd, tokens in [0, vocab),
                finite logits, peak memory under 80 GB
+ 23. train-sharded  phase 12's Yi-6B step (8 of 32 layers, bf16 params,
+               fp32 moments, seq 4096, 8 microbatches, flash) through
+               ``make_train_step(shard_ctx=...)`` on a 1x1 ("data",
+               "model") mesh over one NCCL rank, params, moments and
+               batches DTensors placed by the production rules: the first
+               step's loss and gnorm within 1e-4 and 1e-3 of phase 12's
+               first step (the same weights and batch), K2 and K2 bwd
+               launches over its steps equal to phase 12's; step ms (mean of 3
+               after 1 warm-up) and peak memory beside phase 12's
+ 24. train-compress  the same sharded step with top-k (ratio 0.01) and
+               with int8 compression, each with error feedback: finite loss
+               and gnorm; on a fifth, untimed step, top-k's sent + residual
+               equals acc = g + feedback exactly on every leaf, and int8's
+               residual is exactly the fp32 acc - sent (fp32 cannot always
+               hold the int8 sum back exactly: its deviation is printed);
+               step ms and peak memory for each
+ 25. train-dots  remat "dots" (the unbatched products saved) on phase 12's
+               unsharded step: at 2 layers and seq 1024 one step from the
+               same weights and batch against "full" (loss, gnorm and each
+               attention weight's gradient, phase 12's flash-vs-plain
+               limits); at 8 layers step ms and peak memory beside phase
+               12's, K2 still launched twice a layer a microbatch (the
+               checkpoint recomputes it)
 serve_model counts one K2 launch per attention-bearing layer of a GQA
 model, and none for MLA.
 The whole shapes (phases 4, 11, 14, 17, 19-21) are held against the plain
@@ -161,7 +187,9 @@ kernels' JSON record and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import shutil
@@ -187,8 +215,12 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import matmul_blocked as mm  # noqa: E402
 from repro_torch.launch import serve, train, tune  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.launch import mesh as mesh_launch  # noqa: E402
+from repro_torch.runtime import compress  # noqa: E402
+from repro_torch.runtime.elastic import make_plan_mesh, plan_mesh  # noqa: E402
 from repro_torch.runtime.pipeline import DataPipeline, PipelineConfig  # noqa: E402
 from repro_torch.runtime.tree import flatten, leaves  # noqa: E402
+from repro_torch.runtime.tree import unflatten as tree_unflatten  # noqa: E402
 from repro_torch.weights import init_params  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense bf16 tensor-core rate
@@ -951,13 +983,19 @@ TRAIN_CHECKS = [("yi-6b", {}), ("phi-3-vision-4.2b", {}),
 TRAIN_CHECK_TOL = dict(loss=1e-4, gnorm=1e-3, attn_norm=2e-3, attn_max=2e-2)
 
 
-def _train_setup(cfg, seq, batch, use_flash, device, seed=0):
+def _train_setup(cfg, seq, batch, use_flash, device, seed=0, mesh=None, **step_kw):
+    """The train step, its weights and optimizer state drawn from ``seed``,
+    and the data pipeline; with ``mesh`` the sharded step on DTensors laid
+    out by the production rules (``launch/train.py::build``).  ``step_kw``
+    (``compress_fn``) goes to ``make_train_step``."""
     # the default schedule (100 warm-up steps): a few steps at the peak rate
     # from random weights would drive the loss up, which says nothing here
-    step_fn, specs = train.build(cfg, train.TrainHParams(), use_flash=use_flash)
-    params, opt = train.init_state(specs, device, seed)
-    pipe = DataPipeline(cfg, ShapeConfig("train_4k", "train", seq, batch),
-                        PipelineConfig(seed=seed), device=device)
+    shape = ShapeConfig("train_4k", "train", seq, batch)
+    step_fn, specs, placements = train.build(cfg, shape, mesh, train.TrainHParams(),
+                                             use_flash=use_flash, **step_kw)
+    params, opt = train.init_state(specs, device, seed, mesh=mesh, placements=placements)
+    pipe = DataPipeline(cfg, shape, PipelineConfig(seed=seed), device=device, mesh=mesh,
+                        placements=None if placements is None else placements[2])
     return step_fn, params, opt, pipe
 
 
@@ -982,34 +1020,72 @@ def matmul_params(cfg) -> int:
     return cfg.n_params() - cfg.vocab * cfg.d_model
 
 
-def phase_train(device, smi):
+def _timed_steps(tag, cfg, device, *, mesh=None, after=0, **step_kw):
+    """Phase 12's step (``TRAIN``'s shape, flash, seed 0) from fresh weights,
+    with ``mesh`` the sharded one and ``step_kw`` for ``make_train_step``:
+    1 warm-up and 3 timed steps, then ``after`` untimed ones (for checks
+    that would slow a timed step), peak memory from before the weights are
+    drawn, K2 and K2 bwd launches over the run's ``n_steps`` steps (the
+    counts as measured), finite loss and gnorm."""
     c = TRAIN
-    cfg = get_config("yi-6b").replace(n_layers=c["layers"], train_microbatches=c["micro"])
-    assert (cfg.param_dtype, cfg.opt_dtype, cfg.grad_accum_dtype, cfg.remat) == \
-        ("bfloat16", "float32", "float32", True), cfg
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    step_fn, params, opt, pipe = _train_setup(cfg, c["seq"], c["batch"], True, device)
-    n_steps = c["warmup_steps"] + c["timed_steps"]
+    step_fn, params, opt, pipe = _train_setup(cfg, c["seq"], c["batch"], True, device,
+                                              mesh=mesh, **step_kw)
+    n_steps = c["warmup_steps"] + c["timed_steps"] + after
     fa.launches = fa.bwd_launches = 0
     seconds, losses, gnorms = [], [], []
-    for step in range(n_steps):
-        params, opt, metrics, dt = train.run_step(step_fn, params, opt, next(pipe),
-                                                  step, device)
-        seconds.append(dt)
-        losses.append(float(metrics["loss"]))
-        gnorms.append(float(metrics["gnorm"]))
-        print(f"[train]   step {step} {dt * 1e3:.1f} ms loss {losses[-1]:.4f} "
-              f"gnorm {gnorms[-1]:.4f} lr {float(metrics['lr']):.3e}", flush=True)
-    launches = {"fwd": fa.launches, "bwd": fa.bwd_launches}
-    per_step = c["layers"] * c["micro"]
-    want = {"fwd": 2 * per_step * n_steps, "bwd": per_step * n_steps}   # remat recomputes
-    if launches != want:
-        raise SystemExit(f"[train] K2 launches {launches}, expected {want}")
+    try:
+        for step in range(n_steps):
+            params, opt, metrics, dt = train.run_step(step_fn, params, opt, next(pipe),
+                                                      step, device)
+            seconds.append(dt)
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["gnorm"]))
+            print(f"[{tag}]   step {step} {dt * 1e3:.1f} ms loss {losses[-1]:.4f} "
+                  f"gnorm {gnorms[-1]:.4f}", flush=True)
+    finally:
+        pipe.stop()
+    if mesh is not None and not all(hasattr(x, "placements") for x in leaves(params)):
+        raise SystemExit(f"[{tag}] the step returned plain tensors: not the sharded step")
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
     if not all(map(torch.isfinite, torch.tensor(losses + gnorms))):
-        raise SystemExit(f"[train] non-finite loss or gnorm: {losses} {gnorms}")
-    peak = torch.cuda.max_memory_allocated()
-    step_s = sum(seconds[c["warmup_steps"]:]) / c["timed_steps"]
+        raise SystemExit(f"[{tag}] non-finite loss or gnorm: {losses} {gnorms}")
+    step_s = sum(seconds[c["warmup_steps"]:][:c["timed_steps"]]) / c["timed_steps"]
+    return dict(step_ms=step_s * 1e3, warmup_ms=seconds[0] * 1e3,
+                tokens_per_s=c["seq"] * c["batch"] / step_s,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
+                gnorms=gnorms, n_steps=n_steps,
+                launches={"fwd": fa.launches, "bwd": fa.bwd_launches})
+
+
+def train_launches(n_steps: int) -> dict:
+    """K2 and K2 bwd launches of ``n_steps`` of phase 12's step: one each a
+    layer a microbatch, and K2 once more where remat recomputes the layer."""
+    per_step = TRAIN["layers"] * TRAIN["micro"]
+    return {"fwd": 2 * per_step * n_steps, "bwd": per_step * n_steps}
+
+
+def _yi_train_cfg(**replace):
+    c = TRAIN
+    return get_config("yi-6b").replace(n_layers=c["layers"], train_microbatches=c["micro"],
+                                       **replace)
+
+
+def phase_train(device, smi):
+    c = TRAIN
+    cfg = _yi_train_cfg()
+    assert (cfg.param_dtype, cfg.opt_dtype, cfg.grad_accum_dtype, cfg.remat) == \
+        ("bfloat16", "float32", "float32", True), cfg
+    r = _timed_steps("train", cfg, device)
+    n_steps, launches = r["n_steps"], r["launches"]
+    want = train_launches(n_steps)
+    if launches != want:
+        raise SystemExit(f"[train] K2 launches over {n_steps} steps {launches}, "
+                         f"expected {want}")
+    losses, gnorms, peak = r["losses"], r["gnorms"], r["peak_mem_gb"] * 1e9
+    step_s = r["step_ms"] / 1e3
     tokens = c["seq"] * c["batch"]
     attn_fwd, _ = flash_work(1, c["seq"], c["seq"], cfg.n_heads, cfg.n_kv_heads,
                              cfg.head_dim)
@@ -1023,17 +1099,13 @@ def phase_train(device, smi):
           f"params), bf16 params, fp32 moments and accumulation, {c['micro']} microbatches "
           f"x {c['batch'] // c['micro']} x {c['seq']} tokens, remat, flash: "
           f"step_ms={step_s * 1e3:.1f} (mean of {c['timed_steps']} after "
-          f"{c['warmup_steps']} warm-up; warm-up {seconds[0] * 1e3:.1f}) "
+          f"{c['warmup_steps']} warm-up; warm-up {r['warmup_ms']:.1f}) "
           f"tokens_per_s={tokens / step_s:.1f} model_flop_share={mfu:.4f} "
           f"({model_flops / 1e12:.1f} TFLOP a step: 6 x {matmul_params(cfg) / 1e9:.3f} B "
           f"matmul params x {tokens} tokens + attention) peak_mem_gb={peak / 1e9:.3f} "
           f"k2_launches={launches['fwd']} (= {c['layers']} layers x {c['micro']} micro x "
           f"{n_steps} steps x 2) k2_bwd_launches={launches['bwd']} (= {c['layers']} x "
           f"{c['micro']} x {n_steps})", flush=True)
-    del params, opt, step_fn
-    pipe.stop()
-    torch.cuda.empty_cache()
-
     for arch, replace in TRAIN_CHECKS:
         train_check(arch, replace, device)
     torch.cuda.empty_cache()
@@ -1104,14 +1176,214 @@ def phase_train_launcher():
                               "--ckpt-dir", f"{tmp}/b", *args])
         if len(resumed) != 4:
             raise SystemExit(f"[train-launcher] resume ran {len(resumed)} steps, not 4")
-        failed = train.main(["--steps", "12", "--ckpt-every", "4", "--inject-failure", "6",
-                             "--ckpt-dir", f"{tmp}/c", *args])
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            failed = train.main(["--steps", "12", "--ckpt-every", "4", "--inject-failure",
+                                 "6", "--ckpt-dir", f"{tmp}/c", *args])
+        print(log.getvalue(), end="", flush=True)
         if not (len(failed) == 14 and sum(failed[-4:]) < sum(failed[:4])):
             raise SystemExit(f"[train-launcher] failure injection: {failed}")
+        # one rank: plan_mesh(max(1, 1 - 1)) re-meshes onto the same 1x1 mesh,
+        # which places nothing: the launcher runs the plain step on it
+        remesh = "resumed at step 4 on 1 device(s), mesh={'data': 1, 'model': 1}"
+        if remesh not in log.getvalue() or "mesh={'data': 1, 'model': 1} step=plain " \
+                "(one rank)" not in log.getvalue().splitlines()[0]:
+            raise SystemExit(f"[train-launcher] no re-mesh onto one rank: {log.getvalue()}")
     print(f"[train-launcher] preset small (d=64), flash: loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f} over 14 steps; --resume ran steps 9-12; --inject-failure 6 "
-          f"restored step 4 and ran {len(failed)} steps; K2 launches {fa.launches}, "
+          f"{losses[-1]:.4f} over 14 steps on a 1x1 mesh (one NCCL rank, the plain step); "
+          f"--resume ran "
+          f"steps 9-12; --inject-failure 6 re-meshed onto one rank, restored step 4 and "
+          f"ran {len(failed)} steps; K2 launches {fa.launches}, "
           f"K2 bwd {fa.bwd_launches}", flush=True)
+
+
+def _one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh over one NCCL rank on the card, as the
+    train launcher plans it for one rank."""
+    mesh_launch.init_ranks("cuda", 0, 1)
+    return make_plan_mesh(plan_mesh(1, TRAIN["batch"], prefer_model=1))
+
+
+def _print_steps(tag, what, r, full):
+    print(f"[{tag}] {what}: step_ms={r['step_ms']:.1f} (mean of {TRAIN['timed_steps']} "
+          f"after {TRAIN['warmup_steps']} warm-up; warm-up {r['warmup_ms']:.1f}) "
+          f"tokens_per_s={r['tokens_per_s']:.1f} peak_mem_gb={r['peak_mem_gb']:.3f}; phase "
+          f"12 in this call: {full['step_ms']:.1f} ms, {full['peak_mem_gb']:.3f} GB; K2 "
+          f"launches over {r['n_steps']} steps {r['launches']['fwd']}, K2 bwd "
+          f"{r['launches']['bwd']}", flush=True)
+
+
+def _same_launches(tag, r):
+    """The measured totals equal phase 12's count (which phase 12 held
+    exactly) for the run's number of steps."""
+    want = train_launches(r["n_steps"])
+    if r["launches"] != want:
+        raise SystemExit(f"[{tag}] K2 launches over {r['n_steps']} steps {r['launches']}, "
+                         f"the unsharded full-remat step's {want}")
+
+
+def phase_train_sharded(device, full):
+    """Phase 12's step through ``make_train_step(shard_ctx=...)`` on a 1x1
+    mesh: the first step's loss and gnorm against phase 12's first step
+    (the same weights and batch, unsharded), launch totals equal to phase
+    12's count."""
+    tag = "train-sharded"
+    mesh = _one_rank_mesh()
+    try:
+        # the launcher runs phase 12's plain step on this mesh, which places
+        # nothing; the sharded step is measured beside it here
+        if train.step_mesh(mesh) is not None:
+            raise SystemExit(f"[{tag}] the launcher would shard a one-rank mesh")
+        r = _timed_steps(tag, _yi_train_cfg(), device, mesh=mesh)
+    finally:
+        mesh_launch.leave_ranks()
+    _same_launches(tag, r)
+    errs = {"loss": abs(r["losses"][0] - full["losses"][0]) / abs(full["losses"][0]),
+            "gnorm": abs(r["gnorms"][0] - full["gnorms"][0]) / abs(full["gnorms"][0])}
+    if not all(errs[k] <= TRAIN_CHECK_TOL[k] for k in errs):
+        raise SystemExit(f"[{tag}] first step loss {r['losses'][0]} gnorm {r['gnorms'][0]} "
+                         f"vs unsharded {full['losses'][0]} {full['gnorms'][0]}: relative "
+                         f"{errs} over {TRAIN_CHECK_TOL}")
+    _print_steps(tag, f"yi-6b, {TRAIN['layers']} layers, 1x1 (data, model) mesh over "
+                 "one NCCL rank, DTensor params and moments", r, full)
+    print(f"[{tag}] the launcher's step on this one-rank mesh is phase 12's plain step "
+          f"({full['step_ms']:.1f} ms); the sharded step {r['step_ms']:.1f} ms "
+          f"({r['step_ms'] / full['step_ms']:.3f}x)", flush=True)
+    print(f"[{tag}] first step vs unsharded: loss {r['losses'][0]:.6f} vs "
+          f"{full['losses'][0]:.6f} (rel {errs['loss']:.2e}, tol {TRAIN_CHECK_TOL['loss']}), "
+          f"gnorm {r['gnorms'][0]:.6f} vs {full['gnorms'][0]:.6f} (rel {errs['gnorm']:.2e}, "
+          f"tol {TRAIN_CHECK_TOL['gnorm']})", flush=True)
+    return r
+
+
+# the mass check runs on the step after the timed ones (the feedback is
+# then three steps old), untimed: it copies and compares every leaf
+COMPRESS = dict(topk_ratio=0.01, check_call=TRAIN["warmup_steps"] + TRAIN["timed_steps"])
+
+
+class _FeedbackCompressor:
+    """Gradient compression with error feedback, leaf by leaf through
+    ``runtime/compress.py``, the feedback kept between steps.  On call
+    ``check_call`` it holds each leaf's mass: top-k's ``sent + residual``
+    equals ``acc = g + feedback`` exactly; int8's residual is exactly the
+    fp32 ``acc - sent`` (whose sum with ``sent`` fp32 cannot always hold
+    exactly), and the largest ``|sent + residual - acc|`` over ``|acc|``'s
+    largest is reported."""
+
+    def __init__(self, kind, device):
+        self.kind, self.state, self.calls = kind, None, 0
+        self.gen = torch.Generator(device=device).manual_seed(11)
+        self.checked = None
+
+    def __call__(self, grads):
+        if self.state is None:
+            self.state = leaves(compress.init_feedback(grads))
+        check = self.calls == COMPRESS["check_call"]
+        sent, bad, dev, n = [], 0, 0.0, 0
+        for i, g in enumerate(leaves(grads)):
+            r = self.state[i]
+            if self.kind == "topk":
+                s, nr = compress.compress_topk({"x": g}, {"x": r}, COMPRESS["topk_ratio"])
+            else:
+                s, nr = compress.compress_int8({"x": g}, {"x": r}, self.gen)
+            s, nr = s["x"], nr["x"]
+            if check:                 # on the whole leaves, as plain tensors
+                g_, r_, s_, nr_ = (_full(x) for x in (g, r, s, nr))
+                acc, total = g_.float() + r_, s_.float() + nr_
+                if self.kind == "topk":
+                    bad += int((total != acc).sum())
+                else:
+                    bad += int((nr_ != acc - s_.float()).sum())
+                    dev = max(dev, float((total - acc).abs().max()
+                                         / acc.abs().max().clamp_min(1e-30)))
+                del g_, r_, s_, nr_, acc, total
+                n += 1
+            self.state[i] = nr
+            sent.append(s)
+        if check:
+            self.checked = dict(leaves=n, mismatched=bad, max_rel_dev=dev)
+        self.calls += 1
+        return tree_unflatten(grads, sent)
+
+
+def _full(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def phase_train_compress(device, full):
+    """The sharded step with top-k (ratio 0.01) and int8 compression, each
+    with error feedback."""
+    tag = "train-compress"
+    out = {}
+    for kind in ("topk", "int8"):
+        comp = _FeedbackCompressor(kind, device)
+        mesh = _one_rank_mesh()
+        try:
+            r = _timed_steps(tag, _yi_train_cfg(), device, mesh=mesh, after=1,
+                             compress_fn=comp)
+        finally:
+            del comp.state
+            mesh_launch.leave_ranks()
+        c = comp.checked
+        if c is None or c["mismatched"]:
+            raise SystemExit(f"[{tag}] {kind}: mass check {c}")
+        _same_launches(tag, r)
+        _print_steps(tag, f"{kind} with error feedback"
+                     + (f" (ratio {COMPRESS['topk_ratio']})" if kind == "topk" else ""),
+                     r, full)
+        print(f"[{tag}] {kind}: call {COMPRESS['check_call']} held on {c['leaves']} leaves: "
+              + ("sent + residual == acc exactly" if kind == "topk" else
+                 f"residual == acc - sent exactly; |sent + residual - acc| at most "
+                 f"{c['max_rel_dev']:.3e} of max |acc|"), flush=True)
+        out[kind] = r
+    return out
+
+
+def phase_train_dots(device, full):
+    """Remat "dots" on phase 12's (unsharded) step: at 2 layers one step from
+    the same weights and batch against "full" (loss, gnorm and each attention
+    weight's gradient, phase 12's flash-vs-plain limits); at 8 layers timed
+    beside phase 12, K2 still launched twice a layer (the checkpoint
+    recomputes it)."""
+    tag = "train-dots"
+    c = TRAIN_CHECK
+    out, grads = {}, {}
+    for policy in ("dots", "full"):
+        cfg = get_config("yi-6b").replace(n_layers=c["layers"],
+                                          train_microbatches=c["micro"],
+                                          remat_policy=policy)
+        step_fn, params, opt, pipe = _train_setup(cfg, c["seq"], c["batch"], True, device,
+                                                  seed=7)
+        batch = next(pipe)
+        grads[policy] = _attention_grads(cfg, params, batch, True)
+        params, opt, metrics, _ = train.run_step(step_fn, params, opt, batch, 2, device)
+        out[policy] = {k: float(metrics[k]) for k in ("loss", "gnorm")}
+        del params, opt
+        pipe.stop()
+    errs = {k: abs(out["dots"][k] - out["full"][k]) / abs(out["full"][k]) for k in out["dots"]}
+    if not all(errs[k] <= TRAIN_CHECK_TOL[k] for k in errs):
+        raise SystemExit(f"[{tag}] dots {out['dots']} vs full {out['full']}: {errs}")
+    worst = {"norm": 0.0, "max": 0.0}
+    for path, want in grads["full"].items():
+        got = grads["dots"][path]
+        worst["norm"] = max(worst["norm"], abs(got.norm().item() - want.norm().item())
+                            / want.norm().item())
+        worst["max"] = max(worst["max"], (got - want).abs().max().item()
+                           / want.abs().max().item())
+    if not (worst["norm"] <= TRAIN_CHECK_TOL["attn_norm"]
+            and worst["max"] <= TRAIN_CHECK_TOL["attn_max"]):
+        raise SystemExit(f"[{tag}] attention gradients under dots differ: {worst}")
+    del grads
+    print(f"[{tag}] 2 layers, seq {c['seq']}: loss {out['dots']['loss']:.6f} vs full "
+          f"{out['full']['loss']:.6f} (rel {errs['loss']:.2e}), gnorm "
+          f"{out['dots']['gnorm']:.6f} vs {out['full']['gnorm']:.6f} (rel "
+          f"{errs['gnorm']:.2e}); attention gradients: norm rel {worst['norm']:.2e}, max "
+          f"abs err {worst['max']:.2e} of max |grad|", flush=True)
+    r = _timed_steps(tag, _yi_train_cfg(remat_policy="dots"), device)
+    _same_launches(tag, r)
+    _print_steps(tag, f"yi-6b, {TRAIN['layers']} layers, remat \"dots\" (unbatched "
+                 "products saved)", r, full)
+    return r
 
 
 # phase 14: gemma3-27b served whole, and the prefill shape of its local layers
@@ -1426,6 +1698,9 @@ def main() -> int:
                                                  MUSICGEN_SERVE, MUSICGEN_LOCAL, device,
                                                  seed=19)
     deepseek = phase_serve_deepseek(device)
+    sharded = phase_train_sharded(device, train_report)
+    phase_train_compress(device, train_report)
+    dots = phase_train_dots(device, train_report)
     record = {"kernels": [
         # the times are the bf16 kernel's at the serving shape (train_4k
         # beside them, and gemma3-27b's local-layer shape as local_*); the
@@ -1435,7 +1710,9 @@ def main() -> int:
         # mixtral_launches and hymba_launches: phases 14, 16 and 17, and
         # hymba-1.5b's local-layer shape as hymba_local_*; h2o_, phi3_ and
         # musicgen_launches and _local_*: phases 19-21 (d = 120, 96, 64);
-        # deepseek_launches: phase 22 (MLA: 0)
+        # deepseek_launches: phase 22 (MLA: 0); sharded_launches and
+        # dots_launches: phases 23 and 25 over their 4 steps (phase 12's
+        # count, train_launches, is the same)
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1446,18 +1723,23 @@ def main() -> int:
              hymba_launches=hymba["launches"], h2o_launches=h2o["launches"],
              phi3_launches=phi3["launches"], musicgen_launches=musicgen["launches"],
              deepseek_launches=deepseek["launches"],
+             sharded_launches=sharded["launches"]["fwd"],
+             dots_launches=dots["launches"]["fwd"],
              max_abs_err=err, **times, **gemma3_local, **hymba_local, **h2o_local,
              **phi3_local, **musicgen_local),
         # the times are the bf16 kernels' at train_4k (phase 11), and at
         # phi-3-vision's and h2o-danube's train_4k shapes as phi3_train_4k_*
         # and h2o_train_4k_*; the fp32 kernels and the C entry point that
         # picks between them are in flash_attention_bwd.cu (phase 10).
-        # launches: the full-width train run's (phase 12)
+        # launches: the full-width train run's (phase 12); sharded_ and
+        # dots_launches: phases 23 and 25
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_bwd_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention.py:149",
-             launches=train_report["launches"]["bwd"], max_abs_err=bwd_err,
+             launches=train_report["launches"]["bwd"],
+             sharded_launches=sharded["launches"]["bwd"],
+             dots_launches=dots["launches"]["bwd"], max_abs_err=bwd_err,
              **bwd_times),
         # the times are the bf16 kernel's; the fp32 kernel and the C entry
         # point that picks between them are in matmul_blocked.cu (phase 7)

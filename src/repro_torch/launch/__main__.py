@@ -6,6 +6,10 @@
     python -m repro_torch tune --device cpu --backend sim    # on the CPU
     python -m repro_torch train --preset small --use-flash   # trainer, on the card
     python -m repro_torch train --preset small --device cpu  # on the CPU
+    python -m repro_torch train --preset small --device cpu --host-devices 4 \
+        --inject-failure 6                                  # 4 gloo ranks, re-mesh
+    python -m repro_torch mesh                               # describe the mesh
+    python -m repro_torch mesh --device cpu --host-devices 4
 
 Each subcommand resolves to the matching ``repro_torch.launch.<module>``
 main, which parses ``sys.argv`` as rewritten here.
@@ -22,7 +26,10 @@ COMMANDS = {
     "tune": ("repro_torch.launch.tune",
              "measure, fit and evaluate the blocked-matmul tile tuner"),
     "train": ("repro_torch.launch.train",
-              "training launcher with checkpoints and failure injection"),
+              "training launcher on a mesh with checkpoints, failure "
+              "injection and elastic re-mesh"),
+    "mesh": ("repro_torch.launch.mesh",
+             "construct and describe a device mesh"),
 }
 
 

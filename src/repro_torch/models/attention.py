@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamSpec, apply_rope, causal_window_mask, rms_norm
+from repro_torch.runtime.shardctx import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -73,10 +74,7 @@ _CHUNK_Q = 1024
 def _attend(q, k, v, positions, window, n_meta, scale):
     """Full-sequence attention, chunked over queries when the scores are large."""
     t, s = q.shape[1], k.shape[1]
-    g = q.shape[2] // k.shape[2]
-    if g > 1:
-        k = k.repeat_interleave(g, dim=2)
-        v = v.repeat_interleave(g, dim=2)
+    k, v = _repeat_kv(k, v, q.shape[2] // k.shape[2])
     if t * s < _CHUNK_THRESHOLD:
         mask = causal_window_mask(positions, positions, window, n_meta)
         return _sdpa(q, k, v, mask[None], scale)
@@ -88,14 +86,25 @@ def _attend(q, k, v, positions, window, n_meta, scale):
     return torch.cat(outs, dim=1)
 
 
+def _repeat_kv(k, v, g: int):
+    """KV heads tiled up to the query heads ("repeat-kv"), so the [B,H,T,S]
+    scores stay on the head axis the queries shard over even where the kv
+    heads cannot split as the queries do."""
+    if g == 1:
+        return k, v
+    k = constrain(k.repeat_interleave(g, dim=2), ("batch", None, "heads", None))
+    v = constrain(v.repeat_interleave(g, dim=2), ("batch", None, "heads", None))
+    return k, v
+
+
 def _sdpa(q, k, v, mask, scale):
     """q,k:[B,T|S,H|KV,dh] v:[B,S,KV,dv] (KV divides H; MLA's dv differs
     from dh); mask:[1,T,S] bool."""
-    g = q.shape[2] // k.shape[2]
-    if g > 1:
-        k = k.repeat_interleave(g, dim=2)
-        v = v.repeat_interleave(g, dim=2)
+    k, v = _repeat_kv(k, v, q.shape[2] // k.shape[2])
     scores = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
+    # heads take "model" when they divide it; otherwise the key axis does
+    # (hymba's 25 heads): the resolver drops the loser per tensor
+    scores = constrain(scores, ("batch", "heads", None, "attn_kv"))
     scores = scores.masked_fill(~mask[:, None], torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhts,bshd->bthd", probs, v)
@@ -109,9 +118,12 @@ def gqa_forward(p, x, positions, *, window: int, theta: float, n_meta: int,
                 return_kv: bool = False, use_flash: bool = False):
     """x: [B,T,D]; positions: [T] absolute. Returns y (and optionally (k, v))."""
     dh = p["wq"].shape[-1]
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    q = constrain(torch.einsum("btd,dhk->bthk", x, p["wq"]),
+                  ("batch", None, "heads", None))
+    k = constrain(torch.einsum("btd,dhk->bthk", x, p["wk"]),
+                  ("batch", None, "kv", None))
+    v = constrain(torch.einsum("btd,dhk->bthk", x, p["wv"]),
+                  ("batch", None, "kv", None))
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
     if use_flash:

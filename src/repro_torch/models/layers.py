@@ -11,6 +11,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch.runtime import shardctx
+
 
 # ---------------------------------------------------------------------------
 # Parameter specs
@@ -164,12 +166,103 @@ def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean next-token CE in fp32; logits [..., V], labels [...] integer."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    """Mean next-token CE in fp32; logits [..., V], labels [...] integer.
+
+    Under a mesh the per-token NLL runs rank by rank on the logits' vocab
+    slice (``_nll``): DTensor's gather over a vocab-split dim has no exact
+    rule."""
+    lead = ("batch",) + (None,) * (labels.ndim - 1)
+    nll = shardctx.local(_nll, (lead + ("vocab",), lead), out_like=1)(logits, labels)
     if mask is not None:
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()
+
+
+def _nll(logits, labels):
+    """``lse - logit[label]`` per token; on a vocab slice, ``_VocabShardNLL``."""
+    if shardctx.splits("vocab"):
+        return _VocabShardNLL.apply(logits, labels,
+                                    logits.shape[-1] * shardctx.axis_index("vocab"))
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
+def embedding(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  Under a mesh it runs rank by rank: the table keeps
+    its vocab split and gives up any split of D (an FSDP gather), each rank
+    looks its tokens up in its slice (``_VocabShardLookup``), and the rows
+    come back sharded as the tokens.  (DTensor's own index and embedding
+    rules differ across torch versions; one fails to place the backward's
+    ``index_put``.)  The rule tables never put the batch and the vocab on
+    one mesh axis, so a rank's tokens are looked up in every vocab slice."""
+    lead = ("batch",) + (None,) * (tokens.ndim - 1)
+    return shardctx.local(_lookup, (("vocab", None), lead), out_like=1)(table, tokens)
+
+
+def _lookup(table, tokens):
+    if shardctx.splits("vocab"):
+        return _VocabShardLookup.apply(table, tokens,
+                                       table.shape[0] * shardctx.axis_index("vocab"))
+    return table[tokens]
+
+
+class _VocabShardLookup(torch.autograd.Function):
+    """Rows of this rank's vocab slice of the table for the tokens that fall
+    in it, zeros elsewhere, summed over the ranks that hold the other
+    slices: each token's row comes from the one rank that holds it.  The
+    gradient of the slice is the scatter-add of the output gradient's rows
+    of those tokens, with no collective."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, offset):
+        local = tokens.long() - offset
+        inside = (local >= 0) & (local < table.shape[0])
+        local = torch.where(inside, local, torch.zeros_like(local))
+        out = shardctx.all_reduce_(table[local] * inside[..., None].to(table.dtype),
+                                   "vocab")
+        ctx.save_for_backward(local, inside)
+        ctx.rows = table.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        local, inside = ctx.saved_tensors
+        rows = g * inside[..., None].to(g.dtype)
+        grad = g.new_zeros((ctx.rows, g.shape[-1]))
+        grad.index_add_(0, local.reshape(-1), rows.reshape(-1, g.shape[-1]))
+        return grad, None, None
+
+
+class _VocabShardNLL(torch.autograd.Function):
+    """Per-token NLL from this rank's vocab slice of the logits: the max,
+    the sum of exponentials and the label's logit are all-reduced over the
+    ranks that hold the other slices, so each rank gets the whole row's
+    log-sum-exp; the gradient (softmax minus one-hot, on the local slice)
+    needs no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset):
+        lf = logits.float()
+        vloc = lf.shape[-1]
+        m = shardctx.all_reduce_(lf.amax(dim=-1), "vocab", "max")
+        se = torch.exp(lf - m[..., None]).sum(dim=-1)
+        local = labels.long() - offset
+        inside = (local >= 0) & (local < vloc)
+        ll = torch.gather(lf, -1, local.clamp(0, vloc - 1)[..., None])[..., 0]
+        ll = torch.where(inside, ll, torch.zeros_like(ll))
+        shardctx.all_reduce_(se, "vocab")
+        shardctx.all_reduce_(ll, "vocab")
+        lse = torch.log(se) + m
+        ctx.save_for_backward(logits, lse, local, inside)
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, local, inside = ctx.saved_tensors
+        grad = torch.exp(logits.float() - lse[..., None])
+        vloc = grad.shape[-1]
+        grad.scatter_add_(-1, local.clamp(0, vloc - 1)[..., None],
+                          -inside.to(grad.dtype)[..., None])
+        return (grad * g[..., None]).to(logits.dtype), None, None

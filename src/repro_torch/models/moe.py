@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec, activation
+from repro_torch.runtime.shardctx import constrain
 
 
 def moe_spec(cfg: ModelConfig, lead: tuple = ()):
@@ -79,7 +80,7 @@ def _moe_dispatch(cfg: ModelConfig, p, x: torch.Tensor, router_mode: str):
     mo = cfg.moe
     b, t, d = x.shape
     nt = b * t
-    xf = x.reshape(nt, d)
+    xf = constrain(x.reshape(nt, d), ("moe_tokens", None))
 
     logits = xf.float() @ p["router"].float()
     if router_mode == "sigmoid":                     # DeepSeek-V3 style
@@ -102,13 +103,19 @@ def _moe_dispatch(cfg: ModelConfig, p, x: torch.Tensor, router_mode: str):
     keep = (gval > 0.0).to(xf.dtype)
 
     xe = xf[gidx.reshape(-1)].reshape(mo.n_experts, cap, d)    # [E,C,D]
+    # dispatch buffers: experts over "model" (ep) and capacity over the
+    # batch axes, the memory-critical layout
+    xe = constrain(xe, ("experts", "moe_cap", None))
     act = activation(cfg.act)
     h = act(torch.einsum("ecd,edf->ecf", xe, p["w_gate"])) \
         * torch.einsum("ecd,edf->ecf", xe, p["w_in"])
+    h = constrain(h, ("experts", "moe_cap", "ffn"))
     ye = torch.einsum("ecf,efd->ecd", h, p["w_out"])
+    ye = constrain(ye, ("experts", "moe_cap", None))
     ye = ye * (gval.to(xf.dtype) * keep)[..., None]
 
     out = xf.new_zeros(nt, d).index_add(0, gidx.reshape(-1), ye.reshape(-1, d))
+    out = constrain(out, ("moe_tokens", None))
 
     if mo.n_shared:
         sh = p["shared"]

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec, rms_norm
+from repro_torch.runtime.shardctx import constrain, local
 
 
 def _dims(cfg: ModelConfig):
@@ -64,7 +65,14 @@ def _causal_conv(xbc, w, b):
 
     A cross-correlation (not flipped) over ``K - 1`` zeros on the left, one
     filter a channel, as the JAX package's ``conv_general_dilated`` with
-    ``feature_group_count = C``."""
+    ``feature_group_count = C``.  Under a mesh it runs rank by rank on the
+    batch shard with whole channels and filters: DTensor's convolution rule
+    splits channels without splitting the groups."""
+    return local(_causal_conv_local,
+                 (("batch", None, None), (None, None), (None,)))(xbc, w, b)
+
+
+def _causal_conv_local(xbc, w, b):
     k, c = w.shape
     pad = F.pad(xbc.transpose(1, 2), (k - 1, 0))                 # [B,C,K-1+T]
     out = F.conv1d(pad, w.t()[:, None, :], bias=b, groups=c)     # [B,C,T]
@@ -121,13 +129,18 @@ def ssd_forward(cfg: ModelConfig, p, x, *, initial_state=None,
     # taken as (C B^T * L), one [B,nc,nh,cl,cl] product (C B^T broadcast
     # over each group's heads), times (dt * x) by a batched matmul; each
     # [B,nc,nh,cl,cl] block is dropped once used (0.73 GB at hymba's prefill)
-    lmat = _segsum(da_h).exp_()                                  # [B,nc,nh,cl,cl]
-    cb = torch.einsum("bcign,bcjgn->bcgij", cm, bm)              # [B,nc,G,cl,cl]
+    # the [cl x cl] blocks shard over the chunk axis ("ssm_chunks" ->
+    # model): SSM head counts (hymba's 50) rarely divide the mesh
+    lmat = constrain(_segsum(da_h).exp_(),
+                     ("batch", "ssm_chunks", None, None, None))  # [B,nc,nh,cl,cl]
+    cb = constrain(torch.einsum("bcign,bcjgn->bcgij", cm, bm),
+                   ("batch", "ssm_chunks", None, None, None))    # [B,nc,G,cl,cl]
     m = lmat.reshape(b, nc, g, hpg, cl, cl) * cb[:, :, :, None]
     del lmat
     y = m.reshape(b, nc, nh, cl, cl) @ xdt.permute(0, 1, 3, 2, 4)   # [B,nc,nh,cl,hd]
     del m
-    y = y.permute(0, 1, 3, 2, 4)                                 # [B,nc,cl,nh,hd]
+    y = constrain(y.permute(0, 1, 3, 2, 4),
+                  ("batch", "ssm_chunks", None, None, None))     # [B,nc,cl,nh,hd]
 
     # ---- chunk end-states --------------------------------------------------
     # einsum("bcjhn,bchj,bcjh,bcjhd->bchdn", B, decay, dt, x): the decay to

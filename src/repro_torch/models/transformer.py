@@ -24,21 +24,31 @@ embeddings and emits K heads (logits ``[B, T, K, V]``).
 
 Where JAX wraps a stage's scan body in ``jax.checkpoint`` (``cfg.remat``),
 this port recomputes each layer in the backward with
-``torch.utils.checkpoint``, whenever autograd records the forward.
+``torch.utils.checkpoint``, whenever autograd records the forward.  Under
+``remat_policy="dots"`` (JAX's ``dots_with_no_batch_dims_saveable``) the
+checkpoint is selective: the outputs of the unbatched matrix products are
+saved and everything else is recomputed.  ``x @ w`` lowers to ``aten.mm``
+(or ``addmm``), and an einsum with no batch dim (``btd,dhk->bthk``) to an
+``aten.bmm`` over a batch of one: both are saved.  The score and MoE expert
+products are ``bmm`` over real batch dims, and the flash kernel is no aten
+op, so they are recomputed, as JAX's policy recomputes batched dots.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (ParamSpec, cross_entropy, mlp, mlp_spec,
-                                       rms_norm)
+from repro_torch.models.layers import (ParamSpec, cross_entropy, embedding, mlp,
+                                       mlp_spec, rms_norm)
+from repro_torch.runtime import shardctx
+from repro_torch.runtime.shardctx import constrain
 
 
 # ---------------------------------------------------------------------------
@@ -262,17 +272,37 @@ def _take(tree, r: int):
             for k, v in tree.items()}
 
 
-def _remat(cfg: ModelConfig, collect: bool) -> bool:
-    """Whether to recompute each layer in the backward: ``cfg.remat`` with
-    the ``"full"`` policy, while autograd records a forward that collects no
-    caches."""
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def unbatched_product(op, args) -> bool:
+    """Whether an aten call is a matrix product with no batch dim: ``mm``,
+    ``addmm``, or a ``bmm`` over a batch of one (how einsum lowers an
+    unbatched contraction)."""
+    return op in _MM or (op is torch.ops.aten.bmm.default and args[0].shape[0] == 1)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if unbatched_product(op, args)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(cfg: ModelConfig, collect: bool):
+    """The checkpoint's keyword arguments when each layer is to be
+    recomputed in the backward (``cfg.remat``, while autograd records a
+    forward that collects no caches), else ``None``.  ``"dots"`` saves the
+    unbatched matmuls; any other policy recomputes everything, as in the
+    JAX package."""
     if not (cfg.remat and torch.is_grad_enabled() and not collect):
-        return False
-    if cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: remat policy {cfg.remat_policy!r} is not ported yet "
-            "(ROADMAP.md, training: remat \"dots\")")
-    return True
+        return None
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = _dots_context
+    return kw
 
 
 def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
@@ -280,16 +310,21 @@ def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
     entries = {f"u{j}": [] for j in range(len(stage.unit))}
     aux = 0.0
     remat = _remat(cfg, collect)
+    mesh_scope = shardctx.current()
+
+    def recomputable(h, lp, d):
+        # the backward reruns this on autograd's device thread: it takes up
+        # the mesh scope of the forward
+        with shardctx.reenter(mesh_scope):
+            return layer_forward(cfg, d, lp, h, positions, n_meta,
+                                 use_flash=use_flash)[::2]
     for r in range(stage.repeat):
         for j, desc in enumerate(stage.unit):
             p = _take(sp[f"u{j}"], r)
-            if remat:
+            if remat is not None:
                 # the layer has no randomness: no RNG state to keep; the
                 # aux loss comes out with x, as in the JAX package's carry
-                x, a = checkpoint(
-                    lambda h, lp, d=desc: layer_forward(
-                        cfg, d, lp, h, positions, n_meta, use_flash=use_flash)[::2],
-                    x, p, use_reentrant=False, preserve_rng_state=False)
+                x, a = checkpoint(recomputable, x, p, desc, **remat)
                 e = {}
             else:
                 x, e, a = layer_forward(cfg, desc, p, x, positions, n_meta,
@@ -317,9 +352,10 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
     """tokens [B,T], or [B,K,T] for K codebooks (the sum of their K
     embeddings, in the JAX package's order)."""
     if cfg.n_codebooks > 1:
-        x = sum(params["tok_emb"][k][tokens[:, k]] for k in range(cfg.n_codebooks))
+        x = sum(embedding(params["tok_emb"][k], tokens[:, k])
+                for k in range(cfg.n_codebooks))
     else:
-        x = params["tok_emb"][tokens]
+        x = embedding(params["tok_emb"], tokens)
     if cfg.scale_embeddings:
         # the scale is rounded to the activation dtype first, as the JAX
         # package rounds it (5376 ** 0.5 = 73.32 is 73.5 in bf16)
@@ -330,10 +366,13 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
 def lm_head(cfg: ModelConfig, params, x):
     """Logits [B,T,V], or [B,T,K,V] for K codebooks."""
     if cfg.tie_embeddings:
-        return torch.einsum("btd,vd->btv", x, params["tok_emb"])
-    if cfg.n_codebooks > 1:
-        return torch.einsum("btd,kdv->btkv", x, params["head"])
-    return torch.einsum("btd,dv->btv", x, params["head"])
+        out = torch.einsum("btd,vd->btv", x, params["tok_emb"])
+    elif cfg.n_codebooks > 1:
+        out = torch.einsum("btd,kdv->btkv", x, params["head"])
+        return constrain(out, ("batch", None, None, "vocab"))
+    else:
+        out = torch.einsum("btd,dv->btv", x, params["head"])
+    return constrain(out, ("batch", None, "vocab"))
 
 
 # ---------------------------------------------------------------------------

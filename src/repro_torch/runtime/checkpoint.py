@@ -14,6 +14,12 @@ mid-write can never corrupt the latest checkpoint.  ``restore_latest``
 walks checkpoints newest-first and falls back past torn or corrupt ones
 (checksum mismatch), the failure-recovery path.  bf16 leaves are stored as
 fp32, which holds them exactly.
+
+Under a mesh the leaves are DTensors.  A save gathers each leaf whole on
+every rank (a collective: every rank calls ``save``) and only the primary
+rank writes; a restore given a mesh and placements reads the full arrays on
+every rank and keeps each rank's shards, so a checkpoint restores onto any
+mesh (``runtime/elastic.py``).
 """
 from __future__ import annotations
 
@@ -27,8 +33,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.layers import ParamSpec
+from repro_torch.runtime.elastic import reshard_tree
 from repro_torch.runtime.tree import flatten, unflatten
 
 
@@ -38,6 +46,8 @@ def _to_numpy(leaf) -> np.ndarray:
     (JAX arrays are immutable, so the reference needs no copy)."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        if isinstance(leaf, DTensor):              # gather it whole
+            leaf = leaf.full_tensor()
         if leaf.dtype == torch.bfloat16:
             # npz has no bfloat16; f32 holds bf16 exactly
             leaf = leaf.float()
@@ -54,10 +64,13 @@ def _sha(a: np.ndarray) -> str:
 
 
 class CheckpointManager:
-    def __init__(self, directory, keep: int = 3, async_save: bool = True):
+    def __init__(self, directory, keep: int = 3, async_save: bool = True,
+                 primary: bool = True):
+        """``primary``: whether this rank writes (one rank of a mesh does)."""
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.primary = primary
         self._pool = cf.ThreadPoolExecutor(max_workers=1) if async_save else None
         self._pending: cf.Future | None = None
 
@@ -65,6 +78,8 @@ class CheckpointManager:
     def save(self, step: int, tree, extra: dict | None = None):
         """Snapshot to host memory now; write (possibly async) afterwards."""
         arrays = _flatten(tree)                       # sync device->host
+        if not self.primary:
+            return
         if self._pool is not None:
             self.wait()
             self._pending = self._pool.submit(
@@ -124,23 +139,29 @@ class CheckpointManager:
         return arrays, manifest
 
     def restore_latest(self, target_tree, *, device="cpu", verify=True,
-                       max_step: int | None = None):
+                       max_step: int | None = None, mesh=None, placements=None):
         """Newest valid checkpoint -> (tree, manifest); falls back on corrupt.
 
         ``target_tree`` gives the tree's structure and each leaf's dtype
         (leaves may be ParamSpecs or tensors); the restored tensors are put
-        on ``device``.  ``max_step`` bounds the search (failure recovery
-        must not resume "from the future" of the failed step).
+        on ``device``, and with ``placements`` (a tree like the target's, as
+        ``sharding.spec_shardings`` gives) distributed onto ``mesh``.
+        ``max_step`` bounds the search (failure recovery must not resume
+        "from the future" of the failed step).
         """
         steps = [s for s in self.all_steps()
                  if max_step is None or s <= max_step]
         for step in reversed(steps):
             try:
                 arrays, manifest = self._load(step, verify)
-                return self._unflatten(target_tree, arrays, device), manifest
+                tree = self._unflatten(target_tree, arrays, device)
             except Exception as e:  # noqa: BLE001 -- any torn/corrupt state
                 print(f"[ckpt] step {step} unusable "
                       f"({type(e).__name__}: {e}); trying previous")
+                continue
+            if placements is not None:
+                tree = reshard_tree(tree, placements, mesh=mesh)
+            return tree, manifest
         raise FileNotFoundError(f"no valid checkpoint under {self.dir}")
 
     @staticmethod

@@ -17,6 +17,11 @@ it, ``state()`` is the cursor after the last batch handed out, and
 ``restore()`` stops the producer, drops what it queued and restarts it: a
 resumed run sees exactly the batches an uninterrupted one would.  Without
 the thread (``start()`` not called) the two pipelines' states agree.
+
+Under a mesh every rank builds the same global batch and keeps its shards:
+with ``mesh`` and ``placements`` (``sharding.spec_shardings`` of the
+step's batch specs) each batch comes out as DTensors, as the JAX pipeline
+places its batches by ``sharding``.  A re-mesh sets both anew.
 """
 from __future__ import annotations
 
@@ -90,11 +95,14 @@ class DataPipeline:
     """Batches shaped [m, b, ...] with a prefetch thread; checkpointable."""
 
     def __init__(self, model_cfg: ModelConfig, shape: ShapeConfig,
-                 pcfg: PipelineConfig = PipelineConfig(), device="cpu"):
+                 pcfg: PipelineConfig = PipelineConfig(), device="cpu", *,
+                 mesh=None, placements=None):
         self.cfg = model_cfg
         self.shape = shape
         self.pcfg = pcfg
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.placements = placements
         self.batcher = PackedBatcher(
             SyntheticCorpus(model_cfg.vocab, pcfg), shape.seq_len)
         self._q: queue.Queue = queue.Queue(maxsize=max(1, pcfg.prefetch))
@@ -128,8 +136,12 @@ class DataPipeline:
         return {"batcher": self.batcher.state(), "step": self._step}
 
     def _put_device(self, batch):
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+               for k, v in batch.items()}
+        if self.placements is None:
+            return out
+        from repro_torch.runtime.sharding import distribute_tree
+        return distribute_tree(out, self.mesh, self.placements)
 
     # ------------------------------------------------------------ iterate
     def _worker(self, stop: threading.Event):

@@ -4,20 +4,41 @@
 Where JAX scans over the microbatch axis, the port runs a Python loop: each
 microbatch's gradient comes from ``torch.autograd.grad`` and is added into
 an accumulator in ``cfg.grad_accum_dtype``, so only one microbatch's
-activations and one bf16 gradient tree live at a time.  Gradient
-compression and the sharded step wait for ROADMAP.md's "runtime and the
-remaining launchers".
+activations and one bf16 gradient tree live at a time.
+
+With ``shard_ctx=(mesh, rules)`` the step runs under ``shardctx.scope``:
+params, optimizer state and batch are DTensors laid out by
+``sharding.spec_shardings`` (``launch/train.py::build``), the model's
+``constrain`` calls place its intermediates, and each gradient is reduced
+to its parameter's placements (an all-reduce over the batch axes for a
+replicated leaf, a reduce-scatter for a sharded one) before the update.
+The loss is the global batch's mean and ``gnorm`` the global norm; both
+come back as plain tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as tf
+from repro_torch.models.layers import ParamSpec
+from repro_torch.runtime import shardctx
 from repro_torch.runtime.optim import cosine_schedule, opt_update
 from repro_torch.runtime.tree import leaves, unflatten
+
+
+def _maybe_scope(ctx):
+    if ctx is None:
+        return contextlib.nullcontext()
+    return shardctx.scope(*ctx)
+
+
+def _plain(x):
+    """A DTensor's full value (the step's scalars), else ``x``."""
+    return x.full_tensor() if shardctx.is_dtensor(x) else x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +48,35 @@ class TrainHParams:
     total_steps: int = 10_000
 
 
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                microbatches: int | None = None) -> dict:
+    """ParamSpec tree of a train step's batch (the JAX package's
+    ``input_specs`` for ``shape.kind == "train"``): leaves carry a leading
+    microbatch axis and shard the per-microbatch batch over "batch"."""
+    if shape.kind != "train":
+        raise NotImplementedError(
+            f"input_specs for a {shape.kind!r} cell is not ported yet "
+            "(ROADMAP.md, runtime and the remaining launchers: the mesh and "
+            "dryrun launchers)")
+    b, t = shape.global_batch, shape.seq_len
+    m = microbatches if microbatches is not None else cfg.train_microbatches
+    if b % m:
+        raise ValueError(f"global batch {b} does not split into {m} microbatches")
+    mb = b // m
+    t_text = t - (cfg.image_tokens if cfg.frontend == "vision" else 0)
+    if cfg.n_codebooks > 1:
+        toks = ParamSpec((m, mb, cfg.n_codebooks, t_text),
+                         (None, "batch", None, None), "int32")
+    else:
+        toks = ParamSpec((m, mb, t_text), (None, "batch", None), "int32")
+    specs = {"tokens": toks}
+    if cfg.frontend == "vision":
+        specs["image_embeds"] = ParamSpec(
+            (m, mb, cfg.image_tokens, cfg.d_model),
+            (None, "batch", None, None), cfg.compute_dtype)
+    return specs
+
+
 def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
                     use_flash: bool = False, compress_fn=None, shard_ctx=None):
     """Returns train_step(params, opt_state, batch, step) -> (p, s, metrics).
@@ -34,16 +84,10 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
     ``batch`` leaves carry a leading microbatch axis.  The step updates
     ``params`` and ``opt_state`` in place and returns them; ``metrics`` holds
     ``loss``, ``gnorm`` and ``lr`` (0-d fp32 tensors) and ``step`` (the
-    step's number + 1).
+    step's number + 1).  ``compress_fn`` optionally transforms the
+    accumulated gradient tree (gradient compression, see
+    ``runtime/compress.py``) before the optimizer sees it.
     """
-    if compress_fn is not None:
-        raise NotImplementedError(
-            "gradient compression is not ported yet (ROADMAP.md, runtime and "
-            "the remaining launchers: compress.py)")
-    if shard_ctx is not None:
-        raise NotImplementedError(
-            "the sharded train step is not ported yet (ROADMAP.md, runtime and "
-            "the remaining launchers: sharding.py and shardctx.py)")
     n_micro = cfg.train_microbatches
     acc_dt = getattr(torch, cfg.grad_accum_dtype)
 
@@ -52,6 +96,10 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
         return loss.detach(), torch.autograd.grad(loss, flat)
 
     def train_step(params, opt_state, batch, step):
+        with _maybe_scope(shard_ctx):
+            return _step(params, opt_state, batch, step)
+
+    def _step(params, opt_state, batch, step):
         lr = cosine_schedule(step, peak_lr=hp.peak_lr, warmup=hp.warmup,
                              total=hp.total_steps)
         flat = leaves(params)
@@ -77,9 +125,15 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
         finally:
             for x in flat:
                 x.requires_grad_(False)
-        params, opt_state, gnorm = opt_update(cfg, unflatten(params, grads),
-                                              opt_state, params, lr)
-        return params, opt_state, {"loss": loss, "gnorm": gnorm, "lr": lr,
-                                   "step": int(step) + 1}
+        if shard_ctx is not None:        # partial sums -> the leaf's layout
+            grads = list(grads)
+            for i, p in enumerate(flat):     # one leaf at a time: no 2nd tree
+                grads[i] = grads[i].redistribute(p.device_mesh, p.placements)
+        grads = unflatten(params, grads)
+        if compress_fn is not None:
+            grads = compress_fn(grads)
+        params, opt_state, gnorm = opt_update(cfg, grads, opt_state, params, lr)
+        return params, opt_state, {"loss": _plain(loss), "gnorm": _plain(gnorm),
+                                   "lr": lr, "step": int(step) + 1}
 
     return train_step

@@ -1,13 +1,17 @@
 """The port's training path against the JAX package on the same weights and
-tokens: ``train_loss`` and its gradients, three train steps with gradient
-accumulation (the JAX package's no-mesh ``make_train_step``, jitted), and
-the launcher's loss, resume and failure-injection paths on the CPU.
+tokens: ``train_loss`` and its gradients, remat "dots" against "full", no
+remat and the JAX package's "dots", three train steps with gradient
+accumulation (the JAX package's no-mesh ``make_train_step``, jitted), the
+step with top-k compression, the sharded step on a one-rank mesh, and the
+launcher's loss, resume and failure-injection paths on the CPU (one rank, a
+1x1 mesh; four ranks in ``tests/test_torch_elastic.py``).
 
 The models are Yi-6B's and mixtral-8x7b's reduced configs scaled to
 d_model 128, 2 layers, vocab 256 and 4 query heads over 2 kv heads: head
 dim 32, the smallest that the port's flash-attention kernel takes (it
 refuses 16, which d_model 64 would give).  Mixtral's loss carries the MoE
 load-balance term, whose gradient has to survive per-layer remat."""
+import contextlib
 import os
 import subprocess
 import sys
@@ -18,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import reduced_config as jreduced_config
 from repro.launch.train import scale_config as jscale_config
@@ -30,7 +35,8 @@ from repro_torch.launch import train
 from repro_torch.launch.serve import scale_config
 from repro_torch.models import transformer as ttf
 from repro_torch.runtime import steps as tsteps
-from repro_torch.runtime.tree import flatten, leaves, unflatten
+from repro_torch.runtime.optim import opt_state_specs as topt_state_specs
+from repro_torch.runtime.tree import flatten, leaves, tree_map, unflatten
 from repro_torch.weights import opt_state_from_jax, params_from_jax
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -143,15 +149,85 @@ def test_remat_changes_no_gradient(loss_pair):
         assert torch.equal(a, b)
 
 
-def test_remat_dots_policy_raises_naming_its_item(loss_pair):
-    _, tcfg, jparams, tokens = loss_pair
-    cfg = tcfg.replace(remat_policy="dots")
+def _loss_and_grads(cfg, jparams, tokens, count=None):
+    """fp32 loss and gradients of the port's train_loss; with ``count`` (a
+    dispatch mode) the backward runs under it."""
     params = params_from_jax(cfg, _np(jparams))
-    with torch.no_grad():                  # no remat without autograd: runs
-        ttf.train_loss(cfg, params, {"tokens": torch.from_numpy(tokens)})
-    params["head"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match=r'ROADMAP.md, training: remat "dots"'):
-        ttf.train_loss(cfg, params, {"tokens": torch.from_numpy(tokens)})
+    flat = leaves(params)
+    for x in flat:
+        x.requires_grad_(True)
+    loss, metrics = ttf.train_loss(cfg, params, {"tokens": torch.from_numpy(tokens)})
+    with count if count is not None else contextlib.nullcontext():
+        grads = torch.autograd.grad(loss, flat)
+    return loss.detach(), metrics, unflatten(params, grads)
+
+
+def test_remat_dots_matches_full_and_no_remat(loss_pair):
+    """Selective recomputation (remat "dots") gives the loss and gradients
+    of "full" remat and of no remat (rtol 1e-6; measured bit for bit: the
+    same ops run on the same inputs, only where their outputs come from
+    differs); for MoE that includes the aux loss carried out of the
+    checkpoint."""
+    _, tcfg, jparams, tokens = loss_pair
+    runs = [_loss_and_grads(tcfg.replace(remat=remat, remat_policy=policy), jparams, tokens)
+            for remat, policy in ((True, "dots"), (True, "full"), (False, "full"))]
+    (dots, dm, dg), others = runs[0], runs[1:]
+    for loss, metrics, grads in others:
+        np.testing.assert_allclose(float(dots), float(loss), rtol=1e-6)
+        if tcfg.moe is not None:
+            np.testing.assert_allclose(float(dm["aux"]), float(metrics["aux"]), rtol=1e-6)
+        for (path, a), b in zip(flatten(dg), leaves(grads)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
+                                       atol=1e-6 * float(b.abs().max()), err_msg=path)
+
+
+def test_remat_dots_matches_jax(loss_pair):
+    """Both packages under remat "dots" (JAX's
+    ``dots_with_no_batch_dims_saveable``), fp32: the loss within 1e-6 and
+    every gradient leaf within the file's 1e-5 of its largest entry."""
+    jcfg, tcfg, jparams, tokens = loss_pair
+    jcfg, tcfg = (c.replace(remat=True, remat_policy="dots") for c in (jcfg, tcfg))
+
+    def jloss(p):
+        return jtf.train_loss(jcfg, p, {"tokens": jnp.asarray(tokens)})
+    (want, _), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jparams)
+    got, _, grads = _loss_and_grads(tcfg, jparams, tokens)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    _assert_tree_close(jgrads, grads, 1e-5)
+
+
+class _Products(TorchDispatchMode):
+    """Counts the unbatched matrix products (what "dots" saves) and the
+    batched ones (what it recomputes) that run under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.unbatched = self.batched = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if ttf.unbatched_product(func, args):
+            self.unbatched += 1
+        elif func is torch.ops.aten.bmm.default:
+            self.batched += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_remat_dots_backward_recomputes_no_unbatched_product(loss_pair):
+    """Under "dots" the backward runs exactly the unbatched products of the
+    backward without remat: none is recomputed, while "full" recomputes
+    some.  The batched products (scores, MoE experts) are recomputed under
+    "dots" as under "full"."""
+    _, tcfg, jparams, tokens = loss_pair
+    counts = {}
+    for name, remat, policy in (("none", False, "full"), ("full", True, "full"),
+                                ("dots", True, "dots")):
+        mode = _Products()
+        _loss_and_grads(tcfg.replace(remat=remat, remat_policy=policy), jparams, tokens,
+                        count=mode)
+        counts[name] = (mode.unbatched, mode.batched)
+    assert counts["dots"][0] == counts["none"][0] > 0
+    assert counts["full"][0] > counts["none"][0]
+    assert counts["dots"][1] == counts["full"][1] > counts["none"][1]
 
 
 @pytest.mark.parametrize("remat", [True, False])
@@ -185,12 +261,176 @@ def test_mla_mtp_train_loss_and_grads_match_jax(remat):
     assert len(mtp) == 16 and all(bool(g.abs().max() > 0) for _, g in mtp)
 
 
-@pytest.mark.parametrize("kw,item", [({"compress_fn": lambda g: g}, "compress.py"),
-                                     ({"shard_ctx": object()}, "shardctx.py")])
-def test_unported_step_options_raise(kw, item):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_compressed_step_matches_jax(arch):
+    """Three steps with top-k gradient compression (ratio 0.25, no carried
+    feedback: stateless under jit) against the JAX package's jitted no-mesh
+    step given JAX's compressor: loss and gnorm (of the compressed
+    gradient) within 1e-6 at every step; JAX's compressor given the very
+    gradients the port's step handed its compressor returns what the port's
+    returned, bit for bit; and the step really sent a sparse gradient (the
+    same steps without compression move the weights elsewhere).  The
+    weights are not compared leaf by leaf: a gradient entry within a
+    sum-order difference of its leaf's k-th magnitude falls on either side
+    of the cut (2 of mixtral's 65536 ``w_gate`` entries after three steps).
+
+    JAX's ``compress_topk`` takes the tree apart with ``is_leaf=tuple``,
+    which also catches a model's ``stages`` tuple (an IndexError on every
+    model's gradient tree), so the JAX side applies it leaf by leaf; the
+    port's walks the tree by its paths."""
+    from repro.runtime import compress as jc
+    from repro_torch.runtime import compress as tc
+
+    jcfg, tcfg = _configs(arch, train_microbatches=2)
+
+    def jcompress(g):
+        return jax.tree.map(
+            lambda x: jc.compress_topk({"x": x}, jc.init_feedback({"x": x}), 0.25)[0]["x"], g)
+
+    seen = []
+
+    def tcompress(g):
+        sent = tc.compress_topk(g, tc.init_feedback(g), 0.25)[0]
+        # copies: the optimizer clips the gradients it is handed in place
+        seen.append((tree_map(torch.clone, g), tree_map(torch.clone, sent)))
+        return sent
+    jstep = jax.jit(jsteps.make_train_step(jcfg, jsteps.TrainHParams(**HP),
+                                           compress_fn=jcompress))
+    tstep = tsteps.make_train_step(tcfg, tsteps.TrainHParams(**HP), compress_fn=tcompress)
+    plain = tsteps.make_train_step(tcfg, tsteps.TrainHParams(**HP))
+    jp = init_param_tree(jtf.param_specs(jcfg), jax.random.PRNGKey(1))
+    jo = init_param_tree(joptim.opt_state_specs(jcfg, jtf.param_specs(jcfg)),
+                         jax.random.PRNGKey(0))
+    tp, to = params_from_jax(tcfg, _np(jp)), opt_state_from_jax(tcfg, _np(jo))
+    pp, po = params_from_jax(tcfg, _np(jp)), opt_state_from_jax(tcfg, _np(jo))
+    rng = np.random.default_rng(1)
+    for step in range(3):
+        tokens = rng.integers(0, SCALE["vocab"], (2, 2, 64)).astype(np.int32)
+        jp, jo, jm = jstep(jp, jo, {"tokens": jnp.asarray(tokens)},
+                           jnp.asarray(step, jnp.int32))
+        tp, to, tm = tstep(tp, to, {"tokens": torch.from_numpy(tokens)}, step)
+        pp, po, _ = plain(pp, po, {"tokens": torch.from_numpy(tokens)}, step)
+        for key in ("loss", "gnorm"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=1e-6,
+                                       err_msg=key)
+        grads, sent = seen[-1]
+        want = jcompress(jax.tree.unflatten(jax.tree.structure(jp),
+                                            [jnp.asarray(g.numpy()) for g in leaves(grads)]))
+        for (path, a), b in zip(flatten(sent), jax.tree.leaves(want)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=path)
+    assert len(seen) == 3
+    assert not torch.allclose(tp["head"], pp["head"])
+
+
+def test_sharded_step_on_one_rank_matches_plain():
+    """The sharded step on a 1x1 mesh (one gloo rank, in-process): params and
+    moments are DTensors before and after, and three steps give the plain
+    step's loss and gnorm (rtol 1e-6) and weights (1e-5 of each leaf's
+    scale: its largest entry and at least the peak learning rate, as
+    ``tests/test_torch_sharding.py`` holds four ranks; the sharded loss's
+    log-sum-exp is summed in another order, and AdamW turns that into up to
+    2e-6 of a zero-initialised norm scale's largest entry)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.runtime import sharding as shd
+
+    _, tcfg = _configs(train_microbatches=2)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        shape = ShapeConfig("t", "train", 64, 4)
+        rules = shd.make_rules(tcfg, mesh, shape)
+        hp = tsteps.TrainHParams(**HP)
+        sharded = tsteps.make_train_step(tcfg, hp, shard_ctx=(mesh, rules))
+        plain = tsteps.make_train_step(tcfg, hp)
+        pspecs = ttf.param_specs(tcfg)
+        p, o = train.init_state((pspecs, topt_state_specs(tcfg, pspecs)),
+                                torch.device("cpu"), 0)
+        sp = shd.distribute_tree(tree_map(torch.clone, p), mesh,
+                                 shd.spec_shardings(pspecs, mesh, rules))
+        so = shd.distribute_tree(tree_map(torch.clone, o), mesh,
+                                 shd.spec_shardings(topt_state_specs(tcfg, pspecs),
+                                                    mesh, rules))
+        bpl = shd.spec_shardings(tsteps.input_specs(tcfg, shape), mesh, rules)
+        rng = np.random.default_rng(1)
+        for step in range(3):
+            tokens = torch.from_numpy(rng.integers(0, SCALE["vocab"], (2, 2, 64))
+                                      .astype(np.int32))
+            p, o, pm = plain(p, o, {"tokens": tokens}, step)
+            sp, so, sm = sharded(sp, so, shd.distribute_tree({"tokens": tokens}, mesh, bpl),
+                                 step)
+            for key in ("loss", "gnorm"):
+                assert type(sm[key]) is torch.Tensor
+                np.testing.assert_allclose(float(sm[key]), float(pm[key]), rtol=1e-6)
+        assert all(hasattr(x, "placements") for x in leaves(sp) + leaves(so))
+        for (path, a), b in zip(flatten(sp), leaves(p)):
+            scale = max(float(b.abs().max()), HP["peak_lr"])
+            np.testing.assert_allclose(a.full_tensor().numpy(), b.numpy(), rtol=0,
+                                       atol=1e-5 * scale, err_msg=path)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_remat_recompute_on_another_thread_keeps_the_mesh_scope():
+    """On the card autograd runs the backward on its device thread, where a
+    scope opened by the step's thread does not hold.  A checkpointed layer's
+    recompute (with flash, which needs the scope to place its DTensors)
+    run from a thread of its own gives the gradients of the same-thread
+    backward, bit for bit (one gloo rank, a 1x1 mesh)."""
+    import threading
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.runtime import shardctx
+    from repro_torch.runtime import sharding as shd
+
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match=item):
-        tsteps.make_train_step(tcfg, **kw)
+    assert tcfg.remat
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        rules = shd.make_rules(tcfg, mesh, ShapeConfig("t", "train", 64, 2))
+        pspecs = ttf.param_specs(tcfg)
+        params, _ = train.init_state((pspecs, topt_state_specs(tcfg, pspecs)),
+                                     torch.device("cpu"), 0, mesh=mesh,
+                                     placements=(shd.spec_shardings(pspecs, mesh, rules),
+                                                 shd.spec_shardings(topt_state_specs(
+                                                     tcfg, pspecs), mesh, rules), None))
+        tokens = torch.from_numpy(np.random.default_rng(3).integers(
+            0, SCALE["vocab"], (2, 64)).astype(np.int32))
+        flat = leaves(params)
+        for x in flat:
+            x.requires_grad_(True)
+        grads = []
+        for threaded in (False, True):
+            with shardctx.scope(mesh, rules):
+                batch = shd.distribute_tree({"tokens": tokens}, mesh,
+                                            {"tokens": shd.pspec_placements(("data",), mesh)})
+                loss, _ = ttf.train_loss(tcfg, params, batch, use_flash=True)
+            out = {}
+
+            def backward():
+                try:
+                    out["grads"] = torch.autograd.grad(loss, flat)
+                except Exception as e:      # noqa: BLE001 -- reported below
+                    out["error"] = e
+            if threaded:
+                worker = threading.Thread(target=backward)
+                worker.start()
+                worker.join()
+            else:
+                with shardctx.scope(mesh, rules):
+                    backward()
+            assert "error" not in out, out.get("error")
+            grads.append([g.full_tensor() for g in out["grads"]])
+        for a, b in zip(*grads):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -259,10 +499,14 @@ def test_launcher_resumes_from_checkpoint(tmp_path):
     np.testing.assert_allclose(losses, whole[8:], rtol=1e-6)
 
 
-def test_launcher_failure_injection_recovers(tmp_path):
+def test_launcher_failure_injection_recovers(tmp_path, capsys):
     losses = train.main(["--steps", "12", "--ckpt-every", "4",
                          "--inject-failure", "6", "--use-flash",
                          "--ckpt-dir", str(tmp_path / "ck"), *ARGS])
+    # one rank: the plain step on a 1x1 mesh, re-meshed onto the same mesh
+    out = capsys.readouterr().out
+    assert "mesh={'data': 1, 'model': 1} step=plain (one rank)" in out
+    assert "resumed at step 4 on 1 device(s), mesh={'data': 1, 'model': 1}" in out
     # restored to step 4 then re-ran: steps 5 and 6 ran twice, alike
     assert len(losses) == 14
     np.testing.assert_allclose(losses[6:8], losses[4:6], rtol=1e-6)
