@@ -34,8 +34,8 @@ Phases, each of which raises on failure (exit code != 0):
                tests' shapes and three ragged ones (bit-identical across the
                tiles of a dtype; refused tiles raise), then Yi-6B's ffn_up
                shape
-  8. tune      ``python -m repro_torch tune --arch yi-6b --backend wallclock``
-               through its ``main``: every candidate tile of Yi-6B's 14
+  8. tune      ``python -m repro_torch tune --skip ds mesh --arch yi-6b
+               --backend wallclock`` through its ``main`` (the kernel family): every candidate tile of Yi-6B's 14
                cases (12 GEMM on K1, 2 flash on K2) timed on the card, the
                measured tuners fitted, the evaluation table written (store
                in a temporary directory)
@@ -171,6 +171,34 @@ Phases, each of which raises on failure (exit code != 0):
                limits); at 8 layers step ms and peak memory beside phase
                12's, K2 still launched twice a layer a microbatch (the
                checkpoint recomputes it)
+ 26. ds-tune   ``python -m repro_torch tune --skip kernel --refit-demo`` through
+               its ``main`` with the data on the card: the reference's four
+               ds-array sweeps (kmeans 512x32 and 2048x8, rf 1024x16, pca
+               256x64, Environment(n_workers=4, mem_limit_mb=64)), the fit,
+               two kmeans predictions, the refit demo (retrained, an
+               invalidation), the mesh family over 64 chips on the H100's
+               constants; every task body ran on the card
+               (``taskgraph.BODIES``), K1/K2/K2 bwd launched 0 times, the
+               records by source equal the same CLI's with ``--device cpu``,
+               a rerun appends nothing, every ds record is tagged as the
+               card's (``tune.ds_timing``); then one kmeans sweep whose memory
+               limit binds (128x16 at 0.02 MB): measured OOM and pruned
+               cells, the pattern as on the CPU
+ 27. blest     BLEST-ML at the paper's data sizes with the data on the card:
+               ``grid_search(..., reuse_measurements=True)`` of kmeans on
+               hepmass_like (7,000,000 x 27 float64, 1.51 GB) and pca on
+               mnist_like (60,000 x 784, 376 MB) under the MareNostrum 4
+               node, Environment(n_workers=48, mem_limit_mb=2048, ram_gb=96)
+               (partitions 1..128 a side): each grid, its argmin and
+               grid_stats, measured OOM and pruned cells, the sweeps' wall
+               seconds and peak memory; the estimator fitted on both sweeps
+               (in sample: it reproduces its own labels), and held out: fitted
+               on phase 26's card sweeps and the other paper sweep; each
+               predicted cell's measured time against the argmin's; a
+               4096x64 kmeans on the card against the CPU (centers rtol/atol
+               1e-8, labels equal, inertia rtol 1e-8); one ``_center_partial``
+               re-executed on the card bit-identical, and a kmeans whose lost
+               worker's task re-executes from lineage
 serve_model counts one K2 launch per attention-bearing layer of a GQA
 model, and none for MLA.
 The whole shapes (phases 4, 11, 14, 17, 19-21) are held against the plain
@@ -191,6 +219,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -207,8 +236,18 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
+from repro_torch.algorithms import kmeans  # noqa: E402
+from repro_torch.algorithms import run as run_algo  # noqa: E402
 from repro_torch.configs.workloads import zoo_cases  # noqa: E402
+from repro_torch.core.estimator import BlockSizeEstimator  # noqa: E402
+from repro_torch.core.gridsearch import grid_powers, grid_search, grid_stats  # noqa: E402
+from repro_torch.core.log import ExecutionLog  # noqa: E402
 from repro_torch.core.kerneltune import bucket_pow2  # noqa: E402
+from repro_torch.data import taskgraph  # noqa: E402
+from repro_torch.data.datasets import gaussian_blobs, hepmass_like, mnist_like  # noqa: E402
+from repro_torch.data.distarray import DistArray  # noqa: E402
+from repro_torch.data.executor import Environment, TaskExecutor, TaskMemoryError  # noqa: E402
+from repro_torch.data.logstore import LogStore  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -218,6 +257,7 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.launch import mesh as mesh_launch  # noqa: E402
 from repro_torch.runtime import compress  # noqa: E402
 from repro_torch.runtime.elastic import make_plan_mesh, plan_mesh  # noqa: E402
+from repro_torch.runtime.fault import FaultPlan, WorkerLoss  # noqa: E402
 from repro_torch.runtime.pipeline import DataPipeline, PipelineConfig  # noqa: E402
 from repro_torch.runtime.tree import flatten, leaves  # noqa: E402
 from repro_torch.runtime.tree import unflatten as tree_unflatten  # noqa: E402
@@ -722,8 +762,8 @@ def phase_k1(device):
 def phase_tune():
     """The tuning loop on the card, through the CLI's ``main``."""
     with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--arch", "yi-6b", "--backend", "wallclock", "--device", "cuda",
-                "--store", str(Path(tmp) / "tune_store.jsonl")]
+        argv = ["--skip", "ds", "mesh", "--arch", "yi-6b", "--backend", "wallclock",
+                "--device", "cuda", "--store", str(Path(tmp) / "tune_store.jsonl")]
         mm.launches = fa.launches = 0
         result = tune.main(argv)
         launches = {"matmul": mm.launches, "flash": fa.launches}
@@ -1386,6 +1426,270 @@ def phase_train_dots(device, full):
     return r
 
 
+# phase 26: the reference's tune CLI sweeps (launch/tune.py::DS_SWEEPS under
+# Environment(n_workers=4, mem_limit_mb=64)) never exhaust their budget, so
+# the measured-OOM and pruned cells are held on one more sweep whose memory
+# limit binds: tests/test_taskgraph.py's kmeans 128 x 16 at 0.02 MB
+DS_OOM_SWEEP = dict(rows=128, cols=16, seed=0, mem_limit_mb=0.02)
+
+
+def _ds_kernel_launches() -> dict:
+    return {"matmul": mm.launches, "flash": fa.launches, "flash_bwd": fa.bwd_launches}
+
+
+def _store_lines(path) -> int:
+    return len(Path(path).read_text().splitlines())
+
+
+def _inf_pattern(log) -> list:
+    return [(r.p_r, r.p_c, math.isinf(r.time_s), bool(r.meta.get("oom")),
+             bool(r.meta.get("pruned"))) for r in log.records]
+
+
+def _oom_cells(X, y, env, backend) -> list:
+    cells = []
+    for p_r in grid_powers(env.n_workers, mult=1):
+        for p_c in grid_powers(env.n_workers, mult=1):
+            ex = TaskExecutor(env, backend=backend)
+            try:
+                run_algo("kmeans", ex, DistArray.from_array(X, p_r, p_c), y)
+            except TaskMemoryError:
+                cells.append((p_r, p_c))
+            finally:
+                ex.shutdown()
+    return cells
+
+
+def phase_ds_tune(device) -> dict:
+    """``tune``'s ds-array and mesh families through the CLI's ``main``, the
+    ds task bodies on the card; the same CLI on the CPU for the record
+    counts; a rerun appends nothing."""
+    tag = "ds-tune"
+    with tempfile.TemporaryDirectory() as tmp:
+        card_store, cpu_store = Path(tmp) / "card.jsonl", Path(tmp) / "cpu.jsonl"
+        argv = ["--skip", "kernel", "--refit-demo", "--store"]
+        taskgraph.reset_body_counts()
+        mm.launches = fa.launches = fa.bwd_launches = 0
+        t0 = time.perf_counter()
+        out = tune.main(argv + [str(card_store), "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        bodies, launches = dict(taskgraph.BODIES), _ds_kernel_launches()
+        on_card = sum(v for k, v in bodies.items() if k.startswith("cuda"))
+        if on_card == 0 or on_card != sum(bodies.values()):
+            raise SystemExit(f"[{tag}] task bodies by device {bodies}: not all on the card")
+        if any(launches.values()):
+            raise SystemExit(f"[{tag}] the ds and mesh paths launched kernels: {launches}")
+        lines = _store_lines(card_store)
+        ds_records = LogStore(card_store).load(source="grid_search").records
+        if {r.env.get("timing") for r in ds_records} != {tune.ds_timing("cuda")["timing"]}:
+            raise SystemExit(f"[{tag}] ds records not all tagged as the card's")
+        tune.main(argv + [str(card_store), "--device", "cuda"])
+        if _store_lines(card_store) != lines:
+            raise SystemExit(f"[{tag}] the rerun appended to the store")
+        cpu = tune.main(argv + [str(cpu_store), "--device", "cpu"])
+        if out["sources"] != cpu["sources"]:
+            raise SystemExit(f"[{tag}] records by source {out['sources']} on the card, "
+                             f"{cpu['sources']} on the CPU")
+    refit = out["ds"]["refit"]
+    if not refit["retrained"] or refit["invalidations"] < 1:
+        raise SystemExit(f"[{tag}] refit demo: {refit}")
+    # the memory model on tensors: a measured OOM and a pruned cell, the
+    # inf/pruned pattern as on the CPU
+    s = DS_OOM_SWEEP
+    env = Environment(n_workers=4, mem_limit_mb=s["mem_limit_mb"])
+    pats = {}
+    for dev in ("cuda", "cpu"):
+        X, y = gaussian_blobs(s["rows"], s["cols"], seed=s["seed"], device=dev)
+        log, _ = grid_search(X, y, "kmeans", env, mult=1)
+        pats[dev] = _inf_pattern(log)
+    if pats["cuda"] != pats["cpu"] or not any(p[3] for p in pats["cuda"]) \
+            or not any(p[4] for p in pats["cuda"]):
+        raise SystemExit(f"[{tag}] OOM/pruned pattern on the card {pats['cuda']}, "
+                         f"on the CPU {pats['cpu']}")
+    n_oom = sum(p[3] for p in pats["cuda"])
+    n_pruned = sum(p[4] for p in pats["cuda"])
+    # the threadpool backend (a CUDA stream a pool thread) runs out of
+    # memory on the cells where the inline one does, pruning off
+    X, y = gaussian_blobs(s["rows"], s["cols"], seed=s["seed"], device="cuda")
+    oom = {b: _oom_cells(X, y, env, b) for b in ("inline", "threadpool")}
+    if oom["inline"] != oom["threadpool"] or not oom["inline"]:
+        raise SystemExit(f"[{tag}] OOM cells inline {oom['inline']}, threadpool "
+                         f"{oom['threadpool']}")
+    dp, tp, mb = out["mesh"]["predictions"]["deepseek-7b"]
+    preds = {f"{r}x{c}": p for (r, c), p in out["ds"]["predictions"].items()}
+    print(f"[{tag}] bodies {bodies}; records by source {out['sources']} (= the CPU "
+          f"run's); kmeans predictions {preds}; refit retrained={refit['retrained']} "
+          f"invalidations={refit['invalidations']} before={refit['before']} "
+          f"after={refit['after']}; deepseek-7b train_4k on 64 H100s: dp={dp} tp={tp} "
+          f"microbatches={mb}; wall_s={wall:.3f} (ds {out['ds']['wall_s']:.3f}, mesh "
+          f"{out['mesh']['wall_s']:.3f}); kmeans {s['rows']}x{s['cols']} at "
+          f"{s['mem_limit_mb']} MB: {n_oom} measured OOM, {n_pruned} pruned, as on the "
+          f"CPU; OOM cells without pruning {oom['inline']} inline and threadpool; kernel "
+          f"launches {launches}", flush=True)
+    return {"bodies": bodies, "launches": launches, "wall_s": wall,
+            "records": ds_records}
+
+
+# phase 27: BLEST-ML at the paper's data sizes, under the paper's MareNostrum
+# 4 node (48 cores, 96 GB, 2 GB a core); grid_powers(48) is 1..128
+MN4 = dict(name="mn4-node", n_workers=48, mem_limit_mb=2048.0, ram_gb=96.0)
+BLEST_SWEEPS = [("hepmass", "kmeans"), ("mnist", "pca")]
+# the card against the CPU: a kmeans both run through the port
+KMEANS_CHECK = dict(rows=4096, cols=64, parts=(8, 4), k=8, iters=5, seed=3)
+
+
+def _print_grid(tag, name, grid, records):
+    """One line a p_r: the cell's seconds, or why it is inf (a measured
+    OOM, pruned as coarser than one, or a split finer than the data)."""
+    why = {(r.p_r, r.p_c): ("oom" if r.meta.get("oom") else "pruned"
+                            if r.meta.get("pruned") else "-") for r in records}
+    rows = sorted({r for r, _ in grid})
+    cols = sorted({c for _, c in grid})
+    print(f"[{tag}] {name} grid, seconds by (p_r, p_c); p_c = {cols}", flush=True)
+    for r in rows:
+        cells = [why[(r, c)] if math.isinf(grid[(r, c)]) else f"{grid[(r, c)]:.6f}"
+                 for c in cols]
+        print(f"[{tag}]   p_r={r:<4} {' '.join(f'{v:>10}' for v in cells)}", flush=True)
+
+
+def _card_vs_cpu(tag):
+    c = KMEANS_CHECK
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        X, _ = gaussian_blobs(c["rows"], c["cols"], seed=c["seed"], device=dev)
+        ex = TaskExecutor(Environment(n_workers=4))
+        outs[dev] = kmeans.fit(ex, DistArray.from_array(X, *c["parts"]), k=c["k"],
+                               iters=c["iters"], seed=c["seed"])
+    card, cpu = outs["cuda"], outs["cpu"]
+    torch.testing.assert_close(card["centers"].cpu(), cpu["centers"], rtol=1e-8, atol=1e-8)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(card["labels"], cpu["labels"])):
+        raise SystemExit(f"[{tag}] kmeans labels differ between the card and the CPU")
+    if not math.isclose(card["inertia"], cpu["inertia"], rel_tol=1e-8):
+        raise SystemExit(f"[{tag}] inertia {card['inertia']} on the card, "
+                         f"{cpu['inertia']} on the CPU")
+    err = (card["centers"].cpu() - cpu["centers"]).abs().max().item()
+    # the threadpool backend, each pool thread on a stream of its own,
+    # gives the inline backend's values
+    X, _ = gaussian_blobs(c["rows"], c["cols"], seed=c["seed"], device="cuda")
+    ex = TaskExecutor(Environment(n_workers=4), backend="threadpool")
+    pool = kmeans.fit(ex, DistArray.from_array(X, *c["parts"]), k=c["k"],
+                      iters=c["iters"], seed=c["seed"])
+    ex.shutdown()
+    if not (torch.equal(pool["centers"], card["centers"])
+            and pool["inertia"] == card["inertia"]
+            and all(torch.equal(a, b) for a, b in zip(pool["labels"], card["labels"]))):
+        raise SystemExit(f"[{tag}] the threadpool backend's kmeans differs from the "
+                         "inline one's on the card")
+    return err, card["inertia"], cpu["inertia"]
+
+
+def _lineage_on_card(tag, X):
+    """One ``_center_partial`` body re-executed on the card (the lineage
+    contract), then a kmeans whose lost worker's task re-executes from
+    lineage under the task graph's own bit-identity check."""
+    rows = X[: X.shape[0] // 4]
+    lab = torch.randint(0, 8, (rows.shape[0],), device=rows.device,
+                        generator=torch.Generator(rows.device).manual_seed(0))
+    first = kmeans._center_partial(rows, (lab, 0.0), 8)
+    again = kmeans._center_partial(rows, (lab, 0.0), 8)
+    if not taskgraph._bit_identical(first, again):
+        raise SystemExit(f"[{tag}] _center_partial re-executed on the card is not "
+                         "bit-identical")
+    c = KMEANS_CHECK
+    Xs, _ = gaussian_blobs(c["rows"], c["cols"], seed=c["seed"], device="cuda")
+    free = TaskExecutor(Environment(n_workers=4))
+    ref = kmeans.fit(free, DistArray.from_array(Xs, *c["parts"]), k=c["k"], iters=2)
+    for frac in (0.5, 0.35, 0.65, 0.2, 0.8, 0.1, 0.9):
+        plan = FaultPlan(losses=(WorkerLoss(1, frac * free.sim_time),))
+        ex = TaskExecutor(Environment(n_workers=4), fault_plan=plan)
+        got = kmeans.fit(ex, DistArray.from_array(Xs, *c["parts"]), k=c["k"], iters=2)
+        if ex.fault_stats()["reexecuted_tasks"]:
+            break
+    else:
+        raise SystemExit(f"[{tag}] no planned loss caught a task in flight")
+    if not torch.equal(got["centers"], ref["centers"]):
+        raise SystemExit(f"[{tag}] the recovered kmeans differs from the fault-free one")
+    return rows.shape[0], ex.fault_stats()["reexecuted_tasks"]
+
+
+def _estimate(tag, est, how, name, shape, algo, env, grid):
+    n, m = shape
+    pr, pc = est.predict_partitions(n, m, algo, env.features())
+    br, bc = est.predict_block_size(n, m, algo, env.features())
+    st = grid_stats(grid)
+    t_pred = grid.get((pr, pc), math.inf)
+    print(f"[{tag}] estimator {how}, {name}: predicted (p_r, p_c)=({pr},{pc}), block "
+          f"{br}x{bc}; measured {t_pred:.6f} s there against the argmin "
+          f"{st['best_part']} {st['best']:.6f} s (ratio {t_pred / st['best']:.4f})",
+          flush=True)
+
+
+def phase_blest(device, smi, cli_records) -> dict:
+    """``grid_search(..., reuse_measurements=True)`` on the paper's two data
+    sizes with the data on the card, the estimator fitted on both sweeps
+    (in sample) and on ``cli_records`` (phase 26's card sweeps) with one
+    sweep held out, and the card held against the CPU."""
+    tag = "blest"
+    env = Environment(**MN4)
+    data = {"hepmass": hepmass_like, "mnist": mnist_like}
+    log, grids, walls = ExecutionLog(), {}, {}
+    taskgraph.reset_body_counts()
+    mm.launches = fa.launches = fa.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    shapes, flags = {}, {"oom": 0, "pruned": 0}
+    for name, algo in BLEST_SWEEPS:
+        t0 = time.perf_counter()
+        X, y = data[name](scale=1.0, device="cuda")
+        gen_s = time.perf_counter() - t0
+        shapes[name] = tuple(X.shape)
+        t0 = time.perf_counter()
+        log, grid = grid_search(X, y, algo, env, reuse_measurements=True, log=log)
+        walls[name] = time.perf_counter() - t0
+        grids[name] = grid
+        st = grid_stats(grid)
+        records = [r for r in log.records if r.algo == algo]
+        n_pruned = sum(1 for r in records if r.meta.get("pruned"))
+        n_oom = sum(1 for r in records if r.meta.get("oom"))
+        flags["oom"] += n_oom
+        flags["pruned"] += n_pruned
+        print(f"[{tag}] {name} {X.shape[0]}x{X.shape[1]} float64 "
+              f"({X.numel() * 8 / 1e9:.3f} GB, made in {gen_s:.1f} s) {algo} under "
+              f"{MN4}: sweep wall_s={walls[name]:.3f}", flush=True)
+        _print_grid(tag, name, grid, records)
+        print(f"[{tag}] {name} argmin {st['best_part']} {st['best']:.6f} s; best "
+              f"{st['best']:.6f}, avg {st['avg']:.6f}, worst {st['worst']:.6f} s at "
+              f"{st['worst_part']}; {st['n_finite']} finite, {st['n_oom']} inf "
+              f"({n_oom} measured OOM, {n_pruned} pruned)", flush=True)
+        if name == "hepmass":
+            lineage_rows, reexec = _lineage_on_card(tag, X)
+        del X, y
+    if not flags["oom"] or not flags["pruned"]:
+        raise SystemExit(f"[{tag}] expected measured OOM and pruned cells: {flags}")
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    bodies, launches = dict(taskgraph.BODIES), _ds_kernel_launches()
+    if any(not k.startswith("cuda") for k in bodies) or any(launches.values()):
+        raise SystemExit(f"[{tag}] bodies {bodies}, kernel launches {launches}")
+    # in sample: the tree reproduces the argmin labels it was fitted on
+    est = BlockSizeEstimator("tree").fit(log)
+    for name, algo in BLEST_SWEEPS:
+        _estimate(tag, est, "in sample", name, shapes[name], algo, env, grids[name])
+    # held out: fitted on phase 26's card sweeps and the other paper sweep
+    for name, algo in BLEST_SWEEPS:
+        train_recs = list(cli_records) + [r for r in log.records if r.algo != algo]
+        held = BlockSizeEstimator("tree").fit(ExecutionLog(train_recs))
+        _estimate(tag, held, "held out", name, shapes[name], algo, env, grids[name])
+    err, inertia_card, inertia_cpu = _card_vs_cpu(tag)
+    c = KMEANS_CHECK
+    print(f"[{tag}] sweeps wall_s {sum(walls.values()):.3f}; peak "
+          f"{peak:.3f} GB (max_memory_allocated) on {smi}; bodies {bodies}; kernel "
+          f"launches {launches}; kmeans {c['rows']}x{c['cols']} card vs CPU: centers "
+          f"max abs err {err:.3e}, inertia {inertia_card!r} vs {inertia_cpu!r}, labels "
+          f"equal, threadpool backend bit-identical to inline; _center_partial over {lineage_rows} rows re-executed bit-identical; "
+          f"lineage recovery re-executed {reexec} task(s), centers bit-identical",
+          flush=True)
+    return {"walls": walls, "peak_gb": peak, "launches": launches}
+
+
 # phase 14: gemma3-27b served whole, and the prefill shape of its local layers
 GEMMA3_SERVE = dict(batch=4, prompt=1536, gen=32)
 GEMMA3_LOCAL = dict(B=4, T=1536, H=32, KV=16, d=128, window=1024, meta=0)
@@ -1701,6 +2005,10 @@ def main() -> int:
     sharded = phase_train_sharded(device, train_report)
     phase_train_compress(device, train_report)
     dots = phase_train_dots(device, train_report)
+    ds = phase_ds_tune(device)
+    blest = phase_blest(device, smi, ds["records"])
+    # ds_launches: phases 26 and 27 (the ds-array and mesh paths launch none)
+    ds_launches = {k: ds["launches"][k] + blest["launches"][k] for k in ds["launches"]}
     record = {"kernels": [
         # the times are the bf16 kernel's at the serving shape (train_4k
         # beside them, and gemma3-27b's local-layer shape as local_*); the
@@ -1724,7 +2032,7 @@ def main() -> int:
              phi3_launches=phi3["launches"], musicgen_launches=musicgen["launches"],
              deepseek_launches=deepseek["launches"],
              sharded_launches=sharded["launches"]["fwd"],
-             dots_launches=dots["launches"]["fwd"],
+             dots_launches=dots["launches"]["fwd"], ds_launches=ds_launches["flash"],
              max_abs_err=err, **times, **gemma3_local, **hymba_local, **h2o_local,
              **phi3_local, **musicgen_local),
         # the times are the bf16 kernels' at train_4k (phase 11), and at
@@ -1739,7 +2047,8 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention.py:149",
              launches=train_report["launches"]["bwd"],
              sharded_launches=sharded["launches"]["bwd"],
-             dots_launches=dots["launches"]["bwd"], max_abs_err=bwd_err,
+             dots_launches=dots["launches"]["bwd"], ds_launches=ds_launches["flash_bwd"],
+             max_abs_err=bwd_err,
              **bwd_times),
         # the times are the bf16 kernel's; the fp32 kernel and the C entry
         # point that picks between them are in matmul_blocked.cu (phase 7)
@@ -1747,7 +2056,8 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/matmul_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/matmul_blocked.cu",
              replaces="src/repro/kernels/matmul_blocked.py:20",
-             launches=tune_launches["matmul"], max_abs_err=k1_err, **k1_times)]}
+             launches=tune_launches["matmul"], ds_launches=ds_launches["matmul"],
+             max_abs_err=k1_err, **k1_times)]}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

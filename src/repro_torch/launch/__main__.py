@@ -2,8 +2,9 @@
 
     python -m repro_torch serve --arch yi-6b --preset full   # on the card
     python -m repro_torch serve --preset small --device cpu  # on the CPU
-    python -m repro_torch tune --arch yi-6b                  # tile tuner, on the card
+    python -m repro_torch tune --arch yi-6b                  # three tuners, on the card
     python -m repro_torch tune --device cpu --backend sim    # on the CPU
+    python -m repro_torch tune --skip kernel --refit-demo    # ds-array + mesh
     python -m repro_torch train --preset small --use-flash   # trainer, on the card
     python -m repro_torch train --preset small --device cpu  # on the CPU
     python -m repro_torch train --preset small --device cpu --host-devices 4 \
@@ -24,7 +25,8 @@ COMMANDS = {
     "serve": ("repro_torch.launch.serve",
               "batched prefill+decode serving driver"),
     "tune": ("repro_torch.launch.tune",
-             "measure, fit and evaluate the blocked-matmul tile tuner"),
+             "the three tuner families: ds-array block sizes, kernel "
+             "tiles, mesh"),
     "train": ("repro_torch.launch.train",
               "training launcher on a mesh with checkpoints, failure "
               "injection and elastic re-mesh"),

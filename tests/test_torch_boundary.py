@@ -37,7 +37,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "configs.workloads", "artifacts", "launch.train",
                  "runtime.optim", "runtime.steps", "runtime.pipeline",
                  "runtime.checkpoint", "runtime.fault", "runtime.tree",
-                 "models.moe", "models.ssm"):
+                 "models.moe", "models.ssm", "data.taskgraph", "data.executor",
+                 "data.distarray", "data.datasets", "algorithms",
+                 "algorithms.kmeans", "algorithms.pca", "algorithms.gmm",
+                 "algorithms.svm", "algorithms.rf", "core.gridsearch",
+                 "core.estimator", "core.meshtune"):
         assert f"repro_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))
