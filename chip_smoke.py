@@ -199,6 +199,37 @@ Phases, each of which raises on failure (exit code != 0):
                1e-8, labels equal, inertia rtol 1e-8); one ``_center_partial``
                re-executed on the card bit-identical, and a kmeans whose lost
                worker's task re-executes from lineage
+ 28. evaluate  ``python -m repro_torch evaluate --smoke`` through its
+               ``main`` on the card, its report and BENCH_eval.json under a
+               temporary directory: the paper's §V protocol over 5 workloads
+               x 3 shapes x 3 infrastructure profiles (45 grid-searched
+               groups) -- exact-hit rate, exponent distance, speedup over the
+               default blocking, leave-one-algorithm-out and
+               leave-one-environment-out -- and the closed-loop demo (first
+               run by the default, refit, second by the model, the memo
+               invalidated); then ``evaluate --skip-loop``, the full cube (4
+               shapes up to 4096 x 16, 60 groups); each run: every body on
+               the card, 0 kernel launches, both files written, the
+               checkout's BENCH_eval.json unchanged
+ 29. closed-loop  ``AutoTunedRun`` at the paper's sizes with phase 27's
+               estimator (in sample): kmeans on the 7,000,000 x 27 HEPMASS
+               stand-in and pca on the 60,000 x 784 MNIST stand-in under the
+               MareNostrum 4 node, each chosen by the model at phase 27's
+               argmin, run, appended to a store; then ``run_elastic`` of
+               kmeans on HEPMASS (5 iterations, the node drops to 24 workers
+               after 2): partitions, the repartition and its seconds,
+               recovery against restart, results close; peak memory
+ 30. serving   ``python -m repro_torch serve-estimator --demo`` through its
+               ``main`` (the demo sweep on the card; 4 shards, 4 clients,
+               400 requests, the refit daemon on): every request served, none
+               rejected or expired, 0 staleness violations, throughput and
+               p50/p95/p99 (host latencies: the router predicts on the host);
+               a swap under load: the demo's store and router, 2000 requests
+               from 4 clients, a pca sweep made on the card appended after
+               500 are served -- the daemon swaps during the load, cold
+               queries move to the model, 0 staleness violations;
+               ``closed_loop_demo(sharded=True)`` through the router; 0 kernel
+               launches over phases 28-30 (``eval_launches``)
 serve_model counts one K2 launch per attention-bearing layer of a GQA
 model, and none for MLA.
 The whole shapes (phases 4, 11, 14, 17, 19-21) are held against the plain
@@ -225,6 +256,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -247,12 +279,14 @@ from repro_torch.data import taskgraph  # noqa: E402
 from repro_torch.data.datasets import gaussian_blobs, hepmass_like, mnist_like  # noqa: E402
 from repro_torch.data.distarray import DistArray  # noqa: E402
 from repro_torch.data.executor import Environment, TaskExecutor, TaskMemoryError  # noqa: E402
-from repro_torch.data.logstore import LogStore  # noqa: E402
+from repro_torch.data.logstore import LogStore, timed_copies  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import matmul_blocked as mm  # noqa: E402
-from repro_torch.launch import serve, train, tune  # noqa: E402
+from repro_torch.eval.autorun import AutoTunedRun, EnvChange, closed_loop_demo  # noqa: E402
+from repro_torch.launch import evaluate as evaluate_launch  # noqa: E402
+from repro_torch.launch import serve, serve_estimator, train, tune  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.launch import mesh as mesh_launch  # noqa: E402
 from repro_torch.runtime import compress  # noqa: E402
@@ -261,6 +295,7 @@ from repro_torch.runtime.fault import FaultPlan, WorkerLoss  # noqa: E402
 from repro_torch.runtime.pipeline import DataPipeline, PipelineConfig  # noqa: E402
 from repro_torch.runtime.tree import flatten, leaves  # noqa: E402
 from repro_torch.runtime.tree import unflatten as tree_unflatten  # noqa: E402
+from repro_torch.serve import RefitDaemon, ShardRouter, make_trace, run_load  # noqa: E402
 from repro_torch.weights import init_params  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense bf16 tensor-core rate
@@ -1437,6 +1472,23 @@ def _ds_kernel_launches() -> dict:
     return {"matmul": mm.launches, "flash": fa.launches, "flash_bwd": fa.bwd_launches}
 
 
+def _reset_counts():
+    """Zero the executed-body counts and the three kernels' launch counts."""
+    taskgraph.reset_body_counts()
+    mm.launches = fa.launches = fa.bwd_launches = 0
+
+
+def _on_card_without_kernels(tag) -> dict:
+    """The kernel launches since ``_reset_counts``; raises unless some task
+    body ran, every one on the card, and no kernel launched."""
+    bodies, launches = dict(taskgraph.BODIES), _ds_kernel_launches()
+    if not bodies or any(not k.startswith("cuda") for k in bodies) \
+            or any(launches.values()):
+        raise SystemExit(f"[{tag}] bodies by device {bodies}, kernel launches {launches}")
+    return launches
+
+
+
 def _store_lines(path) -> int:
     return len(Path(path).read_text().splitlines())
 
@@ -1468,17 +1520,12 @@ def phase_ds_tune(device) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         card_store, cpu_store = Path(tmp) / "card.jsonl", Path(tmp) / "cpu.jsonl"
         argv = ["--skip", "kernel", "--refit-demo", "--store"]
-        taskgraph.reset_body_counts()
-        mm.launches = fa.launches = fa.bwd_launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         out = tune.main(argv + [str(card_store), "--device", "cuda"])
         wall = time.perf_counter() - t0
-        bodies, launches = dict(taskgraph.BODIES), _ds_kernel_launches()
-        on_card = sum(v for k, v in bodies.items() if k.startswith("cuda"))
-        if on_card == 0 or on_card != sum(bodies.values()):
-            raise SystemExit(f"[{tag}] task bodies by device {bodies}: not all on the card")
-        if any(launches.values()):
-            raise SystemExit(f"[{tag}] the ds and mesh paths launched kernels: {launches}")
+        bodies = dict(taskgraph.BODIES)
+        launches = _on_card_without_kernels(tag)
         lines = _store_lines(card_store)
         ds_records = LogStore(card_store).load(source="grid_search").records
         if {r.env.get("timing") for r in ds_records} != {tune.ds_timing("cuda")["timing"]}:
@@ -1633,8 +1680,7 @@ def phase_blest(device, smi, cli_records) -> dict:
     env = Environment(**MN4)
     data = {"hepmass": hepmass_like, "mnist": mnist_like}
     log, grids, walls = ExecutionLog(), {}, {}
-    taskgraph.reset_body_counts()
-    mm.launches = fa.launches = fa.bwd_launches = 0
+    _reset_counts()
     torch.cuda.reset_peak_memory_stats(device)
     shapes, flags = {}, {"oom": 0, "pruned": 0}
     for name, algo in BLEST_SWEEPS:
@@ -1666,9 +1712,8 @@ def phase_blest(device, smi, cli_records) -> dict:
     if not flags["oom"] or not flags["pruned"]:
         raise SystemExit(f"[{tag}] expected measured OOM and pruned cells: {flags}")
     peak = torch.cuda.max_memory_allocated(device) / 1e9
-    bodies, launches = dict(taskgraph.BODIES), _ds_kernel_launches()
-    if any(not k.startswith("cuda") for k in bodies) or any(launches.values()):
-        raise SystemExit(f"[{tag}] bodies {bodies}, kernel launches {launches}")
+    bodies = dict(taskgraph.BODIES)
+    launches = _on_card_without_kernels(tag)
     # in sample: the tree reproduces the argmin labels it was fitted on
     est = BlockSizeEstimator("tree").fit(log)
     for name, algo in BLEST_SWEEPS:
@@ -1687,7 +1732,262 @@ def phase_blest(device, smi, cli_records) -> dict:
           f"equal, threadpool backend bit-identical to inline; _center_partial over {lineage_rows} rows re-executed bit-identical; "
           f"lineage recovery re-executed {reexec} task(s), centers bit-identical",
           flush=True)
-    return {"walls": walls, "peak_gb": peak, "launches": launches}
+    return {"walls": walls, "peak_gb": peak, "launches": launches, "log": log,
+            "grids": grids}
+
+
+def _closed_loop_trail(tag, trail):
+    """The closed loop's audit: the first run abstains to the default, its
+    record refits the model, the second run is the model's, the memo is
+    flushed between."""
+    if not (trail["first_chosen_by"] == "default" and trail["second_chosen_by"] == "model"
+            and trail["first_retrained"] is True and trail["invalidations"] >= 1):
+        raise SystemExit(f"[{tag}] closed-loop trail {trail}")
+    print(f"[{tag}] closed loop{' (sharded)' if trail['sharded'] else ''}: run 1 by "
+          f"{trail['first_chosen_by']} {trail['partitions'][0]} {trail['times_s'][0]:.6f} s, "
+          f"refit v{trail['versions'][0]} -> v{trail['versions'][1]}, run 2 by "
+          f"{trail['second_chosen_by']} {trail['partitions'][1]} {trail['times_s'][1]:.6f} s; "
+          f"invalidations {trail['invalidations']}", flush=True)
+
+
+def _eval_row(m) -> str:
+    if not m.get("groups"):
+        return "no groups"
+    row = (f"{m['groups']} groups, hit {m['exact_hit_rate']:.4f}, exp distance "
+           f"{m['mean_exp_distance']:.4f}, within one {m['within_one_exp']:.4f}")
+    if "mean_speedup_vs_default" in m:
+        row += (f", speedup vs default {m['mean_speedup_vs_default']:.4f} (geomean "
+                f"{m['geomean_speedup_vs_default']:.4f})")
+    if "mean_regret_vs_best" in m:
+        row += f", regret {m['mean_regret_vs_best']:.4f}"
+    return row
+
+
+def _bench_eval_bytes():
+    path = ROOT / "BENCH_eval.json"
+    return path.read_bytes() if path.exists() else None
+
+
+# phase 28: the paper's protocol, the smoke cube (with the closed-loop demo)
+# then the full cube (harness only); 5 algorithms x 3 profiles x the shapes
+EVAL_RUNS = (("smoke", ["--smoke"], 5 * 3 * 3), ("full", ["--skip-loop"], 5 * 4 * 3))
+
+
+def _evaluate_once(tag, smi, argv, groups) -> dict:
+    """``evaluate`` through the launcher's ``main`` on the card, its files
+    under a temporary directory."""
+    checkout = _bench_eval_bytes()
+    _reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        bench = Path(tmp) / "bench" / "BENCH_eval.json"
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            report = evaluate_launch.main(argv + ["--artifacts", tmp,
+                                                  "--bench-out", str(bench)])
+        wall = time.perf_counter() - t0
+        written = sorted(str(p.relative_to(tmp)) for p in Path(tmp).rglob("*")
+                         if p.is_file())
+    launches = _on_card_without_kernels(tag)
+    if written != ["bench/BENCH_eval.json", "eval_report.json"]:
+        raise SystemExit(f"[{tag}] files written {written}")
+    if _bench_eval_bytes() != checkout:
+        raise SystemExit(f"[{tag}] the checkout's BENCH_eval.json changed")
+    n = report["config"]["n_groups"]
+    if n != groups:
+        raise SystemExit(f"[{tag}] {n} groups, expected {groups}")
+    print(f"[{tag}] {' '.join(argv)}: {n} groups, {report['config']['n_records']} records "
+          f"on {smi}; wall_s {wall:.3f} (harness {report['wall_s']:.3f})", flush=True)
+    print(f"[{tag}] overall: {_eval_row(report['overall'])}", flush=True)
+    for kind in ("per_algo", "per_env", "holdout_algo", "holdout_env"):
+        for name, m in report[kind].items():
+            print(f"[{tag}] {kind} {name}: {_eval_row(m)}", flush=True)
+    if "closed_loop" in report:
+        _closed_loop_trail(tag, report["closed_loop"])
+    print(f"[{tag}] bodies {dict(taskgraph.BODIES)}; kernel launches {launches}; wrote "
+          f"{written} under a temporary directory; the checkout's BENCH_eval.json "
+          "unchanged", flush=True)
+    return launches
+
+
+def phase_evaluate(smi) -> dict:
+    """The smoke cube with the closed-loop demo, then the full cube."""
+    launches = {}
+    for name, argv, groups in EVAL_RUNS:
+        got = _evaluate_once(f"evaluate {name}", smi, argv, groups)
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    return {"launches": launches}
+
+
+# phase 29: the node after losing half its workers
+MN4_LOSS = dict(MN4, name="mn4-node-24", n_workers=24)
+ELASTIC_ITERS, ELASTIC_AFTER = 5, 2
+
+
+def phase_closed_loop(device, smi, blest) -> dict:
+    """``AutoTunedRun`` at the paper's sizes on the card with phase 27's
+    estimator, then an elastic kmeans through a worker loss."""
+    tag = "closed-loop"
+    env = Environment(**MN4)
+    est = BlockSizeEstimator("tree").fit(blest["log"])
+    data = {"hepmass": hepmass_like, "mnist": mnist_like}
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = LogStore(Path(tmp) / "closed_loop.jsonl")
+        loop = AutoTunedRun(est, store)
+        kept = {}
+        for name, algo in BLEST_SWEEPS:
+            X, y = data[name](scale=1.0, device="cuda")
+            finite = {k: v for k, v in blest["grids"][name].items() if math.isfinite(v)}
+            argmin = min(finite, key=finite.get)
+            t0 = time.perf_counter()
+            r = loop.run(X, y, algo, env)
+            wall = time.perf_counter() - t0
+            if not (r.chosen_by == "model" and (r.p_r, r.p_c) == argmin
+                    and math.isfinite(r.time_s) and r.appended):
+                raise SystemExit(f"[{tag}] {name} {algo}: chosen by {r.chosen_by} at "
+                                 f"({r.p_r},{r.p_c}) (phase 27's argmin {argmin}), "
+                                 f"{r.time_s} s, appended {r.appended}")
+            print(f"[{tag}] {name} {tuple(X.shape)} {algo}: chosen by {r.chosen_by} at "
+                  f"({r.p_r},{r.p_c}) = phase 27's argmin; modeled {r.time_s:.6f} s "
+                  f"(phase 27: {finite[argmin]:.6f} s), {r.record.meta['tasks']} tasks, "
+                  f"wall_s {wall:.3f}; appended {r.appended}, retrained {r.retrained}",
+                  flush=True)
+            if name == "hepmass":
+                kept = {"X": X, "y": y}
+            del X, y
+        change = EnvChange(after_iter=ELASTIC_AFTER, env=Environment(**MN4_LOSS),
+                           reason="worker loss")
+        t0 = time.perf_counter()
+        e = loop.run_elastic(kept["X"], kept["y"], "kmeans", env, change,
+                             iters=ELASTIC_ITERS)
+        wall = time.perf_counter() - t0
+        del kept
+        sources = store.sources()
+    if not (e.results_close and math.isfinite(e.recovery_time_s)
+            and math.isfinite(e.restart_time_s)):
+        raise SystemExit(f"[{tag}] elastic kmeans: results_close {e.results_close}, "
+                         f"recovery {e.recovery_time_s} s, restart {e.restart_time_s} s")
+    launches = _on_card_without_kernels(tag)
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    print(f"[{tag}] elastic kmeans on hepmass, {ELASTIC_ITERS} iterations, "
+          f"{MN4['n_workers']} -> {MN4_LOSS['n_workers']} workers after {ELASTIC_AFTER}: "
+          f"partitions {e.partitions} chosen by {e.chosen_by}; repartition {e.repartition} "
+          f"in {e.repartition_s:.6f} s; recovery {e.recovery_time_s:.6f} s against restart "
+          f"{e.restart_time_s:.6f} s (speedup {e.speedup:.4f}); results close "
+          f"{e.results_close}; appended {e.appended}, retrained {e.retrained}; wall_s "
+          f"{wall:.3f}", flush=True)
+    print(f"[{tag}] store by source {sources}; peak {peak:.3f} GB (max_memory_allocated) "
+          f"on {smi}; bodies {dict(taskgraph.BODIES)}; kernel launches {launches}",
+          flush=True)
+    return {"launches": launches, "peak_gb": peak}
+
+
+# phase 30: serve-estimator --demo as its reference CLI defaults; then a
+# swap under load: the demo's store and router, the refit daemon on, and a
+# pca sweep made on the card appended once land_after requests are served
+SERVE_DEMO = dict(shards=4, clients=4, requests=400)
+SWAP_LOAD = dict(shards=4, clients=4, requests=2000, land_after=500)
+SERVE_ENV = dict(name="laptop", n_workers=4, n_nodes=1, mem_limit_mb=2048.0,
+                 dispatch_overhead_s=1e-4, ram_gb=16)
+
+
+def _swap_under_load(tag, smi) -> dict:
+    """The refit daemon swaps the router's model while four clients run:
+    the swap lands between the append and the trace's end, cold (pca)
+    queries move from the default to the model, and no request enqueued
+    after the swap is served by the older model."""
+    c = SWAP_LOAD
+    with tempfile.TemporaryDirectory() as tmp:
+        store = serve_estimator._demo_store(tmp, "cuda")
+        est = BlockSizeEstimator("tree").fit(store.load())
+        universe = serve_estimator._universe_from_store(store, set(est.known_algos))
+        n0, m0, _algo, env0 = universe[0]
+        X, y = gaussian_blobs(n0, m0, seed=9, device="cuda")
+        pca, _ = grid_search(X, y, "pca", Environment(**SERVE_ENV), mult=1,
+                             reuse_measurements=True)
+        trace = make_trace(c["requests"], universe, seed=0,
+                           cold_queries=[(n0, m0, "pca", env0)])
+        router = ShardRouter(est, n_shards=c["shards"], window_s=0.002)
+        daemon = RefitDaemon(router, store, interval_s=0.05).start()
+        done, landed = threading.Event(), {}
+
+        def writer():
+            while router.stats()["served"] < c["land_after"] and not done.is_set():
+                time.sleep(0.005)
+            if not done.is_set():
+                store.append(timed_copies(pca.records, X.device), source="grid_search")
+                landed["t"] = time.monotonic()
+
+        w = threading.Thread(target=writer, name="smoke-writer", daemon=True)
+        try:
+            w.start()
+            report = run_load(router, trace, n_clients=c["clients"])
+            t_end = time.monotonic()
+        finally:
+            done.set()
+            w.join(timeout=30)
+            daemon.stop()
+            router.close()
+        swaps = [(t, v) for t, v in router.swap_log[1:]
+                 if "t" in landed and landed["t"] <= t < t_end]
+    dropped = report["rejected"] + report["expired"] + report["errors"]
+    cold = report["by_kind"].get("cold", {}).get("default_frac", 1.0)
+    if report["served"] != c["requests"] or dropped or report["staleness_violations"] \
+            or daemon.swaps < 1 or not swaps or not cold < 1.0:
+        raise SystemExit(f"[{tag}] swap under load: served {report['served']}/"
+                         f"{c['requests']}, dropped {dropped}, staleness violations "
+                         f"{report['staleness_violations']}, daemon swaps {daemon.swaps} "
+                         f"({len(swaps)} during the load; {daemon.last_error!r}), cold "
+                         f"default share {cold}")
+    print(f"[{tag}] swap under load: {report['served']}/{c['requests']} served from "
+          f"{c['clients']} clients, 0 dropped; pca sweep ({len(pca.records)} records, "
+          f"on the card) appended after {c['land_after']} served, {daemon.swaps} daemon "
+          f"swap(s), {len(swaps)} during the load (versions {[v for _, v in swaps]}); "
+          f"{report['staleness_violations']} staleness violations; cold queries by the "
+          f"default {cold:.4f}; {report['throughput_rps']:.1f} req/s, host p50 "
+          f"{report['p50_ms']:.4f} ms, p99 {report['p99_ms']:.4f} ms on {smi}", flush=True)
+    return {"swaps": daemon.swaps}
+
+
+def phase_serving(smi) -> dict:
+    """``serve-estimator --demo`` through its ``main`` (the sweep on the
+    card), a swap under load, then the closed loop through the sharded
+    router."""
+    tag = "serving"
+    c = SERVE_DEMO
+    _reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        report = serve_estimator.main([
+            "--demo", "--shards", str(c["shards"]), "--clients", str(c["clients"]),
+            "--requests", str(c["requests"])])
+    wall = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        print(f"[{tag}] {line}", flush=True)
+    dropped = report["rejected"] + report["expired"] + report["errors"]
+    if report["served"] != report["requests"] or report["requests"] != c["requests"] \
+            or dropped or report["staleness_violations"]:
+        raise SystemExit(f"[{tag}] served {report['served']}/{report['requests']}, dropped "
+                         f"{dropped}, staleness violations {report['staleness_violations']}")
+    st = report["router"]
+    print(f"[{tag}] {report['served']}/{report['requests']} served over {st['n_shards']} "
+          f"shards from {report['n_clients']} clients, 0 dropped, "
+          f"{report['staleness_violations']} staleness violations across {st['swaps']} "
+          f"swaps (the demo's store gets no record while it serves); "
+          f"{report['throughput_rps']:.1f} req/s; host latencies p50 "
+          f"{report['p50_ms']:.4f} ms, p95 {report['p95_ms']:.4f} ms, p99 "
+          f"{report['p99_ms']:.4f} ms; wall_s {wall:.3f} on {smi}", flush=True)
+    _swap_under_load(tag, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        trail = closed_loop_demo(LogStore(Path(tmp) / "s.jsonl"), sharded=True,
+                                 device="cuda")
+    _closed_loop_trail(tag, trail)
+    launches = _on_card_without_kernels(tag)
+    print(f"[{tag}] bodies {dict(taskgraph.BODIES)}; kernel launches {launches}", flush=True)
+    return {"launches": launches, "report": report}
 
 
 # phase 14: gemma3-27b served whole, and the prefill shape of its local layers
@@ -2007,8 +2307,14 @@ def main() -> int:
     dots = phase_train_dots(device, train_report)
     ds = phase_ds_tune(device)
     blest = phase_blest(device, smi, ds["records"])
+    evaluation = phase_evaluate(smi)
+    closed = phase_closed_loop(device, smi, blest)
+    serving = phase_serving(smi)
     # ds_launches: phases 26 and 27 (the ds-array and mesh paths launch none)
     ds_launches = {k: ds["launches"][k] + blest["launches"][k] for k in ds["launches"]}
+    # eval_launches: phases 28-30 (evaluation, closed loop, serving: none)
+    eval_launches = {k: evaluation["launches"][k] + closed["launches"][k]
+                     + serving["launches"][k] for k in ds["launches"]}
     record = {"kernels": [
         # the times are the bf16 kernel's at the serving shape (train_4k
         # beside them, and gemma3-27b's local-layer shape as local_*); the
@@ -2020,7 +2326,8 @@ def main() -> int:
         # musicgen_launches and _local_*: phases 19-21 (d = 120, 96, 64);
         # deepseek_launches: phase 22 (MLA: 0); sharded_launches and
         # dots_launches: phases 23 and 25 over their 4 steps (phase 12's
-        # count, train_launches, is the same)
+        # count, train_launches, is the same); eval_launches: phases 28-30
+        # (0: the evaluation, closed-loop and serving paths launch no kernel)
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2033,8 +2340,8 @@ def main() -> int:
              deepseek_launches=deepseek["launches"],
              sharded_launches=sharded["launches"]["fwd"],
              dots_launches=dots["launches"]["fwd"], ds_launches=ds_launches["flash"],
-             max_abs_err=err, **times, **gemma3_local, **hymba_local, **h2o_local,
-             **phi3_local, **musicgen_local),
+             eval_launches=eval_launches["flash"], max_abs_err=err, **times,
+             **gemma3_local, **hymba_local, **h2o_local, **phi3_local, **musicgen_local),
         # the times are the bf16 kernels' at train_4k (phase 11), and at
         # phi-3-vision's and h2o-danube's train_4k shapes as phi3_train_4k_*
         # and h2o_train_4k_*; the fp32 kernels and the C entry point that
@@ -2048,7 +2355,7 @@ def main() -> int:
              launches=train_report["launches"]["bwd"],
              sharded_launches=sharded["launches"]["bwd"],
              dots_launches=dots["launches"]["bwd"], ds_launches=ds_launches["flash_bwd"],
-             max_abs_err=bwd_err,
+             eval_launches=eval_launches["flash_bwd"], max_abs_err=bwd_err,
              **bwd_times),
         # the times are the bf16 kernel's; the fp32 kernel and the C entry
         # point that picks between them are in matmul_blocked.cu (phase 7)
@@ -2057,7 +2364,7 @@ def main() -> int:
              fp32_source="src/repro_torch/kernels/csrc/matmul_blocked.cu",
              replaces="src/repro/kernels/matmul_blocked.py:20",
              launches=tune_launches["matmul"], ds_launches=ds_launches["matmul"],
-             max_abs_err=k1_err, **k1_times)]}
+             eval_launches=eval_launches["matmul"], max_abs_err=k1_err, **k1_times)]}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,7 @@ from repro_torch.algorithms import run as run_algo
 from repro_torch.core.features import dataset_features
 from repro_torch.core.log import ExecutionLog, ExecutionRecord
 from repro_torch.data.distarray import DistArray
+from repro_torch.data.logstore import timed_copies
 from repro_torch.data.executor import (Environment, MeasurementCache,
                                        TaskExecutor, TaskMemoryError)
 
@@ -137,7 +138,9 @@ def grid_search(X: torch.Tensor, y, algo: str, env: Environment, *, s: int = 2,
     body/signature once and replaying its measured duration elsewhere.
     Disabling all three reproduces the exhaustive scalar path cell for
     cell.  ``store`` (a ``data/logstore.py`` LogStore) persists the
-    sweep's records alongside the returned in-memory log.
+    sweep's records alongside the returned in-memory log, each copy
+    tagged with the device that timed it (``logstore.ds_timing``); the
+    returned records stay untagged.
     """
     log = log or ExecutionLog(s=s)
     n0 = len(log.records)
@@ -168,7 +171,8 @@ def grid_search(X: torch.Tensor, y, algo: str, env: Environment, *, s: int = 2,
                 print(f"  grid {algo} ({p_r},{p_c}): "
                       f"{t if math.isfinite(t) else 'OOM':>8} s", flush=True)
     if store is not None:
-        store.append(log.records[n0:], source="grid_search")
+        store.append(timed_copies(log.records[n0:], X.device),
+                     source="grid_search")
     return log, grid
 
 

@@ -1,6 +1,6 @@
-"""Shared tuning subsystem (DESIGN.md §8), copied from the JAX package's
-``repro/core/tuner.py`` as far as the kernel tuner needs it: the search
-space, the argmin labeler, the tuner and the serving memo.
+"""Shared tuning subsystem (DESIGN.md §8), the port of the JAX package's
+``repro/core/tuner.py``: the search space, the argmin labeler, the tuner,
+the serving memo and the one learning decision (``fold_records``).
 
 The paper's pipeline — execution log → argmin labels → chained DT_r→DT_c →
 predict — used to be implemented three separate times (ds-array block
@@ -40,7 +40,24 @@ from repro_torch.core.features import featurize, featurize_batch, vectorize
 from repro_torch.core.log import ExecutionLog, canon_items
 
 __all__ = ["SearchSpace", "TuneQuery", "ArgminLabeler", "Tuner",
-           "TunerService"]
+           "TunerService", "fold_records"]
+
+
+def fold_records(model, records) -> bool:
+    """Fold measured records into a tuner-like ``model`` (anything with
+    ``is_fit``/``refit``/``fit``): incremental ``refit`` when fitted, a
+    first-evidence ``fit`` otherwise (a one-group log is enough to stand a
+    model up).  Returns True iff the model changed; False also covers the
+    all-OOM case where no finite-time group exists yet.  The one learning
+    decision shared by ``ShardRouter.refit``, the ``serve/refit.py``
+    daemon, and ``eval/autorun.py``'s in-place path."""
+    if model.is_fit:
+        return bool(model.refit(records))
+    try:
+        model.fit(records)
+    except ValueError:                    # no finite-time groups yet
+        return False
+    return True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,10 +27,13 @@ readable (treated as schema 1, ``s=2``).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import threading
 from contextlib import contextmanager
 from pathlib import Path
+
+import torch
 
 from repro_torch.core.log import (SCHEMA_VERSION, ExecutionLog, ExecutionRecord,
                             canon_items, parse_header)
@@ -39,6 +42,22 @@ try:
     import fcntl
 except ImportError:                                  # non-POSIX platforms
     fcntl = None
+
+
+def ds_timing(device) -> dict:
+    """The ``<e>`` item that tags a ds record with the device that timed it:
+    a string, so ``featurize`` skips it, but part of the record key, so a
+    CPU run and a card run share one store without one shadowing the
+    other's cells."""
+    return {"timing": f"wallclock:{torch.device(device).type}"}
+
+
+def timed_copies(records, device) -> list:
+    """Copies of ``records`` tagged with ``ds_timing(device)``: what a
+    ds-array sweep or run appends to a store.  The in-memory records stay
+    untagged, so fits, holdout splits and reports are the reference's."""
+    timing = ds_timing(device)
+    return [dataclasses.replace(r, env={**r.env, **timing}) for r in records]
 
 
 class LogStore:

@@ -11,6 +11,10 @@
         --inject-failure 6                                  # 4 gloo ranks, re-mesh
     python -m repro_torch mesh                               # describe the mesh
     python -m repro_torch mesh --device cpu --host-devices 4
+    python -m repro_torch evaluate --smoke                   # paper protocol, on the card
+    python -m repro_torch evaluate --smoke --device cpu      # on the CPU
+    python -m repro_torch serve-estimator --demo             # serving tier, sweep on the card
+    python -m repro_torch serve-estimator --demo --device cpu
 
 Each subcommand resolves to the matching ``repro_torch.launch.<module>``
 main, which parses ``sys.argv`` as rewritten here.
@@ -32,6 +36,11 @@ COMMANDS = {
               "injection and elastic re-mesh"),
     "mesh": ("repro_torch.launch.mesh",
              "construct and describe a device mesh"),
+    "evaluate": ("repro_torch.launch.evaluate",
+                 "paper evaluation protocol (speedup vs default blocks) "
+                 "and the closed loop"),
+    "serve-estimator": ("repro_torch.launch.serve_estimator",
+                        "online serving tier: warm, serve a trace, report"),
 }
 
 

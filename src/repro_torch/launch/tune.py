@@ -36,14 +36,13 @@ the store are not measured again.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from repro_torch.artifacts import artifacts_dir
+from repro_torch.data.logstore import ds_timing
 
 SHAPES = [(4096, 4096, 4096), (8192, 1024, 2048), (512, 512, 512)]
 
@@ -62,12 +61,6 @@ def _own(records, env_items: dict):
 # the reference's ds-array sweeps: (rows, cols, workload), seed 10 + index
 DS_SWEEPS = [(512, 32, "kmeans"), (1024, 16, "rf"), (2048, 8, "kmeans"),
              (256, 64, "pca")]
-
-
-def ds_timing(device: str) -> dict:
-    """The ``<e>`` item that tags a ds record with the device that timed
-    it: a string, so ``featurize`` skips it, but part of the record key."""
-    return {"timing": f"wallclock:{torch.device(device).type}"}
 
 
 def tune_dsarray(store, *, device: str = "cuda",
@@ -89,9 +82,7 @@ def tune_dsarray(store, *, device: str = "cuda",
     t0 = time.time()
     for i, (n, m, algo) in enumerate(DS_SWEEPS):
         X, y = gaussian_blobs(n, m, seed=10 + i, device=device)
-        swept, _ = grid_search(X, y, algo, env, mult=1)
-        store.append([dataclasses.replace(r, env={**r.env, **timing})
-                      for r in swept.records], source="grid_search")
+        grid_search(X, y, algo, env, mult=1, store=store)
     log = ExecutionLog(_own(store.load(algos=("kmeans", "rf", "pca")).records,
                             timing), s=store.s)
     est = BlockSizeEstimator("tree").fit(log)

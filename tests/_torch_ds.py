@@ -24,9 +24,10 @@ class SeededClock:
         return self.t
 
 
-def inject_clock(monkeypatch, seed: int = 0):
-    """Give each package's task graph a clock of its own from ``seed``."""
-    for mod in (jtg, ttg):
+def inject_clock(monkeypatch, seed: int = 0, modules=(jtg, ttg)):
+    """Give each of ``modules`` (by default both packages' task graphs) a
+    clock of its own from ``seed``."""
+    for mod in modules:
         clock = SeededClock(seed)
         monkeypatch.setattr(mod, "time",
                             types.SimpleNamespace(perf_counter=clock.perf_counter))

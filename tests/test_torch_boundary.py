@@ -41,7 +41,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "data.distarray", "data.datasets", "algorithms",
                  "algorithms.kmeans", "algorithms.pca", "algorithms.gmm",
                  "algorithms.svm", "algorithms.rf", "core.gridsearch",
-                 "core.estimator", "core.meshtune"):
+                 "core.estimator", "core.meshtune", "eval.autorun",
+                 "launch.evaluate", "launch.serve_estimator", "serve",
+                 "serve.router", "serve.refit", "serve.loadgen",
+                 "serve.stats"):
         assert f"repro_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))

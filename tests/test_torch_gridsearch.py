@@ -188,6 +188,22 @@ def test_grid_search_on_tensors_counts_cells_like_reference():
     assert isinstance(X, torch.Tensor)
 
 
+def test_grid_search_store_gets_copies_tagged_with_the_timing_device(tmp_path):
+    """The store holds each swept record tagged with the device that timed
+    it; the returned log keeps the reference's untagged records."""
+    X, y = tds.gaussian_blobs(256, 16, seed=10, device="cpu")
+    store = TStore(tmp_path / "store.jsonl")
+    log, grid = tgs.grid_search(X, y, "kmeans", TEnv(n_workers=4), mult=1,
+                                store=store)
+    stored = store.load().records
+    assert len(stored) == len(log.records) == len(grid)
+    assert all("timing" not in r.env for r in log.records)
+    assert [r.env for r in stored] \
+        == [{**r.env, "timing": "wallclock:cpu"} for r in log.records]
+    assert [(r.dataset, r.algo, r.p_r, r.p_c, r.time_s) for r in stored] \
+        == [(r.dataset, r.algo, r.p_r, r.p_c, r.time_s) for r in log.records]
+
+
 def test_diagonal_gram_counts_its_block_twice_in_both_packages():
     """Reference quirk, shared by the port: pca's diagonal Gram task gets one
     block as both ``xa`` and ``xb``, and the memory model sums its inputs

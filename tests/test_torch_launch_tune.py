@@ -10,6 +10,7 @@ import pytest
 from repro.data.logstore import LogStore as JStore
 from repro.launch import tune as jtune
 from repro_torch.data.logstore import LogStore as TStore
+from repro_torch.data import logstore as tlogstore
 from repro_torch.data import taskgraph as ttg
 from repro_torch.launch import tune as ttune
 
@@ -86,8 +87,11 @@ def test_cli_keeps_each_devices_ds_records_apart(tmp_path, monkeypatch,
     argv = ["--device", "cpu", "--skip", "kernel", "mesh", "--store", str(path)]
     cpu = ttune.main(argv)
     n = TStore(path).sources()["grid_search"]
-    monkeypatch.setattr(ttune, "ds_timing",
-                        lambda device: {"timing": "wallclock:cuda"})
+    # the sweep tags the store's copies (logstore), the fit picks its own
+    # device's records by the same tag (tune)
+    for module in (tlogstore, ttune):
+        monkeypatch.setattr(module, "ds_timing",
+                            lambda device: {"timing": "wallclock:cuda"})
     card = ttune.main(argv)
     capsys.readouterr()
     store = TStore(path)
