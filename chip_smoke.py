@@ -230,6 +230,28 @@ Phases, each of which raises on failure (exit code != 0):
                queries move to the model, 0 staleness violations;
                ``closed_loop_demo(sharded=True)`` through the router; 0 kernel
                launches over phases 28-30 (``eval_launches``)
+ 31. fleet     the multi-process serving fleet, from this process (it holds
+               the card's context; workers fork from it and never touch
+               CUDA): (a) ``serve-estimator --demo --processes --replicas
+               1:3 --autoscale --heartbeat`` through its ``main``, the sweep
+               on the card: 400/400 served, 0 dropped, 0 staleness
+               violations; (b) the reference's diurnal fleet load
+               (benchmarks/serving_bench.py: 100,000 requests from 16
+               clients over 4 shards) over process workers, the replica plan
+               from the trace (the reference's {0: 1, 1: 7, 2: 1, 3: 1}), a
+               crash on the hottest shard and a rolling swap to a card-made
+               csvm refit mid-trace: 0 lost, 0 staleness violations, crashes
+               = respawns = 1, 1 swap; req/s, host p50/p99, served skew and
+               wall; then 20,000 requests of it with the dispatcher and
+               client threads sampled by what they wait on; (c) the socket
+               control plane at the bench's socket size (20,000 requests):
+               two ``python -m repro_torch serve-worker --register REG
+               --auth-key K`` processes found through the lease registry,
+               one SIGKILLed and replaced by the prober with no caller
+               rerouted, a swap, checkpoint -> restore onto a new router (a
+               stale backend refused), 0 lost, 0 staleness violations,
+               forged and unsigned frames refused with ``FrameAuthError``; 0
+               kernel launches (``fleet_launches``)
 serve_model counts one K2 launch per attention-bearing layer of a GQA
 model, and none for MLA.
 The whole shapes (phases 4, 11, 14, 17, 19-21) are held against the plain
@@ -250,7 +272,9 @@ import contextlib
 import dataclasses
 import io
 import json
+import linecache
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -295,7 +319,10 @@ from repro_torch.runtime.fault import FaultPlan, WorkerLoss  # noqa: E402
 from repro_torch.runtime.pipeline import DataPipeline, PipelineConfig  # noqa: E402
 from repro_torch.runtime.tree import flatten, leaves  # noqa: E402
 from repro_torch.runtime.tree import unflatten as tree_unflatten  # noqa: E402
-from repro_torch.serve import RefitDaemon, ShardRouter, make_trace, run_load  # noqa: E402
+from repro_torch.serve import (FleetRouter, FrameAuthError, HeartbeatPolicy,  # noqa: E402
+                               RefitDaemon, ShardRouter, TransportSpec, demand_plan,
+                               make_diurnal_trace, make_trace, make_transport,
+                               run_load)
 from repro_torch.weights import init_params  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM rate and dense bf16 tensor-core rate
@@ -1990,6 +2017,360 @@ def phase_serving(smi) -> dict:
     return {"launches": launches, "report": report}
 
 
+# phase 31: the serving fleet.  (a) serve-estimator's fleet mode; (b) the
+# reference's diurnal fleet load (benchmarks/serving_bench.py, its 10^5
+# requests from 16 clients over 4 shards) over process workers, a crash on
+# the hottest shard and a rolling swap mid-trace; (c) the socket control
+# plane at serving_bench's socket size (diurnal // 5) over two serve-worker
+# processes discovered through the lease registry
+FLEET_CLI = dict(shards=4, clients=4, requests=400, replicas="1:3")
+FLEET_DIURNAL = dict(requests=100_000, clients=16, shards=4, seed=1, crash_after=5,
+                     swap_after_s=0.5, sweep=(96, 24, 31), profile_requests=20_000)
+FLEET_SOCKET = dict(requests=20_000, clients=16, shards=2, workers=2, seed=4,
+                    sweep=(224, 16, 34), key="fleet-smoke-secret")
+# the bench's universe: shapes on distinct memo buckets, so the ring spreads
+# the keys; BENCH_serving.json's run planned this from the same trace
+FLEET_SHAPES = ((256, 16), (512, 16), (1024, 32), (192, 12), (96, 24), (48, 8))
+FLEET_PLAN = {0: 1, 1: 7, 2: 1, 3: 1}
+
+
+def _fleet_universe():
+    feats = Environment(**SERVE_ENV).features()
+    return [(n, m, a, feats) for a in ("kmeans", "gmm") for n, m in FLEET_SHAPES]
+
+
+def _swap_target(est, device, shape):
+    """An incremental refit on one more swept algorithm (csvm, swept with
+    its data on ``device``), so the target's model_version advances past
+    the serving model's."""
+    n, m, seed = shape
+    X, y = gaussian_blobs(n, m, seed=seed, device=device)
+    log, _ = grid_search(X, y, "csvm", Environment(**SERVE_ENV), mult=1,
+                         reuse_measurements=True)
+    est_v2 = est.snapshot()
+    if not est_v2.refit(log.records) or not est_v2.model_version > est.model_version:
+        raise SystemExit("[fleet] the swap target did not retrain")
+    return est_v2
+
+
+def _lost(reports) -> int:
+    return sum(r["requests"] - r["served"] - r["rejected"] - r["expired"] for r in reports)
+
+
+class _ThreadSampler:
+    """Samples every fleet dispatcher and load-generator client thread each
+    ``interval`` seconds (``sys._current_frames``) and files the sample by
+    what the thread's stack is doing: where the fleet's host time goes."""
+
+    def __init__(self, interval=0.002):
+        self.interval, self.counts = interval, {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="smoke-sampler", daemon=True)
+
+    @staticmethod
+    def classify(name, frame):
+        names, waiting_at = set(), ""
+        while frame is not None:
+            names.add(frame.f_code.co_name)
+            if frame.f_code.co_name == "_run_inner":
+                waiting_at = linecache.getline(frame.f_code.co_filename, frame.f_lineno)
+            frame = frame.f_back
+        if name.startswith("fleet-s"):          # a replica's dispatcher
+            if names & {"encode_frame", "decode_frame"}:
+                return "dispatcher: frame codec (json/pickle)"
+            if "call" in names:
+                return "dispatcher: awaiting the worker (pipe + worker compute)"
+            if "get" in names and "_serve" not in names:
+                if "item = self.queue.get()" in waiting_at:
+                    return "dispatcher: idle (queue empty)"
+                return "dispatcher: micro-batch window"
+            return "dispatcher: fleet Python"
+        if name.startswith("loadgen-client"):
+            if "_await" in names:
+                return "client: awaiting its answer"
+            if "_submit" in names:
+                return "client: admission and routing"
+            return "client: load generator Python"
+        return None
+
+    def _run(self):
+        names = {}
+        while not self._stop.wait(self.interval):
+            frames = sys._current_frames()
+            for th in threading.enumerate():
+                names[th.ident] = th.name
+            for tid, frame in frames.items():
+                kind = self.classify(names.get(tid, ""), frame)
+                if kind is not None:
+                    self.counts[kind] = self.counts.get(kind, 0) + 1
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+
+    def shares(self) -> dict:
+        """Each kind's share of its own side's samples (dispatchers,
+        clients)."""
+        out = {}
+        for side in ("dispatcher", "client"):
+            mine = {k: n for k, n in self.counts.items() if k.startswith(side)}
+            total = sum(mine.values()) or 1
+            out.update({k: n / total for k, n in sorted(mine.items(), key=lambda kv: -kv[1])})
+        return out
+
+
+def _fleet_cli(tag, smi, device) -> dict:
+    """(a) ``serve-estimator --demo --processes --replicas 1:3 --autoscale
+    --heartbeat`` through its ``main``: the demo sweep on ``device``, each
+    replica a worker process, the autoscaler and the prober running."""
+    c = FLEET_CLI
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        report = serve_estimator.main([
+            "--demo", "--device", device, "--processes", "--replicas", c["replicas"],
+            "--autoscale", "--heartbeat", "--shards", str(c["shards"]),
+            "--clients", str(c["clients"]), "--requests", str(c["requests"])])
+    wall = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        print(f"[{tag}] {line}", flush=True)
+    st = report["router"]
+    dropped = report["rejected"] + report["expired"] + report["errors"]
+    if report["served"] != c["requests"] or report["requests"] != c["requests"] or dropped \
+            or report["staleness_violations"] or st["transport"] != "process":
+        raise SystemExit(f"[{tag}] (a) served {report['served']}/{report['requests']}, "
+                         f"dropped {dropped}, staleness violations "
+                         f"{report['staleness_violations']}, transport {st['transport']}")
+    print(f"[{tag}] (a) serve-estimator --processes --replicas {c['replicas']} --autoscale "
+          f"--heartbeat: {report['served']}/{report['requests']} served, 0 dropped, "
+          f"{report['staleness_violations']} staleness violations; {st['n_replicas']} "
+          f"replicas at the end (scale out/in {st['scale_outs']}/{st['scale_ins']}), "
+          f"{st['heartbeats']} heartbeats, {st['crashes']} crashes; "
+          f"{report['throughput_rps']:.1f} req/s, host p50 {report['p50_ms']:.4f} ms, p99 "
+          f"{report['p99_ms']:.4f} ms, served skew {report['served_skew']:.4f}; wall_s "
+          f"{wall:.3f} on {smi}", flush=True)
+    return report
+
+
+def _fleet_diurnal(tag, smi, device, est) -> dict:
+    """(b) The reference's diurnal fleet load over process workers: the
+    replica plan from the trace, a crash on the hottest shard after a few
+    batches and a rolling swap half a second in."""
+    c = FLEET_DIURNAL
+    trace = make_diurnal_trace(c["requests"], _fleet_universe(), seed=c["seed"],
+                               pattern="diurnal")
+    plan = demand_plan(est, trace, c["shards"])
+    if plan != FLEET_PLAN:
+        raise SystemExit(f"[{tag}] (b) replica plan {plan}, the reference's {FLEET_PLAN}")
+    hottest = max(plan, key=plan.get)
+    est_v2 = _swap_target(est, device, c["sweep"])
+    t0 = time.perf_counter()
+    fleet = FleetRouter(est, n_shards=c["shards"], replicas=plan, transport="process",
+                        queue_depth=256, admission="block", window_s=0.001,
+                        call_timeout_s=120.0)
+    start_s = time.perf_counter() - t0
+    swapped = threading.Event()
+
+    def swapper():
+        time.sleep(c["swap_after_s"])
+        fleet.swap(est_v2)
+        swapped.set()
+
+    th = threading.Thread(target=swapper, name="smoke-swapper", daemon=True)
+    try:
+        fleet.inject_crash(hottest, after_batches=c["crash_after"])
+        th.start()
+        rep = run_load(fleet, trace, n_clients=c["clients"], timeout=300)
+        th.join(timeout=120)
+        st = fleet.stats()
+    finally:
+        fleet.close()
+    lost = _lost([rep])
+    if rep["served"] != c["requests"] or lost or rep["errors"] \
+            or rep["staleness_violations"] or not swapped.is_set() \
+            or not st["crashes"] == st["respawns"] == 1 or st["swaps"] != 1 \
+            or st["read_barrier"] != est_v2.model_version:
+        raise SystemExit(f"[{tag}] (b) served {rep['served']}/{c['requests']}, lost {lost}, "
+                         f"errors {rep['errors']} ({rep['first_error']}), staleness "
+                         f"{rep['staleness_violations']}, swapped {swapped.is_set()}, "
+                         f"crashes {st['crashes']}, respawns {st['respawns']}, swaps "
+                         f"{st['swaps']}")
+    print(f"[{tag}] (b) diurnal fleet over process workers: {rep['served']}/{c['requests']} "
+          f"served from {c['clients']} clients over {c['shards']} shards, plan {plan} "
+          f"(the reference's), {sum(plan.values())} workers up in {start_s:.3f} s; lost "
+          f"{lost}, errors 0, staleness violations {rep['staleness_violations']}; crash on "
+          f"shard {hottest}: crashes {st['crashes']}, respawns {st['respawns']}, rerouted "
+          f"{st['rerouted']}; swaps {st['swaps']} (v{est.model_version} -> "
+          f"v{est_v2.model_version}); {rep['throughput_rps']:.1f} req/s, host p50 "
+          f"{rep['p50_ms']:.4f} ms, p99 {rep['p99_ms']:.4f} ms, served skew "
+          f"{rep['served_skew']:.4f}, wall_s {rep['wall_s']:.3f} on {smi}", flush=True)
+    # where the host time goes: the same fleet and trace head, no chaos,
+    # the dispatcher and client threads sampled every 2 ms
+    n = c["profile_requests"]
+    with FleetRouter(est, n_shards=c["shards"], replicas=plan, transport="process",
+                     window_s=0.001, call_timeout_s=120.0) as fleet, \
+            _ThreadSampler() as sampler:
+        prof = run_load(fleet, trace[:n], n_clients=c["clients"], timeout=300)
+    if prof["served"] != n:
+        raise SystemExit(f"[{tag}] (b) profiled run served {prof['served']}/{n}")
+    shares = sampler.shares()
+    print(f"[{tag}] (b) where the host threads are, over {n} requests "
+          f"({prof['throughput_rps']:.1f} req/s with the sampler on, "
+          f"{sum(sampler.counts.values())} samples): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in shares.items()), flush=True)
+    return {"report": rep, "stats": st, "profile": shares}
+
+
+def _serve_worker_procs(tag, n, reg, key) -> list:
+    """``python -m repro_torch serve-worker --listen 127.0.0.1:0 --register
+    REG --auth-key KEY`` x ``n``; each one's process and printed address."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for _ in range(n):
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch", "serve-worker",
+                                 "--listen", "127.0.0.1:0", "--register", str(reg),
+                                 "--auth-key", key], stdout=subprocess.PIPE, text=True,
+                                env=env)
+        procs.append([proc, None])
+    for entry in procs:
+        line = entry[0].stdout.readline()
+        if not line.startswith("serve_worker listening on "):
+            raise SystemExit(f"[{tag}] (c) a serve-worker did not start: {line!r}")
+        entry[1] = line.split()[-1]
+    return procs
+
+
+def _fleet_socket(tag, smi, device, est) -> dict:
+    """(c) The socket control plane: two serve-worker processes found
+    through the lease registry, a worker killed silently and replaced by
+    the prober before any caller sees it, forged and unsigned frames
+    refused, and a checkpoint -> restore onto a new router mid-trace."""
+    c = FLEET_SOCKET
+    key = c["key"]
+    trace = make_diurnal_trace(c["requests"], _fleet_universe(), seed=c["seed"],
+                               pattern="diurnal")
+    third = len(trace) // 3
+    est_v2 = _swap_target(est, device, c["sweep"])
+    with tempfile.TemporaryDirectory() as tmp:
+        reg_path, ckpt = Path(tmp) / "registry.jsonl", Path(tmp) / "fleet.ckpt"
+        procs = _serve_worker_procs(tag, c["workers"], reg_path, key)
+        try:
+            spec = TransportSpec(kind="socket", registry=reg_path, auth_key=key)
+            reg = spec.open_registry()
+            deadline = time.monotonic() + 30
+            while len(reg.workers()) < c["workers"] and time.monotonic() < deadline:
+                time.sleep(0.05)
+            if len(reg.workers()) < c["workers"]:
+                raise SystemExit(f"[{tag}] (c) {len(reg.workers())}/{c['workers']} leases")
+            fleet = FleetRouter(est, n_shards=c["shards"], transport=spec, queue_depth=256,
+                                admission="block", window_s=0.001, call_timeout_s=120.0,
+                                heartbeat=HeartbeatPolicy(interval_s=0.1, timeout_s=5.0,
+                                                          miss_after=2))
+            reports = []
+            try:
+                adopted = fleet.poll_registry()
+                if sorted(adopted) != sorted(a for _p, a in procs):
+                    raise SystemExit(f"[{tag}] (c) adopted {adopted}")
+                fleet.prober.start()
+                reports.append(run_load(fleet, trace[:third], n_clients=c["clients"],
+                                        timeout=300))
+                # a registered worker dies (SIGKILL) with no call in flight
+                victim, victim_addr = procs[0]
+                victim.kill()
+                victim.wait(timeout=30)
+                deadline = time.monotonic() + 30
+                while fleet.stats()["heartbeat_replacements"] < 1 \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.02)
+                st_mid = fleet.stats()
+                reports.append(run_load(fleet, trace[third:2 * third],
+                                        n_clients=c["clients"], timeout=300))
+                fleet.swap(est_v2)
+                fleet.checkpoint(ckpt)
+                st1 = fleet.stats()
+            finally:
+                fleet.close()
+            try:
+                FleetRouter.restore(ckpt, est, transport_kw={"auth_key": key})
+                stale_refused = False
+            except ValueError:
+                stale_refused = True
+            fleet2 = FleetRouter.restore(ckpt, est_v2, transport_kw={"auth_key": key})
+            try:
+                reports.append(run_load(fleet2, trace[2 * third:], n_clients=c["clients"],
+                                        timeout=300))
+                st2 = fleet2.stats()
+            finally:
+                fleet2.close()
+            # the surviving worker is back in accept: forged and unsigned
+            # frames bounce off it with the typed error
+            forged = {}
+            for label, bad in (("wrong_key", "not-" + key), ("no_key", "")):
+                try:
+                    make_transport(TransportSpec(kind="socket", auth_key=bad), est,
+                                   address=procs[1][1]).close()
+                    forged[label] = "accepted"
+                except FrameAuthError:
+                    forged[label] = "FrameAuthError"
+        finally:
+            for proc, _addr in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait(timeout=30)
+                proc.stdout.close()
+    served = sum(r["served"] for r in reports)
+    errors = sum(r["errors"] for r in reports)
+    stale = sum(r["staleness_violations"] for r in reports)
+    lost = _lost(reports)
+    wall = sum(r["wall_s"] for r in reports)
+    rerouted = st1["rerouted"] + st2["rerouted"]
+    if served != c["requests"] or lost or errors or stale \
+            or st_mid["heartbeat_replacements"] != 1 or rerouted or not stale_refused \
+            or forged != {"wrong_key": "FrameAuthError", "no_key": "FrameAuthError"} \
+            or st2["read_barrier"] != est_v2.model_version:
+        raise SystemExit(f"[{tag}] (c) served {served}/{c['requests']}, lost {lost}, errors "
+                         f"{errors} ({[r['first_error'] for r in reports]}), staleness "
+                         f"{stale}, heartbeat replacements "
+                         f"{st_mid['heartbeat_replacements']}, rerouted {rerouted}, stale "
+                         f"restore refused {stale_refused}, forged {forged}, restored "
+                         f"barrier {st2['read_barrier']}")
+    p50 = [round(r["p50_ms"], 4) for r in reports]
+    p99 = [round(r["p99_ms"], 4) for r in reports]
+    print(f"[{tag}] (c) socket control plane: {c['workers']} serve-worker processes adopted "
+          f"from the registry; {served}/{c['requests']} served from {c['clients']} clients "
+          f"in three legs, lost {lost}, errors 0, staleness violations {stale}; worker "
+          f"{victim_addr} SIGKILLed and replaced by the prober "
+          f"({st_mid['heartbeat_replacements']} replacement, {st1['heartbeats']} "
+          f"heartbeats), rerouted {rerouted}; forged {forged}; stale restore refused; "
+          f"restored barrier v{st2['read_barrier']}, {reports[-1]['served']} served after "
+          f"the restore; {served / wall:.1f} req/s over the legs, host p50 {p50} ms, p99 "
+          f"{p99} ms, wall_s {wall:.3f} on {smi}", flush=True)
+    return {"reports": reports, "forged": forged}
+
+
+def phase_fleet(smi, device="cuda") -> dict:
+    """Phase 31: the multi-process serving fleet from the process that holds
+    the card's context -- (a) the fleet CLI, (b) the diurnal load over
+    process workers, (c) the socket control plane; no kernel launches."""
+    tag = "fleet"
+    _reset_counts()
+    t0 = time.perf_counter()
+    _fleet_cli(tag, smi, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = serve_estimator._demo_store(tmp, device)
+        est = BlockSizeEstimator("tree").fit(store.load())
+    diurnal = _fleet_diurnal(tag, smi, device, est)
+    _fleet_socket(tag, smi, device, est)
+    launches = _on_card_without_kernels(tag)
+    print(f"[{tag}] bodies {dict(taskgraph.BODIES)}; kernel launches {launches}; "
+          f"phase wall_s {time.perf_counter() - t0:.3f} on {smi}", flush=True)
+    return {"launches": launches, "diurnal": diurnal}
+
+
 # phase 14: gemma3-27b served whole, and the prefill shape of its local layers
 GEMMA3_SERVE = dict(batch=4, prompt=1536, gen=32)
 GEMMA3_LOCAL = dict(B=4, T=1536, H=32, KV=16, d=128, window=1024, meta=0)
@@ -2310,6 +2691,7 @@ def main() -> int:
     evaluation = phase_evaluate(smi)
     closed = phase_closed_loop(device, smi, blest)
     serving = phase_serving(smi)
+    fleet = phase_fleet(smi)
     # ds_launches: phases 26 and 27 (the ds-array and mesh paths launch none)
     ds_launches = {k: ds["launches"][k] + blest["launches"][k] for k in ds["launches"]}
     # eval_launches: phases 28-30 (evaluation, closed loop, serving: none)
@@ -2327,7 +2709,8 @@ def main() -> int:
         # deepseek_launches: phase 22 (MLA: 0); sharded_launches and
         # dots_launches: phases 23 and 25 over their 4 steps (phase 12's
         # count, train_launches, is the same); eval_launches: phases 28-30
-        # (0: the evaluation, closed-loop and serving paths launch no kernel)
+        # (0: the evaluation, closed-loop and serving paths launch no kernel);
+        # fleet_launches: phase 31 (0: the fleet runs on the host)
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2340,7 +2723,8 @@ def main() -> int:
              deepseek_launches=deepseek["launches"],
              sharded_launches=sharded["launches"]["fwd"],
              dots_launches=dots["launches"]["fwd"], ds_launches=ds_launches["flash"],
-             eval_launches=eval_launches["flash"], max_abs_err=err, **times,
+             eval_launches=eval_launches["flash"],
+             fleet_launches=fleet["launches"]["flash"], max_abs_err=err, **times,
              **gemma3_local, **hymba_local, **h2o_local, **phi3_local, **musicgen_local),
         # the times are the bf16 kernels' at train_4k (phase 11), and at
         # phi-3-vision's and h2o-danube's train_4k shapes as phi3_train_4k_*
@@ -2355,7 +2739,8 @@ def main() -> int:
              launches=train_report["launches"]["bwd"],
              sharded_launches=sharded["launches"]["bwd"],
              dots_launches=dots["launches"]["bwd"], ds_launches=ds_launches["flash_bwd"],
-             eval_launches=eval_launches["flash_bwd"], max_abs_err=bwd_err,
+             eval_launches=eval_launches["flash_bwd"],
+             fleet_launches=fleet["launches"]["flash_bwd"], max_abs_err=bwd_err,
              **bwd_times),
         # the times are the bf16 kernel's; the fp32 kernel and the C entry
         # point that picks between them are in matmul_blocked.cu (phase 7)
@@ -2364,7 +2749,8 @@ def main() -> int:
              fp32_source="src/repro_torch/kernels/csrc/matmul_blocked.cu",
              replaces="src/repro/kernels/matmul_blocked.py:20",
              launches=tune_launches["matmul"], ds_launches=ds_launches["matmul"],
-             eval_launches=eval_launches["matmul"], max_abs_err=k1_err, **k1_times)]}
+             eval_launches=eval_launches["matmul"],
+             fleet_launches=fleet["launches"]["matmul"], max_abs_err=k1_err, **k1_times)]}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,9 @@
     python -m repro_torch evaluate --smoke --device cpu      # on the CPU
     python -m repro_torch serve-estimator --demo             # serving tier, sweep on the card
     python -m repro_torch serve-estimator --demo --device cpu
+    python -m repro_torch serve-estimator --demo --device cpu --processes \
+        --replicas 1:3 --autoscale --heartbeat              # the fleet
+    python -m repro_torch serve-worker --listen 127.0.0.1:0 --once
 
 Each subcommand resolves to the matching ``repro_torch.launch.<module>``
 main, which parses ``sys.argv`` as rewritten here.
@@ -41,6 +44,8 @@ COMMANDS = {
                  "and the closed loop"),
     "serve-estimator": ("repro_torch.launch.serve_estimator",
                         "online serving tier: warm, serve a trace, report"),
+    "serve-worker": ("repro_torch.launch.serve_worker",
+                     "standalone socket shard worker for the serving fleet"),
 }
 
 

@@ -3,9 +3,11 @@
     python -m repro_torch serve-estimator --demo               # sweep on the card
     python -m repro_torch serve-estimator --demo --device cpu  # on the CPU
     python -m repro_torch serve-estimator --store S --shards 8 --clients 8
+    python -m repro_torch serve-estimator --demo --device cpu --processes \\
+        --replicas 1:3 --autoscale --heartbeat                 # fleet mode
 
-The port of the JAX package's ``launch/serve_estimator.py``, in-process
-path.  Warm a ``BlockSizeEstimator`` from a persistent ``LogStore``, stand
+The port of the JAX package's ``launch/serve_estimator.py``.  Warm a
+``BlockSizeEstimator`` from a persistent ``LogStore``, stand
 up the sharded router plus the background refit daemon, replay a seeded
 closed-loop trace against it, and print a latency table — throughput,
 p50/p95/p99 (host latencies: the router predicts on the host), per-shard
@@ -16,10 +18,28 @@ command works on a fresh checkout.  An empty/unfitted store still serves:
 every query abstains to the default square heuristic until records arrive
 and the daemon's first refit lands.
 
-The reference's fleet mode (``--processes``, ``--transport``,
-``--replicas``, ``--autoscale``, ``--workers``, ``--registry``,
-``--wait-workers``, ``--auth-key``, ``--heartbeat``) is not ported yet:
-any of those flags raises ``NotImplementedError``.
+Fleet mode (any of ``--processes`` / ``--transport`` / ``--replicas`` /
+``--autoscale`` / ``--heartbeat``) swaps the in-process ShardRouter for
+the multi-process :class:`~repro_torch.serve.fleet.FleetRouter`:
+``--processes`` runs each shard replica as a real worker process,
+``--replicas`` replicates shards (``2`` everywhere, or ``0:2,3:4`` /
+``1:3`` per shard), and ``--autoscale`` turns on the queue-pressure
+autoscaler.  The fleet runs on the host like the in-process router;
+``--device`` still names only where ``--demo`` sweeps.
+
+Multi-node: ``--transport socket --workers hostA:7071,hostB:7071``
+attaches replicas to standalone workers started with ``python -m
+repro_torch serve-worker --listen ...``; with ``--transport socket`` and
+no ``--workers`` the workers are spawned locally over real TCP sockets.
+
+Control plane (DESIGN.md §15): ``--registry PATH`` discovers workers
+that registered with ``serve-worker --register PATH`` instead of (or in
+addition to) a hand-typed ``--workers`` list — ``--wait-workers N``
+blocks until N leases are live; ``--auth-key`` (or ``$REPRO_AUTH_KEY``)
+arms HMAC frame authentication; ``--heartbeat`` runs the health prober
+so silently-dead workers are replaced before a caller notices.  All of
+it flows through one validated
+:class:`~repro_torch.serve.transport.TransportSpec`.
 """
 from __future__ import annotations
 
@@ -31,13 +51,18 @@ from pathlib import Path
 
 DISLIB_ALGOS = ("kmeans", "pca", "gmm", "csvm", "rf")
 
-# the reference's fleet-mode flags, as it parses them
-FLEET_FLAGS = {"--processes": {"action": "store_true"},
-               "--transport": {}, "--workers": {}, "--replicas": {},
-               "--autoscale": {"action": "store_true"}, "--registry": {},
-               "--wait-workers": {"type": int, "default": 0},
-               "--auth-key": {},
-               "--heartbeat": {"action": "store_true"}}
+
+def parse_replicas(spec: str):
+    """``"2"`` → 2 everywhere; ``"0:2,3:4"`` → {0: 2, 3: 4} (unlisted
+    shards get one replica)."""
+    spec = spec.strip()
+    if ":" not in spec:
+        return max(1, int(spec))
+    plan = {}
+    for part in spec.split(","):
+        shard, _, n = part.partition(":")
+        plan[int(shard)] = max(1, int(n))
+    return plan
 
 
 def _demo_store(tmp: str, device):
@@ -108,25 +133,47 @@ def main(argv=None):
                     help="serve without the background refit daemon")
     ap.add_argument("--json", default=None,
                     help="also write the full serving report to this path")
-    fleet = ap.add_argument_group(
-        "fleet mode (not ported yet: any of these raises)")
-    for flag, kw in FLEET_FLAGS.items():
-        fleet.add_argument(flag, **kw)
+    ap.add_argument("--processes", action="store_true",
+                    help="fleet mode: run each shard replica as a real "
+                         "worker process (default: in-process threads)")
+    ap.add_argument("--transport", default=None,
+                    choices=("loopback", "process", "socket"),
+                    help="fleet mode: worker transport (overrides "
+                         "--processes; 'socket' talks length-prefixed "
+                         "frames over TCP)")
+    ap.add_argument("--workers", default=None, metavar="H:P,H:P,...",
+                    help="fleet mode with --transport socket: attach to "
+                         "these pre-started serve-worker addresses "
+                         "instead of spawning local workers")
+    ap.add_argument("--replicas", default=None,
+                    help="fleet mode: replicas per shard — '2' everywhere "
+                         "or '0:2,3:4' per shard (default 1)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="fleet mode: scale replicas out/in from queue "
+                         "pressure")
+    ap.add_argument("--registry", default=None, metavar="PATH",
+                    help="fleet mode with --transport socket: discover "
+                         "and adopt workers registered in this file "
+                         "(serve-worker --register PATH)")
+    ap.add_argument("--wait-workers", type=int, default=0, metavar="N",
+                    help="with --registry: wait up to 30s for N live "
+                         "worker leases before serving")
+    ap.add_argument("--auth-key", default=None,
+                    help="shared frame-HMAC secret for socket workers "
+                         "(default: $REPRO_AUTH_KEY; unset disables)")
+    ap.add_argument("--heartbeat", action="store_true",
+                    help="fleet mode: probe worker liveness and replace "
+                         "silently-dead replicas")
     args = ap.parse_args(argv)
 
-    asked = [flag for flag in FLEET_FLAGS
-             if getattr(args, flag[2:].replace("-", "_"))]
-    if asked:
-        raise NotImplementedError(
-            f"serve-estimator's fleet mode ({', '.join(asked)}) is not ported "
-            "yet (ROADMAP.md, the serving fleet and its launchers)")
     if args.store is None and not args.demo:
         ap.error("pass --store PATH (or --demo for a self-contained run)")
 
     from repro_torch.core.estimator import BlockSizeEstimator
     from repro_torch.data.logstore import LogStore
     from repro_torch.device import resolve_device
-    from repro_torch.serve import RefitDaemon, ShardRouter, make_trace, run_load
+    from repro_torch.serve import (FleetRouter, RefitDaemon, ShardRouter,
+                                   make_trace, run_load)
 
     # a missing card refuses the run before anything is swept
     device = resolve_device(args.device)
@@ -160,11 +207,57 @@ def main(argv=None):
     n0, m0, _a, env0 = universe[0]
     cold = [(n0, m0, cold_algo, env0)] if cold_algo else []
 
-    router = ShardRouter(est, n_shards=args.shards,
-                         queue_depth=args.queue_depth,
-                         admission=args.admission,
-                         batch_max=args.batch_max,
-                         window_s=args.window_ms / 1e3)
+    if args.workers is not None and args.transport != "socket":
+        ap.error("--workers requires --transport socket")
+    if args.registry is not None and args.transport != "socket":
+        ap.error("--registry requires --transport socket")
+    fleet_mode = (args.processes or args.autoscale or args.heartbeat
+                  or args.replicas is not None or args.transport is not None)
+    if fleet_mode:
+        from repro_torch.serve import TransportSpec
+        kind = args.transport or ("process" if args.processes
+                                  else "loopback")
+        try:
+            spec = TransportSpec(kind=kind,
+                                 worker_addrs=args.workers or (),
+                                 auth_key=args.auth_key,
+                                 registry=args.registry)
+        except ValueError as e:
+            ap.error(str(e))
+        if args.wait_workers > 0 and spec.registry is not None:
+            reg = spec.open_registry()
+            deadline = time.time() + 30.0
+            while len(reg.workers()) < args.wait_workers \
+                    and time.time() < deadline:
+                time.sleep(0.2)
+            live = len(reg.workers())
+            print(f"== registry {spec.registry}: {live} live worker "
+                  f"lease(s)", flush=True)
+            if live < args.wait_workers:
+                ap.error(f"only {live}/{args.wait_workers} workers "
+                         f"registered within 30s")
+        router = FleetRouter(
+            est, n_shards=args.shards,
+            replicas=parse_replicas(args.replicas or "1"),
+            transport=spec,
+            queue_depth=args.queue_depth, admission=args.admission,
+            batch_max=args.batch_max, window_s=args.window_ms / 1e3,
+            autoscale=args.autoscale, heartbeat=args.heartbeat)
+        if router.registry is not None:
+            adopted = router.poll_registry()
+            if adopted:
+                print(f"== adopted {len(adopted)} registered worker(s): "
+                      f"{', '.join(adopted)}", flush=True)
+        if router.autoscaler is not None:
+            router.autoscaler.start()
+        if router.prober is not None:
+            router.prober.start()
+    else:
+        router = ShardRouter(est, n_shards=args.shards,
+                             queue_depth=args.queue_depth,
+                             admission=args.admission,
+                             batch_max=args.batch_max,
+                             window_s=args.window_ms / 1e3)
     daemon = None
     if not args.no_refit:
         daemon = RefitDaemon(router, store, interval_s=0.05).start()
@@ -194,6 +287,12 @@ def main(argv=None):
     print(f"  staleness   {report['staleness_violations']} violations "
           f"across {st['swaps']} model swaps "
           f"(daemon refits: {daemon.swaps if daemon else 'off'})")
+    if fleet_mode:
+        print(f"  fleet       transport={st['transport']}  "
+              f"replicas={st['n_replicas']}  "
+              f"served_skew {report['served_skew']:.2f}  "
+              f"scale out/in {st['scale_outs']}/{st['scale_ins']}  "
+              f"crashes {st['crashes']}")
     print("  shard  served  hit_rate  abstained  max_batch  rejected")
     for p in st["per_shard"]:
         print(f"  {p['shard']:>5}  {p['served']:>6}  {p['hit_rate']:8.2f}  "

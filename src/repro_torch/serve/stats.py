@@ -1,13 +1,13 @@
 """One stats schema across the serving tier (DESIGN.md §15), the port of
 the JAX package's ``repro/serve/stats.py``.
 
-Three layers grew three dialects in the reference: the in-process
-``ShardRouter`` predates replicas (no ``n_replicas``/``read_barrier``),
-the multi-process fleet router added fleet counters, and its worker-side
-shard reports its model version as ``version``.  The port has the
-in-process router only (the fleet is queued in ``ROADMAP.md``), but keeps
-the whole **canonical schema** and the compat accessor, so a stats dict
-reads the same in both packages.
+Three layers grew three dialects: :class:`~repro_torch.serve.router.ShardRouter`
+predates replicas (no ``n_replicas``/``read_barrier``),
+:class:`~repro_torch.serve.fleet.FleetRouter` added fleet counters, and the
+worker-side :class:`~repro_torch.serve.transport.ShardWorker` reports its
+model version as ``version``.  This module pins the **canonical schema**
+every ``stats()`` in the tier speaks, and a small compat accessor, so a
+stats dict reads the same in both packages.
 
 Canonical keys (``STATS_SCHEMA``: name → meaning):
 

@@ -6,8 +6,12 @@ port, and the pure parts held equal to the JAX package's on the same
 inputs (ring placement, predictions, traces, staleness and skew audits,
 stats)."""
 import json
+import os
+import subprocess
+import sys
 import threading
 import time
+from pathlib import Path
 
 import pytest
 import torch
@@ -536,15 +540,67 @@ def test_serve_estimator_cli_from_a_store(tmp_path, capsys):
     assert "throughput" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--processes"], ["--autoscale"], ["--heartbeat"],
-                                  ["--transport", "socket"], ["--replicas", "2"],
-                                  ["--workers", "h:1"], ["--registry", "r.jsonl"],
-                                  ["--wait-workers", "2"], ["--auth-key", "k"]],
-                         ids=lambda f: f[0])
-def test_serve_estimator_refuses_fleet_flags(flag):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md, the serving fleet and its launchers"):
-        serve_estimator.main(["--demo", "--device", "cpu", *flag])
+def _serve_worker(tmp_path, *extra):
+    """``python -m repro_torch serve-worker`` on an ephemeral loopback port;
+    returns the process and the address it printed."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1] / "src"))
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch", "serve-worker",
+                             "--listen", "127.0.0.1:0", *extra],
+                            stdout=subprocess.PIPE, text=True, env=env, cwd=tmp_path)
+    line = proc.stdout.readline()
+    assert line.startswith("serve_worker listening on "), line
+    return proc, line.split()[-1]
+
+
+# each of the reference's nine fleet flags in a fleet invocation of its own
+FLEET_CASES = {
+    "--processes": ["--processes"],
+    "--autoscale": ["--autoscale"],
+    "--heartbeat": ["--heartbeat"],
+    "--transport": ["--transport", "socket"],
+    "--replicas": ["--replicas", "0:2,1:3"],
+    "--workers": ["--transport", "socket", "--workers", "{addr}"],
+    "--registry": ["--transport", "socket", "--registry", "{reg}"],
+    "--wait-workers": ["--transport", "socket", "--registry", "{reg}",
+                       "--wait-workers", "1"],
+    "--auth-key": ["--transport", "socket", "--auth-key", "s3cret"],
+}
+
+
+@pytest.mark.parametrize("flag", list(FLEET_CASES))
+def test_serve_estimator_fleet_flags(flag, tmp_path, capsys):
+    """Fleet mode through ``serve-estimator``'s ``main``: every flag the
+    reference parses serves the whole trace with no staleness violation;
+    ``--workers``, ``--registry`` and ``--wait-workers`` run against a
+    ``serve-worker`` process started here (registered for the last two)."""
+    reg = tmp_path / "reg.jsonl"
+    argv = [a.format(addr="{addr}", reg=reg) for a in FLEET_CASES[flag]]
+    proc = None
+    try:
+        if flag in ("--workers", "--registry", "--wait-workers"):
+            extra = ("--register", str(reg)) if flag != "--workers" else ()
+            proc, addr = _serve_worker(tmp_path, *extra)
+            argv = [a.replace("{addr}", addr) for a in argv]
+        report = serve_estimator.main(["--demo", "--device", "cpu", "--requests", "120",
+                                       "--clients", "2", "--shards", "2", *argv])
+    finally:
+        if proc is not None:
+            proc.kill()
+            proc.wait(timeout=10)
+            proc.stdout.close()
+    assert report["served"] == report["requests"] == 120
+    assert report["staleness_violations"] == 0
+    st = report["router"]
+    out = capsys.readouterr().out
+    assert "fleet       transport=" in out
+    assert st["transport"] == ("process" if flag == "--processes" else
+                               "socket" if "--transport" in argv else "loopback")
+    if flag == "--replicas":
+        assert st["n_replicas"] == 5
+    if flag in ("--registry", "--wait-workers"):
+        assert st["adoptions"] == 1 and "adopted 1 registered worker" in out
+    if flag == "--wait-workers":
+        assert "1 live worker lease(s)" in out
 
 
 def test_serve_estimator_refuses_the_card_it_does_not_have():
