@@ -252,6 +252,18 @@ Phases, each of which raises on failure (exit code != 0):
                stale backend refused), 0 lost, 0 staleness violations,
                forged and unsigned frames refused with ``FrameAuthError``; 0
                kernel launches (``fleet_launches``)
+ 32. dryrun    ``launch/dryrun.py::run_cell`` in a child process (its fake
+               process group never meets this one's NCCL group) on a
+               one-rank fake mesh (1, 1), meta locals: (a) phase 23's cell
+               (Yi-6B widths, 8 of 32 layers, 8 x 4096 in 8 microbatches,
+               flash, the sharded step), (b) Yi-6B whole, a flash prefill of
+               8 x 512; each held against the card: argument bytes within 2 %
+               of the bytes measured after the state is placed (phase 23's;
+               (b) weights and prompts drawn here), ``mem_device_bytes``
+               (argument + temp) within 0.8-1.25x the measured peak over the
+               baseline (phase 23's; (b) one ``make_prefill_step`` call, 32
+               K2 launches); 0 kernel launches and 0 card bytes while
+               pricing (``dryrun_launches``)
 serve_model counts one K2 launch per attention-bearing layer of a GQA
 model, and none for MLA.
 The whole shapes (phases 4, 11, 14, 17, 19-21) are held against the plain
@@ -317,6 +329,7 @@ from repro_torch.runtime import compress  # noqa: E402
 from repro_torch.runtime.elastic import make_plan_mesh, plan_mesh  # noqa: E402
 from repro_torch.runtime.fault import FaultPlan, WorkerLoss  # noqa: E402
 from repro_torch.runtime.pipeline import DataPipeline, PipelineConfig  # noqa: E402
+from repro_torch.runtime.steps import step_fn_for  # noqa: E402
 from repro_torch.runtime.tree import flatten, leaves  # noqa: E402
 from repro_torch.runtime.tree import unflatten as tree_unflatten  # noqa: E402
 from repro_torch.serve import (FleetRouter, FrameAuthError, HeartbeatPolicy,  # noqa: E402
@@ -1132,8 +1145,10 @@ def _timed_steps(tag, cfg, device, *, mesh=None, after=0, **step_kw):
     c = TRAIN
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     step_fn, params, opt, pipe = _train_setup(cfg, c["seq"], c["batch"], True, device,
                                               mesh=mesh, **step_kw)
+    state_bytes = torch.cuda.memory_allocated() - base    # weights, moments, batches
     n_steps = c["warmup_steps"] + c["timed_steps"] + after
     fa.launches = fa.bwd_launches = 0
     seconds, losses, gnorms = [], [], []
@@ -1155,10 +1170,12 @@ def _timed_steps(tag, cfg, device, *, mesh=None, after=0, **step_kw):
     if not all(map(torch.isfinite, torch.tensor(losses + gnorms))):
         raise SystemExit(f"[{tag}] non-finite loss or gnorm: {losses} {gnorms}")
     step_s = sum(seconds[c["warmup_steps"]:][:c["timed_steps"]]) / c["timed_steps"]
+    peak = torch.cuda.max_memory_allocated()
     return dict(step_ms=step_s * 1e3, warmup_ms=seconds[0] * 1e3,
                 tokens_per_s=c["seq"] * c["batch"] / step_s,
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses,
-                gnorms=gnorms, n_steps=n_steps,
+                peak_mem_gb=peak / 1e9, losses=losses,
+                gnorms=gnorms, n_steps=n_steps, state_bytes=state_bytes,
+                peak_over_base_bytes=peak - base,
                 launches={"fwd": fa.launches, "bwd": fa.bwd_launches})
 
 
@@ -2371,6 +2388,119 @@ def phase_fleet(smi, device="cuda") -> dict:
     return {"launches": launches, "diurnal": diurnal}
 
 
+# phase 32: the dry-run's two cells, priced in a child process on a one-rank
+# fake mesh: (a) phase 23's (Yi-6B widths, 8 of 32 layers, 8 x 4096 in 8
+# microbatches, flash, the sharded step), (b) Yi-6B whole, a flash prefill of
+# 8 x 512; (shape, microbatches, config replacements).  Gates: argument
+# bytes within DRYRUN_ARGS_TOL of the card's, the predicted device bytes
+# within DRYRUN_PEAK_BAND of the card's peak, no kernel launched and nothing
+# allocated on the card while pricing.
+DRYRUN_CELLS = {"train": (("train_4k", "train", 4096, 8), 8, {"n_layers": 8}),
+                "prefill": (("prefill_512", "prefill", 512, 8), None, {})}
+DRYRUN_ARGS_TOL = 0.02
+DRYRUN_PEAK_BAND = (0.8, 1.25)
+DRYRUN_TIMEOUT = 300
+_DRYRUN_CHILD = """
+import json, sys, time
+import torch
+from repro_torch.configs import ShapeConfig
+from repro_torch.kernels import flash_attention as fa, matmul_blocked as mm
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+t0 = time.perf_counter()
+out = {}
+with dryrun.fake_group(1):
+    mesh = make_mesh((1, 1), ("data", "model"))
+    for name, (shape, micro, over) in json.loads(sys.argv[1]).items():
+        out[name] = dryrun.run_cell("yi-6b", ShapeConfig(*shape), mesh, "1x1",
+                                    microbatches=micro, use_flash=True, cfg_overrides=over)
+out["launches"] = {"matmul": mm.launches, "flash": fa.launches, "flash_bwd": fa.bwd_launches}
+out["cuda_bytes"] = torch.cuda.memory_allocated() if torch.cuda.is_initialized() else 0
+out["wall_s"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def _dryrun_child(tag) -> dict:
+    """The dry-run's cells priced by ``run_cell`` in a child process, so its
+    fake process group never meets this process's NCCL group."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _DRYRUN_CHILD, json.dumps(DRYRUN_CELLS)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT)
+    if proc.returncode != 0:
+        raise SystemExit(f"[{tag}] the pricing failed: {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _dryrun_check(tag, name, rec, args_bytes, peak_bytes, what, smi):
+    """One cell's prediction against the card's readings (both printed)."""
+    args = rec["memory"]["argument_size_in_bytes"]
+    dev = rec["mem_device_bytes"]
+    r_args, r_peak = args / args_bytes, dev / peak_bytes
+    coll = {k: v for k, v in rec["collectives"].items() if v["count"]}
+    print(f"[{tag}] ({name}) {what}: predicted argument bytes {args} vs the card's "
+          f"{args_bytes} (ratio {r_args:.4f}, tol {DRYRUN_ARGS_TOL}); predicted "
+          f"mem_device_bytes {dev} (args + temp {rec['memory']['temp_size_in_bytes']}) vs "
+          f"the card's peak {peak_bytes} (ratio {r_peak:.4f}, band {DRYRUN_PEAK_BAND}); "
+          f"flops {rec['flops']:.4e} bytes_accessed {rec['bytes_accessed']:.4e} "
+          f"collectives {coll} "
+          f"trace_s {rec['trace_s']} on {smi}", flush=True)
+    if abs(r_args - 1) > DRYRUN_ARGS_TOL:
+        raise SystemExit(f"[{tag}] ({name}) argument bytes {args} vs the card's {args_bytes}")
+    if not DRYRUN_PEAK_BAND[0] <= r_peak <= DRYRUN_PEAK_BAND[1]:
+        raise SystemExit(f"[{tag}] ({name}) mem_device_bytes {dev} vs the card's peak "
+                         f"{peak_bytes}: ratio {r_peak:.4f} outside {DRYRUN_PEAK_BAND}")
+    return {"args_ratio": r_args, "peak_ratio": r_peak}
+
+
+def phase_dryrun(device, smi, sharded) -> dict:
+    """Phase 32: the dry-run's memory prediction held against the card: (a)
+    against phase 23's state bytes and peak (``sharded``, this call's), (b)
+    against a Yi-6B prefill this phase runs itself; no launch while pricing."""
+    tag = "dryrun"
+    t0 = time.perf_counter()
+    _reset_counts()
+    priced = _dryrun_child(tag)
+    parent = _ds_kernel_launches()
+    if any(priced["launches"].values()) or any(parent.values()) or priced["cuda_bytes"]:
+        raise SystemExit(f"[{tag}] launches while pricing: child {priced['launches']}, "
+                         f"this process {parent}; child's card bytes {priced['cuda_bytes']}")
+    (shape, _, _) = DRYRUN_CELLS["prefill"]
+    cfg = get_config("yi-6b")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(32), device)
+    prompts, _ = serve.draw_inputs(cfg, shape[3], shape[2], np.random.default_rng(32), device)
+    args_bytes = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    fn, _ = step_fn_for(cfg, ShapeConfig(*shape), use_flash=True)
+    fa.launches = 0
+    logits, cache = fn(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated() - base
+    if fa.launches != cfg.n_layers or not bool(torch.isfinite(logits).all()):
+        raise SystemExit(f"[{tag}] the card's prefill: {fa.launches} K2 launches, "
+                         "finite logits " + str(bool(torch.isfinite(logits).all())))
+    del params, prompts, logits, cache
+    torch.cuda.empty_cache()
+    report = {
+        "train": _dryrun_check(tag, "a", priced["train"], sharded["state_bytes"],
+                               sharded["peak_over_base_bytes"],
+                               "phase 23's cell: yi-6b widths, 8 of 32 layers, 8 x 4096 in "
+                               "8 microbatches, flash, the sharded step on a 1x1 mesh", smi),
+        "prefill": _dryrun_check(tag, "b", priced["prefill"], args_bytes, peak_bytes,
+                                 f"yi-6b whole, flash prefill of {shape[3]} x {shape[2]} "
+                                 f"(make_prefill_step; {cfg.n_layers} K2 launches on the "
+                                 "card)", smi)}
+    print(f"[{tag}] priced in a child process in {priced['wall_s']:.1f} s on a one-rank "
+          f"fake mesh: kernel launches {priced['launches']} (this process "
+          f"{parent}), card bytes {priced['cuda_bytes']}; phase wall_s "
+          f"{time.perf_counter() - t0:.1f}", flush=True)
+    report["launches"] = priced["launches"]
+    return report
+
+
 # phase 14: gemma3-27b served whole, and the prefill shape of its local layers
 GEMMA3_SERVE = dict(batch=4, prompt=1536, gen=32)
 GEMMA3_LOCAL = dict(B=4, T=1536, H=32, KV=16, d=128, window=1024, meta=0)
@@ -2692,6 +2822,7 @@ def main() -> int:
     closed = phase_closed_loop(device, smi, blest)
     serving = phase_serving(smi)
     fleet = phase_fleet(smi)
+    dryrun = phase_dryrun(device, smi, sharded)
     # ds_launches: phases 26 and 27 (the ds-array and mesh paths launch none)
     ds_launches = {k: ds["launches"][k] + blest["launches"][k] for k in ds["launches"]}
     # eval_launches: phases 28-30 (evaluation, closed loop, serving: none)
@@ -2710,7 +2841,8 @@ def main() -> int:
         # dots_launches: phases 23 and 25 over their 4 steps (phase 12's
         # count, train_launches, is the same); eval_launches: phases 28-30
         # (0: the evaluation, closed-loop and serving paths launch no kernel);
-        # fleet_launches: phase 31 (0: the fleet runs on the host)
+        # fleet_launches: phase 31 (0: the fleet runs on the host);
+        # dryrun_launches: phase 32's pricing (0: meta tensors, shape rules)
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2724,7 +2856,8 @@ def main() -> int:
              sharded_launches=sharded["launches"]["fwd"],
              dots_launches=dots["launches"]["fwd"], ds_launches=ds_launches["flash"],
              eval_launches=eval_launches["flash"],
-             fleet_launches=fleet["launches"]["flash"], max_abs_err=err, **times,
+             fleet_launches=fleet["launches"]["flash"],
+             dryrun_launches=dryrun["launches"]["flash"], max_abs_err=err, **times,
              **gemma3_local, **hymba_local, **h2o_local, **phi3_local, **musicgen_local),
         # the times are the bf16 kernels' at train_4k (phase 11), and at
         # phi-3-vision's and h2o-danube's train_4k shapes as phi3_train_4k_*
@@ -2740,7 +2873,8 @@ def main() -> int:
              sharded_launches=sharded["launches"]["bwd"],
              dots_launches=dots["launches"]["bwd"], ds_launches=ds_launches["flash_bwd"],
              eval_launches=eval_launches["flash_bwd"],
-             fleet_launches=fleet["launches"]["flash_bwd"], max_abs_err=bwd_err,
+             fleet_launches=fleet["launches"]["flash_bwd"],
+             dryrun_launches=dryrun["launches"]["flash_bwd"], max_abs_err=bwd_err,
              **bwd_times),
         # the times are the bf16 kernel's; the fp32 kernel and the C entry
         # point that picks between them are in matmul_blocked.cu (phase 7)
@@ -2750,7 +2884,8 @@ def main() -> int:
              replaces="src/repro/kernels/matmul_blocked.py:20",
              launches=tune_launches["matmul"], ds_launches=ds_launches["matmul"],
              eval_launches=eval_launches["matmul"],
-             fleet_launches=fleet["launches"]["matmul"], max_abs_err=k1_err, **k1_times)]}
+             fleet_launches=fleet["launches"]["matmul"],
+             dryrun_launches=dryrun["launches"]["matmul"], max_abs_err=k1_err, **k1_times)]}
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -237,10 +237,11 @@ def launch_smem(bq: int, bk: int, d: int, dtype_bytes: int = 2) -> int:
     return _lib().flash_attention_smem(0 if _fp32(dtype_bytes) else 1, bq, bk, d)
 
 
-def _check(q, k, v):
+def _check(q, k, v, device_type: str = "cuda"):
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if not x.is_cuda:
-            raise ValueError(f"flash_attention_cuda needs CUDA tensors; {name} is on {x.device}")
+        if x.device.type != device_type:
+            raise ValueError(f"the {device_type} route needs {device_type} tensors; "
+                             f"{name} is on {x.device}")
         if x.dim() != 4:
             raise ValueError(f"{name} must be 4-D, got shape {tuple(x.shape)}")
         if x.dtype not in _DTYPE_CODES:
@@ -329,6 +330,77 @@ def flash_attention_plain(q, k, v, *, scale: float, window: int = 0,
         v = v.repeat_interleave(g, dim=2)
     return flash_attention_ref(q, k, v, window=window, n_meta=n_meta,
                                scale=scale, causal=causal)
+
+
+# ---------------------------------------------------------------- shape rule
+
+# Where the shape rules report the work they stand for, when set (the
+# dry-run's per-rank trace): called as hook(kernel name, flops, bytes moved,
+# inputs, outputs) on each call.
+shape_rule_hook = None
+
+
+def live_pairs(t: int, s: int, *, window: int = 0, n_meta: int = 0,
+               causal: bool = True) -> int:
+    """The (query, key) pairs K2 computes for one (batch, head): under the
+    causal mask, row r sees the keys up to its own (right-aligned for
+    T < S), a window keeps the ``window`` latest of them and the ``n_meta``
+    first beside them; without the mask every pair."""
+    if not causal:
+        return t * s
+    hi = np.maximum(0, np.arange(t, dtype=np.int64) + s - t + 1)
+    lo = np.maximum(0, hi - window) if window else np.zeros_like(hi)
+    return int((hi - lo + np.minimum(n_meta, lo)).sum())
+
+
+def _report(name, flops, inputs, outputs):
+    if shape_rule_hook is not None:
+        moved = sum(x.numel() * x.element_size() for x in (*inputs, *outputs))
+        shape_rule_hook(name, flops, moved, inputs, outputs)
+
+
+def flash_attention_shape(q, k, v, *, scale: float, window: int = 0,
+                          n_meta: int = 0, causal: bool = True,
+                          block_q: int = 128, block_k: int = 128,
+                          return_lse: bool = False):
+    """K2's shape rule, for tensors on the meta device (the dry-run prices a
+    step with nothing allocated): ``o`` (and under ``return_lse`` the fp32
+    row log-sum-exp ``[B,H,T]``) in the kernel's shapes and dtypes, with
+    the operands prepared as ``flash_attention_cuda`` prepares them, so it
+    allocates what a launch does and never the plain version's ``[B,H,T,S]``
+    fp32 scores.  Its work is ``4 d`` operations a live pair (``live_pairs``)
+    a (batch, head), as ``PERF.md``'s bound counts it."""
+    _check(q, k, v, "meta")
+    b, t, h, d = q.shape
+    if q.dtype == torch.bfloat16:
+        q, k, v = (tma_operand(x) for x in (q, k, v))
+    else:
+        q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if return_lse else None
+    flops = 4 * d * b * h * live_pairs(t, k.shape[1], window=window, n_meta=n_meta,
+                                       causal=causal)
+    _report("flash_attention_fwd", flops, (q, k, v), (o,) if lse is None else (o, lse))
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd_shape(q, k, v, o, do, lse, *, scale: float, window: int = 0,
+                              n_meta: int = 0, causal: bool = True, **_blocks):
+    """K2 bwd's shape rule on the meta device: ``(dq, dk, dv)`` in the
+    kernels' shapes and dtypes, beside the fp32 ``delta`` ``[B,H,T]`` the
+    pre-pass writes and the operand copies a launch makes; its work is 2.5
+    times the forward's (the recomputed scores and P, dV, dP, dS, dQ, dK)."""
+    _check(q, k, v, "meta")
+    b, t, h, d = q.shape
+    q, k, v, o, do = _bwd_operands(q, k, v, o, do)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    flops = 10 * d * b * h * live_pairs(t, k.shape[1], window=window, n_meta=n_meta,
+                                        causal=causal)
+    _report("flash_attention_bwd", flops, (q, k, v, o, do, lse), (delta, dq, dk, dv))
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------- backward
@@ -421,14 +493,16 @@ def flash_attention_bwd_plain(q, k, v, o, do, *, scale: float, window: int = 0,
 class FlashAttention(torch.autograd.Function):
     """K2 with its gradient (the JAX package's ``custom_vjp``).  On CUDA
     tensors the forward launches K2 and keeps its log-sum-exp, and the
-    backward launches K2 bwd; on CPU tensors both take the plain versions."""
+    backward launches K2 bwd; on CPU tensors both take the plain versions,
+    on meta tensors the shape rules."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, window, n_meta, causal, block_q, block_k):
         ctx.kw = dict(scale=scale, window=window, n_meta=n_meta, causal=causal)
-        if q.is_cuda:
-            o, lse = flash_attention_cuda(q, k, v, block_q=block_q, block_k=block_k,
-                                          return_lse=True, **ctx.kw)
+        if q.is_cuda or q.is_meta:
+            run = flash_attention_cuda if q.is_cuda else flash_attention_shape
+            o, lse = run(q, k, v, block_q=block_q, block_k=block_k, return_lse=True,
+                         **ctx.kw)
         else:
             o, lse = flash_attention_plain(q, k, v, **ctx.kw), None
         ctx.save_for_backward(q, k, v, o, lse)
@@ -437,8 +511,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if q.is_cuda:
-            grads = flash_attention_bwd_cuda(q, k, v, o, do, lse, **ctx.kw)
+        if q.is_cuda or q.is_meta:
+            run = flash_attention_bwd_cuda if q.is_cuda else flash_attention_bwd_shape
+            grads = run(q, k, v, o, do, lse, **ctx.kw)
         else:
             grads = flash_attention_bwd_plain(q, k, v, o, do, **ctx.kw)
         return (*grads, None, None, None, None, None, None)

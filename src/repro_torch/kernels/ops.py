@@ -1,10 +1,11 @@
 """Public kernel wrappers, dispatched by the tensor's device.
 
 A CUDA tensor launches the hand-written kernel (or the launch raises); a
-CPU tensor takes the kernel's plain version.  There is no other switch and
-no fallback.  Under a mesh (``runtime/shardctx.scope``) flash attention
-runs on each rank's local shard: the kernels take raw pointers, which a
-DTensor has none of.
+CPU tensor takes the kernel's plain version; a meta tensor (the dry-run)
+takes flash attention's shape rule, which allocates what a launch does and
+computes nothing.  There is no other switch and no fallback.  Under a mesh
+(``runtime/shardctx.scope``) flash attention runs on each rank's local
+shard: the kernels take raw pointers, which a DTensor has none of.
 """
 from __future__ import annotations
 
@@ -67,7 +68,8 @@ def flash_attention(q, k, v, *, window: int = 0, n_meta: int = 0,
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return _fa.FlashAttention.apply(q, k, v, scale, window, n_meta, causal,
                                         block_q, block_k)
-    run = _fa.flash_attention_cuda if q.is_cuda else _fa.flash_attention_plain
+    run = (_fa.flash_attention_cuda if q.is_cuda else
+           _fa.flash_attention_shape if q.is_meta else _fa.flash_attention_plain)
     return run(q, k, v, scale=scale, window=window, n_meta=n_meta,
                causal=causal, block_q=block_q, block_k=block_k)
 

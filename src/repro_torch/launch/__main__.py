@@ -18,6 +18,7 @@
     python -m repro_torch serve-estimator --demo --device cpu --processes \
         --replicas 1:3 --autoscale --heartbeat              # the fleet
     python -m repro_torch serve-worker --listen 127.0.0.1:0 --once
+    python -m repro_torch dryrun --arch yi-6b --shape train_4k  # on the CPU, no card
 
 Each subcommand resolves to the matching ``repro_torch.launch.<module>``
 main, which parses ``sys.argv`` as rewritten here.
@@ -46,6 +47,9 @@ COMMANDS = {
                         "online serving tier: warm, serve a trace, report"),
     "serve-worker": ("repro_torch.launch.serve_worker",
                      "standalone socket shard worker for the serving fleet"),
+    "dryrun": ("repro_torch.launch.dryrun",
+               "price each cell's sharded step per rank on a fake 256/512-rank "
+               "group"),
 }
 
 

@@ -108,10 +108,13 @@ def spawn_ranks(fn, world: int, *args):
 # ---------------------------------------------------------------------------
 
 def _device_type() -> str:
-    """The default group's device: "cuda" under NCCL, else "cpu"."""
+    """The default group's device: "cuda" under NCCL and under the dry-run's
+    fake group (which stands for ranks on cards: DTensor picks collectives
+    by the mesh's device, and on a "cpu" mesh moves a split between dims by
+    an all-gather and a chunk, gloo having no all-to-all), else "cpu"."""
     import torch.distributed as dist
 
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return "cuda" if dist.get_backend() in ("nccl", "fake") else "cpu"
 
 
 def make_mesh(shape: tuple, axes: tuple):

@@ -22,7 +22,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamSpec, apply_rope, causal_window_mask, rms_norm
-from repro_torch.runtime.shardctx import constrain
+from repro_torch.runtime import shardctx
+from repro_torch.runtime.shardctx import constrain, local, set_slot_
 
 
 # ---------------------------------------------------------------------------
@@ -114,16 +115,34 @@ def _sdpa(q, k, v, mask, scale):
 # GQA: full-sequence path
 # ---------------------------------------------------------------------------
 
+def _project(x, w, heads: str):
+    """x [B,T,D] by w [D,H,dh] -> [B,T,H,dh], placed ("batch", None, heads,
+    None).  Where the rules split no H over the mesh (mixtral's 8 kv heads
+    on a model axis of 16), DTensor places the einsum's flat [B*T, H*dh]
+    product by cost and may split H*dh over a mesh dim that H does not
+    divide, which the view back to heads refuses: there it runs rank by rank
+    on the batch shard with whole heads and whole D (an FSDP weight is
+    gathered).  Elsewhere it is the einsum, placed by ``constrain``."""
+    axes = ("batch", None, heads, None)
+    shape = x.shape[:2] + w.shape[1:]
+    pl = shardctx.placements(shape, axes)          # None outside a scope
+    if pl is None or any(p.is_shard(2) for p in pl):
+        return constrain(_einsum_project(x, w), axes)
+    return local(_einsum_project, (("batch", None, None), (None, heads, None)),
+                 out_like=(shape, axes))(x, w)
+
+
+def _einsum_project(x, w):
+    return torch.einsum("btd,dhk->bthk", x, w)
+
+
 def gqa_forward(p, x, positions, *, window: int, theta: float, n_meta: int,
                 return_kv: bool = False, use_flash: bool = False):
     """x: [B,T,D]; positions: [T] absolute. Returns y (and optionally (k, v))."""
     dh = p["wq"].shape[-1]
-    q = constrain(torch.einsum("btd,dhk->bthk", x, p["wq"]),
-                  ("batch", None, "heads", None))
-    k = constrain(torch.einsum("btd,dhk->bthk", x, p["wk"]),
-                  ("batch", None, "kv", None))
-    v = constrain(torch.einsum("btd,dhk->bthk", x, p["wv"]),
-                  ("batch", None, "kv", None))
+    q = _project(x, p["wq"], "heads")
+    k = _project(x, p["wk"], "kv")
+    v = _project(x, p["wv"], "kv")
     q = apply_rope(q, positions, theta)
     k = apply_rope(k, positions, theta)
     if use_flash:
@@ -153,15 +172,15 @@ def gqa_decode(p, x, cache, pos: int, *, window: int, theta: float, n_meta: int)
     """
     dh = p["wq"].shape[-1]
     positions = torch.arange(pos, pos + 1, device=x.device)   # no host copy
-    q = apply_rope(torch.einsum("btd,dhk->bthk", x, p["wq"]), positions, theta)
-    k_new = apply_rope(torch.einsum("btd,dhk->bthk", x, p["wk"]), positions, theta)
-    v_new = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    q = apply_rope(_project(x, p["wq"], "heads"), positions, theta)
+    k_new = apply_rope(_project(x, p["wk"], "kv"), positions, theta)
+    v_new = _project(x, p["wv"], "kv")
 
     k, v = cache["k"], cache["v"]
     cap = k.shape[1]
     slot = pos % cap if window > 0 else pos
-    k[:, slot] = k_new[:, 0]
-    v[:, slot] = v_new[:, 0]
+    set_slot_(k, 1, slot, k_new[:, 0])
+    set_slot_(v, 1, slot, v_new[:, 0])
 
     n_prefix = cache["k_pre"].shape[1] if "k_pre" in cache else 0
     idx = torch.arange(cap, device=x.device)
@@ -246,8 +265,8 @@ def mla_decode(cfg: ModelConfig, p, x, cache, pos: int):
     kr_new = apply_rope(kr_new[:, None, None, :], positions, cfg.rope_theta)[:, 0, 0]
 
     ckv, krope = cache["ckv"], cache["krope"]
-    ckv[:, pos] = c_new
-    krope[:, pos] = kr_new
+    set_slot_(ckv, 1, pos, c_new)
+    set_slot_(krope, 1, pos, kr_new)
 
     # absorbed projections
     w_uk, w_uv = p["wkv_b"].split([m.qk_nope_dim, m.v_head_dim], dim=-1)

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec, activation
-from repro_torch.runtime.shardctx import constrain
+from repro_torch.runtime.shardctx import constrain, placed_like
 
 
 def moe_spec(cfg: ModelConfig, lead: tuple = ()):
@@ -70,9 +70,14 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor, router_mode: str = "softmax"
     b, t, d = x.shape
     nt = b * t
     if nt > MAX_DISPATCH_TOKENS and nt % MAX_DISPATCH_TOKENS == 0:
-        xg = x.reshape(nt // MAX_DISPATCH_TOKENS, 1, MAX_DISPATCH_TOKENS, d)
+        xg0 = x.reshape(nt // MAX_DISPATCH_TOKENS, 1, MAX_DISPATCH_TOKENS, d)
+        # under a mesh the loop walks an axis no rank splits: each group's
+        # tokens split over the batch axes, as its dispatch places them
+        # (one all-to-all), and the result goes back to x's layout
+        xg = constrain(xg0, (None, None, "moe_tokens", None))
         ys, auxs = zip(*(_moe_dispatch(cfg, p, xc, router_mode) for xc in xg))
-        return torch.stack(ys).reshape(b, t, d), torch.stack(auxs).mean()
+        y = placed_like(torch.stack(ys), xg0)
+        return y.reshape(b, t, d), torch.stack(auxs).mean()
     return _moe_dispatch(cfg, p, x, router_mode)
 
 
@@ -80,7 +85,8 @@ def _moe_dispatch(cfg: ModelConfig, p, x: torch.Tensor, router_mode: str):
     mo = cfg.moe
     b, t, d = x.shape
     nt = b * t
-    xf = constrain(x.reshape(nt, d), ("moe_tokens", None))
+    xf0 = x.reshape(nt, d)
+    xf = constrain(xf0, ("moe_tokens", None))
 
     logits = xf.float() @ p["router"].float()
     if router_mode == "sigmoid":                     # DeepSeek-V3 style
@@ -126,4 +132,4 @@ def _moe_dispatch(cfg: ModelConfig, p, x: torch.Tensor, router_mode: str):
     frac = (affinity > 0).float().mean(dim=0)                      # [E]
     prob_mean = probs.mean(dim=0)                                  # [E]
     aux = mo.n_experts * torch.sum(frac * prob_mean)
-    return out.reshape(b, t, d), aux
+    return placed_like(out, xf0).reshape(b, t, d), aux

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec, rms_norm
-from repro_torch.runtime.shardctx import constrain, local
+from repro_torch.runtime.shardctx import constrain, grad_placed, local
 
 
 def _dims(cfg: ModelConfig):
@@ -103,7 +103,12 @@ def ssd_forward(cfg: ModelConfig, p, x, *, initial_state=None,
     t = t0 + pad
     nc = t // cl
 
-    z, xbc_raw, dt = _split_zxbcdt(cfg, x @ p["in_proj"])
+    # the projection placed as in_proj is: DTensor may otherwise settle a
+    # pending sum here by a reduce-scatter that splits the product, and so
+    # the heads of dt and x, unevenly (hymba's 50 heads over a model axis of
+    # 16), which the chunk reshapes and einsums then refuse
+    zxbcdt = constrain(x @ p["in_proj"], ("batch", None, "ffn"))
+    z, xbc_raw, dt = _split_zxbcdt(cfg, zxbcdt)
     xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     # torch's softplus is the identity above its threshold of 20, where
     # jax.nn.softplus adds log1p(exp(-x)) < 2.1e-9: below fp32's resolution
@@ -168,9 +173,11 @@ def ssd_forward(cfg: ModelConfig, p, x, *, initial_state=None,
     y_off = y_off.reshape(b, nc, cl, nh, hd) \
         * torch.exp(cum).permute(0, 1, 3, 2)[..., None]
 
-    y = (y + y_off).reshape(b, t, nh, hd)
-    y = y + p["d_skip"][:, None] * xs.reshape(b, t, nh, hd)
-    y = y.reshape(b, t, d_in)[:, :t0].to(x.dtype)
+    # the merges of (nc, cl) and of (nh, hd) keep their own placements for
+    # the backward's split (``grad_placed``)
+    y = grad_placed((y + y_off).reshape(b, t, nh, hd))
+    y = y + p["d_skip"][:, None] * grad_placed(xs.reshape(b, t, nh, hd))
+    y = grad_placed(y.reshape(b, t, d_in))[:, :t0].to(x.dtype)
 
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"]

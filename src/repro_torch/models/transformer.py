@@ -502,3 +502,53 @@ def grow_cache(cfg: ModelConfig, cache, capacity: int):
             sc[f"u{j}"] = e
         new_stages.append(sc)
     return {"stages": tuple(new_stages), "pos": cache["pos"]}
+
+
+# ---------------------------------------------------------------------------
+# Cache specs (for the dry-run's decode cells)
+# ---------------------------------------------------------------------------
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int):
+    """ParamSpec tree of prefill()'s cache layout at capacity ``seq_len``, the
+    JAX package's leaf for leaf: GQA's k/v (a windowed layer's ring of
+    capacity ``min(window, seq_len)``, its meta prefix as ``k_pre``/``v_pre``),
+    MLA's ``ckv``/``krope``, the SSD's fp32 ``state`` and its ``conv``
+    window.  ``pos`` keeps the reference's int32 scalar spec so the trees
+    compare; the port's cache carries it as a Python int (the dry-run binds
+    it to a stated position, ``launch/dryrun.py``)."""
+    kvd = cfg.head_dim
+    dt = cfg.compute_dtype
+    out = []
+    for st in build_stages(cfg):
+        lead = (st.repeat,)
+        la = ("layers",)
+        sdict = {}
+        for j, desc in enumerate(st.unit):
+            e = {}
+            if desc.kind in ("attn", "hybrid"):
+                if cfg.mla is not None:
+                    m = cfg.mla
+                    e["ckv"] = ParamSpec(lead + (batch, seq_len, m.kv_lora_rank),
+                                         la + ("batch", "kv_seq", None), dt)
+                    e["krope"] = ParamSpec(lead + (batch, seq_len, m.qk_rope_dim),
+                                           la + ("batch", "kv_seq", None), dt)
+                else:
+                    cap = min(desc.window, seq_len) if desc.window else seq_len
+                    shp = lead + (batch, cap, cfg.n_kv_heads, kvd)
+                    ax = la + ("batch", "kv_seq", "kv", None)
+                    e["k"] = ParamSpec(shp, ax, dt)
+                    e["v"] = ParamSpec(shp, ax, dt)
+                    if cfg.meta_tokens and desc.window:
+                        pshp = lead + (batch, cfg.meta_tokens, cfg.n_kv_heads, kvd)
+                        pax = la + ("batch", None, "kv", None)
+                        e["k_pre"] = ParamSpec(pshp, pax, dt)
+                        e["v_pre"] = ParamSpec(pshp, pax, dt)
+            if desc.kind in ("ssm", "hybrid"):
+                s, d_in, nh, conv_dim = ssm_mod._dims(cfg)
+                e["state"] = ParamSpec(lead + (batch, nh, s.head_dim, s.d_state),
+                                       la + ("batch", "heads", None, None), "float32")
+                e["conv"] = ParamSpec(lead + (batch, s.d_conv - 1, conv_dim),
+                                      la + ("batch", None, "ffn"), dt)
+            sdict[f"u{j}"] = e
+        out.append(sdict)
+    return {"stages": tuple(out), "pos": ParamSpec((), (), "int32", init="zeros")}

@@ -31,8 +31,10 @@ as a DTensor with the placements of the input it names.  Inside such a
 region ``axis_index`` and ``all_reduce_`` act over the mesh dims that split
 a logical axis (the vocab-split embedding lookup and loss in
 ``models/layers.py``), as ``lax.axis_index`` and ``lax.psum`` do inside a
-JAX ``shard_map``.  This is the one module of the model's path that knows
-the mesh.
+JAX ``shard_map``.  ``set_slot_`` writes a decode step's cache slot on
+the rank that holds it, and ``placed_like`` and ``grad_placed`` keep the
+views around merged dims even in the forward and the backward.  This is
+the one module of the model's path that knows the mesh.
 """
 from __future__ import annotations
 
@@ -134,14 +136,59 @@ def constrain(x, logical_axes: tuple):
     return x.redistribute(ctx[0], want)
 
 
-def local(fn, in_axes: tuple, out_like: int = 0):
+def placed_like(x, like):
+    """``x`` redistributed to ``like``'s placements where both are DTensors,
+    else ``x``.  Put before a view that splits back a dim ``like`` got by
+    merging (``[B*T, D] -> [B, T, D]``): ``like``'s own placements came from
+    an even merge, where a layout ``constrain`` chose for the merged dim may
+    split it finer than the view can cut (tokens over 32 ranks, 16
+    sequences).  A pending sum of ``like`` (``Partial``) counts as
+    replicated."""
+    if not (is_dtensor(x) and is_dtensor(like)):
+        return x
+    want = tuple(Replicate() if p.is_partial() else p for p in like.placements)
+    return x if tuple(x.placements) == want else x.redistribute(like.device_mesh, want)
+
+
+class _GradPlaced(torch.autograd.Function):
+    """The identity; its backward redistributes the gradient to the
+    placements the forward's tensor had."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.spec = (x.device_mesh, tuple(x.placements))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, want = ctx.spec
+        if is_dtensor(grad) and tuple(grad.placements) != want:
+            grad = grad.redistribute(mesh, want)
+        return grad
+
+
+def grad_placed(x):
+    """``x``; in the backward, its gradient takes ``x``'s placements before it
+    flows further back.  Put after a view that merges dims (``[B, nc, cl,
+    ...] -> [B, nc * cl, ...]``): DTensor may hand the gradient a split of
+    the merged dim that the backward's view cannot cut evenly (2 chunks
+    over a mesh dim of 4), and ``x``'s own placements came from an even
+    merge.  Outside a scope, or on a plain tensor, it is ``x``."""
+    if _CTX.get() is None or not is_dtensor(x):
+        return x
+    return _GradPlaced.apply(x)
+
+
+def local(fn, in_axes: tuple, out_like=0):
     """``fn`` run on each rank's local shards.
 
     Inside a scope, argument ``i`` is constrained to ``in_axes[i]`` (an
     entry of ``None`` leaves a non-tensor argument alone; a plain tensor is
     first taken as replicated), ``fn`` gets the local tensors, and its
     result (one tensor) comes back as a DTensor with the placements of
-    argument ``out_like``.  The caller picks axes under which ``fn``
+    argument ``out_like``, or, for ``out_like = (shape, logical axes)``,
+    with the placements ``constrain`` gives a result of that global shape
+    and those axes.  The caller picks axes under which ``fn``
     computes its shard of the result from its shards of the inputs and the
     collectives below.  Both hand-overs are differentiable: the gradient
     flows back into ``fn``'s own backward rank by rank.  An input
@@ -163,7 +210,8 @@ def local(fn, in_axes: tuple, out_like: int = 0):
                 constrain(DTensor.from_local(a, mesh, rep, run_check=False)
                           if _plain(a) else a, ax)
                 for a, ax in zip(args, in_axes)]
-        out_pl = args[out_like].placements
+        out_pl = (args[out_like].placements if isinstance(out_like, int)
+                  else placements(*out_like))
         split = {}
         for a, axes in zip(args, in_axes):
             for d, name in enumerate(axes or ()):
@@ -184,6 +232,35 @@ def local(fn, in_axes: tuple, out_like: int = 0):
             _REGION.reset(tok)
         return DTensor.from_local(out, mesh, out_pl, run_check=False)
     return run
+
+
+def set_slot_(x, dim: int, index: int, value) -> None:
+    """``x.select(dim, index).copy_(value)`` in place (a decode step's cache
+    write).  On a DTensor split along ``dim`` (a sequence-sharded cache)
+    only the rank whose shard holds ``index`` writes, at its local offset,
+    as a sharded ``dynamic_update_slice`` does; ``value`` is first placed
+    as ``x`` is on its other dims.  (DTensor's own ``select`` of a split dim
+    gathers the whole tensor and writes into the copy.)"""
+    if not is_dtensor(x):
+        x.select(dim, index).copy_(value)
+        return
+    from torch.distributed.tensor import Shard
+
+    mesh, mine = x.device_mesh, x.to_local()
+    want, shard, coord = [], 0, mesh.get_coordinate()
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            want.append(Replicate())
+            shard = shard * mesh.size(i) + coord[i]
+        elif p.is_shard() and p.dim > dim:
+            want.append(Shard(p.dim - 1))
+        else:
+            want.append(p)
+    if is_dtensor(value):
+        value = value.redistribute(mesh, want).to_local()
+    offset = shard * mine.shape[dim]
+    if offset <= index < offset + mine.shape[dim]:
+        mine.select(dim, index - offset).copy_(value)
 
 
 def _split(axis: str):

@@ -14,8 +14,9 @@ or a stand-in's ``axis_names`` and ``shape``.
 ``resolve_pspec`` returns a plain tuple with a ``PartitionSpec``'s entries:
 a mesh axis name, a tuple of names, or ``None``, trailing ``None``s cut.
 Where the JAX package builds a ``NamedSharding`` from it, this module
-builds DTensor placements: ``Shard(dim)`` on every mesh dim the spec names
-for tensor dim ``dim``, ``Replicate()`` on the others.
+builds DTensor placements: ``Shard(dim)`` on every mesh dim of more than
+one rank the spec names for tensor dim ``dim``, ``Replicate()`` on the
+others.
 """
 from __future__ import annotations
 
@@ -123,7 +124,10 @@ def pspec_placements(pspec: tuple, mesh) -> tuple:
 
     A tuple of axes on one tensor dim shards it over those mesh dims; DTensor
     splits such a dim over its mesh dims in mesh order, so the spec must
-    list them in that order (every rule table does)."""
+    list them in that order (every rule table does).  A mesh dim of one rank
+    stays ``Replicate()``: its one shard is the whole tensor, and DTensor
+    (torch 2.13) may otherwise split a size-1 tensor dim over it in an
+    einsum's intermediate and then refuse the view back."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = _mesh_axes(mesh)
@@ -136,8 +140,9 @@ def pspec_placements(pspec: tuple, mesh) -> tuple:
         if idx != sorted(idx):
             raise ValueError(f"spec {pspec} lists mesh axes {axes} out of the "
                              f"mesh's order {names}")
-        for i in idx:
-            out[i] = Shard(dim)
+        for i, a in zip(idx, axes):
+            if _axis_size(mesh, a) > 1:
+                out[i] = Shard(dim)
     return tuple(out)
 
 

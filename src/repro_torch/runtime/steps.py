@@ -1,5 +1,9 @@
-"""The train step (with gradient accumulation), as the JAX package's
-``repro/runtime/steps.py::make_train_step`` builds it.
+"""Step functions (train / prefill / decode) and their abstract input specs,
+as the JAX package's ``repro/runtime/steps.py`` builds them.
+
+``input_specs(cfg, shape)`` gives the ``ParamSpec`` tree a step takes for
+one (arch x shape) cell, with no allocation: the dry-run
+(``launch/dryrun.py``) makes its inputs from it.
 
 Where JAX scans over the microbatch axis, the port runs a Python loop: each
 microbatch's gradient comes from ``torch.autograd.grad`` and is added into
@@ -26,6 +30,7 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import ParamSpec
 from repro_torch.runtime import shardctx
+from repro_torch.runtime.shardctx import constrain
 from repro_torch.runtime.optim import cosine_schedule, opt_update
 from repro_torch.runtime.tree import leaves, unflatten
 
@@ -50,31 +55,50 @@ class TrainHParams:
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
                 microbatches: int | None = None) -> dict:
-    """ParamSpec tree of a train step's batch (the JAX package's
-    ``input_specs`` for ``shape.kind == "train"``): leaves carry a leading
-    microbatch axis and shard the per-microbatch batch over "batch"."""
-    if shape.kind != "train":
-        raise NotImplementedError(
-            f"input_specs for a {shape.kind!r} cell is not ported yet "
-            "(ROADMAP.md, runtime and the remaining launchers: the mesh and "
-            "dryrun launchers)")
+    """ParamSpec tree of the step inputs for one dry-run cell, the JAX
+    package's ``input_specs``: a train batch's leaves carry a leading
+    microbatch axis and shard the per-microbatch batch over "batch"; a
+    prefill batch holds the prompt (less the image and meta prefixes); a
+    decode batch one new token and the cache of capacity ``seq_len``
+    (``transformer.cache_specs``)."""
     b, t = shape.global_batch, shape.seq_len
-    m = microbatches if microbatches is not None else cfg.train_microbatches
-    if b % m:
-        raise ValueError(f"global batch {b} does not split into {m} microbatches")
-    mb = b // m
-    t_text = t - (cfg.image_tokens if cfg.frontend == "vision" else 0)
+    if shape.kind == "train":
+        m = microbatches if microbatches is not None else cfg.train_microbatches
+        if b % m:
+            raise ValueError(f"global batch {b} does not split into {m} microbatches")
+        mb = b // m
+        t_text = t - (cfg.image_tokens if cfg.frontend == "vision" else 0)
+        if cfg.n_codebooks > 1:
+            toks = ParamSpec((m, mb, cfg.n_codebooks, t_text),
+                             (None, "batch", None, None), "int32")
+        else:
+            toks = ParamSpec((m, mb, t_text), (None, "batch", None), "int32")
+        specs = {"tokens": toks}
+        if cfg.frontend == "vision":
+            specs["image_embeds"] = ParamSpec(
+                (m, mb, cfg.image_tokens, cfg.d_model),
+                (None, "batch", None, None), cfg.compute_dtype)
+        return specs
+
+    if shape.kind == "prefill":
+        t_text = t - (cfg.image_tokens if cfg.frontend == "vision" else 0) \
+            - cfg.meta_tokens
+        if cfg.n_codebooks > 1:
+            toks = ParamSpec((b, cfg.n_codebooks, t_text), ("batch", None, None), "int32")
+        else:
+            toks = ParamSpec((b, t_text), ("batch", None), "int32")
+        specs = {"tokens": toks}
+        if cfg.frontend == "vision":
+            specs["image_embeds"] = ParamSpec((b, cfg.image_tokens, cfg.d_model),
+                                              ("batch", None, None), cfg.compute_dtype)
+        return specs
+
+    # decode: one new token against a cache of capacity seq_len
     if cfg.n_codebooks > 1:
-        toks = ParamSpec((m, mb, cfg.n_codebooks, t_text),
-                         (None, "batch", None, None), "int32")
+        toks = ParamSpec((b, cfg.n_codebooks, 1), ("batch", None, None), "int32")
     else:
-        toks = ParamSpec((m, mb, t_text), (None, "batch", None), "int32")
-    specs = {"tokens": toks}
-    if cfg.frontend == "vision":
-        specs["image_embeds"] = ParamSpec(
-            (m, mb, cfg.image_tokens, cfg.d_model),
-            (None, "batch", None, None), cfg.compute_dtype)
-    return specs
+        toks = ParamSpec((b, 1), ("batch", None), "int32")
+    return {"tokens": toks, "cache": tf.cache_specs(cfg, b, t)}
 
 
 def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
@@ -137,3 +161,55 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
                                    "lr": lr, "step": int(step) + 1}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+def _place_cache(cfg: ModelConfig, cache):
+    """Under a scope, each cache leaf constrained to its ``cache_specs``
+    axes (the JAX package's prefill ``out_shardings``: the sequence axis of
+    a returned cache takes "model" under the prefill rules)."""
+    specs = tf.cache_specs(cfg, 1, 1)["stages"]
+    stages = tuple({u: {k: constrain(x, specs[si][u][k].axes) for k, x in e.items()}
+                    for u, e in sc.items()} for si, sc in enumerate(cache["stages"]))
+    return {"stages": stages, "pos": cache["pos"]}
+
+
+def make_prefill_step(cfg: ModelConfig, *, use_flash: bool = False, shard_ctx=None):
+    """Returns prefill_step(params, batch) -> (last logits, cache), the JAX
+    package's: ``tf.prefill`` on ``batch["tokens"]`` (and a vision
+    config's ``image_embeds``), with no autograd record."""
+    def prefill_step(params, batch):
+        with torch.no_grad(), _maybe_scope(shard_ctx):
+            logits, cache = tf.prefill(cfg, params, batch["tokens"],
+                                       batch.get("image_embeds"), use_flash=use_flash)
+            if shard_ctx is not None:
+                cache = _place_cache(cfg, cache)
+            return logits, cache
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, *, shard_ctx=None):
+    """Returns decode_step(params, batch) -> (logits, cache): one new token
+    ``batch["tokens"]`` against ``batch["cache"]``, which it updates in place
+    (the JAX package donates it) and returns with ``pos`` advanced."""
+    def decode_step(params, batch):
+        with torch.no_grad(), _maybe_scope(shard_ctx):
+            return tf.decode_step(cfg, params, batch["cache"], batch["tokens"])
+    return decode_step
+
+
+def step_fn_for(cfg: ModelConfig, shape: ShapeConfig, *, use_flash=False,
+                microbatches: int | None = None, shard_ctx=None):
+    """The (callable, donated argument indices) pair of a dry-run cell, the
+    JAX package's: the train step donates params and optimizer state (and
+    updates them in place), the decode step its batch (the cache, written
+    in place), prefill nothing."""
+    if shape.kind == "train":
+        c = cfg if microbatches is None else cfg.replace(train_microbatches=microbatches)
+        return make_train_step(c, use_flash=use_flash, shard_ctx=shard_ctx), (0, 1)
+    if shape.kind == "prefill":
+        return make_prefill_step(cfg, use_flash=use_flash, shard_ctx=shard_ctx), ()
+    return make_decode_step(cfg, shard_ctx=shard_ctx), (1,)

@@ -44,7 +44,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                  "core.estimator", "core.meshtune", "eval.autorun",
                  "launch.evaluate", "launch.serve_estimator", "serve",
                  "serve.router", "serve.refit", "serve.loadgen",
-                 "serve.stats"):
+                 "serve.stats", "launch.dryrun", "runtime.shardctx"):
         assert f"repro_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if m == "jax" or m.startswith(("jax.", "jaxlib"))

@@ -26,7 +26,7 @@ from repro_torch.runtime.elastic import (MeshPlan, NoFeasibleMeshError,
                                          adapt_config, plan_mesh)
 
 ROOT = Path(__file__).resolve().parents[1]
-TIMEOUT = 120             # seconds, each multi-rank run
+TIMEOUT = 360             # seconds, each multi-rank run (a loaded host under -n 6)
 
 
 @settings(max_examples=50, deadline=None)
