@@ -52,6 +52,9 @@ COMMANDS = {
                "group"),
 }
 
+# the reference's underscore spellings of the hyphenated subcommands
+_ALIASES = {name.replace("-", "_"): name for name in COMMANDS if "-" in name}
+
 
 def _usage(out=None) -> None:
     out = out or sys.stdout
@@ -68,13 +71,14 @@ def main(argv=None) -> int:
     if not argv or argv[0] in ("-h", "--help", "help"):
         _usage()
         return 0
-    if argv[0] not in COMMANDS:
+    cmd = _ALIASES.get(argv[0], argv[0])
+    if cmd not in COMMANDS:
         print(f"python -m repro_torch: unknown subcommand {argv[0]!r}",
               file=sys.stderr)
         _usage(sys.stderr)
         return 2
-    module, _desc = COMMANDS[argv[0]]
-    sys.argv = [f"python -m repro_torch {argv[0]}"] + argv[1:]
+    module, _desc = COMMANDS[cmd]
+    sys.argv = [f"python -m repro_torch {cmd}"] + argv[1:]
     importlib.import_module(module).main()
     return 0
 

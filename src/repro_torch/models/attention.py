@@ -121,15 +121,24 @@ def _project(x, w, heads: str):
     on a model axis of 16), DTensor places the einsum's flat [B*T, H*dh]
     product by cost and may split H*dh over a mesh dim that H does not
     divide, which the view back to heads refuses: there it runs rank by rank
-    on the batch shard with whole heads and whole D (an FSDP weight is
-    gathered).  Elsewhere it is the einsum, placed by ``constrain``."""
+    (``_project_local``).  Elsewhere it is the einsum, placed by
+    ``constrain``."""
     axes = ("batch", None, heads, None)
     shape = x.shape[:2] + w.shape[1:]
     pl = shardctx.placements(shape, axes)          # None outside a scope
     if pl is None or any(p.is_shard(2) for p in pl):
         return constrain(_einsum_project(x, w), axes)
+    return _project_local(x, w, heads)
+
+
+def _project_local(x, w, heads: str):
+    """``_project`` run rank by rank on x's batch shard with whole D and on
+    w's heads shard (an FSDP weight's D gathered): each rank makes only its
+    heads.  MLA's projections take it where heads split too: under FSDP,
+    DTensor's einsum makes every head on every rank."""
+    axes = ("batch", None, heads, None)
     return local(_einsum_project, (("batch", None, None), (None, heads, None)),
-                 out_like=(shape, axes))(x, w)
+                 out_like=(x.shape[:2] + w.shape[1:], axes))(x, w)
 
 
 def _einsum_project(x, w):
@@ -219,7 +228,7 @@ def mla_forward(cfg: ModelConfig, p, x, positions, *, n_meta: int = 0,
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
 
     q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    q = torch.einsum("btr,rhk->bthk", q, p["wq_b"])
+    q = _project_local(q, p["wq_b"], "heads")
     q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -227,10 +236,14 @@ def mla_forward(cfg: ModelConfig, p, x, positions, *, n_meta: int = 0,
     c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # one head
 
-    kvd = torch.einsum("btr,rhk->bthk", c, p["wkv_b"])           # decompress
+    kvd = _project_local(c, p["wkv_b"], "heads")                  # decompress
     k_nope, v = kvd.split([m.qk_nope_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, t, cfg.n_heads, m.qk_rope_dim)], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
+    # placed once, as the scores take them: each of _attend's query chunks
+    # would otherwise resolve a pending sum of k and v again
+    axes = ("batch", None, "heads", None)
+    k, v = constrain(k, axes), constrain(v, axes)
 
     y = _attend(q_full, k, v, positions, 0, n_meta, scale)
     out = torch.einsum("bthk,hkd->btd", y, p["wo"])

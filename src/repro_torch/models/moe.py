@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec, activation
-from repro_torch.runtime.shardctx import constrain, placed_like
+from repro_torch.runtime.shardctx import constrain, local, placed_like
 
 
 def moe_spec(cfg: ModelConfig, lead: tuple = ()):
@@ -81,6 +81,17 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor, router_mode: str = "softmax"
     return _moe_dispatch(cfg, p, x, router_mode)
 
 
+def _gather_slots(xf, gidx):
+    """xf [N,D] at the slots gidx [E,C] -> [E,C,D]."""
+    return xf[gidx.reshape(-1)].reshape(gidx.shape + xf.shape[1:])
+
+
+def _combine_slots(ye, gidx, n: int):
+    """ye [E,C,D] scatter-added at the slots gidx [E,C] into n zero rows."""
+    d = ye.shape[-1]
+    return ye.new_zeros(n, d).index_add(0, gidx.reshape(-1), ye.reshape(-1, d))
+
+
 def _moe_dispatch(cfg: ModelConfig, p, x: torch.Tensor, router_mode: str):
     mo = cfg.moe
     b, t, d = x.shape
@@ -108,10 +119,12 @@ def _moe_dispatch(cfg: ModelConfig, p, x: torch.Tensor, router_mode: str):
     gval, gidx = torch.topk(affinity.t(), cap, dim=-1)    # [E,C]
     keep = (gval > 0.0).to(xf.dtype)
 
-    xe = xf[gidx.reshape(-1)].reshape(mo.n_experts, cap, d)    # [E,C,D]
-    # dispatch buffers: experts over "model" (ep) and capacity over the
-    # batch axes, the memory-critical layout
-    xe = constrain(xe, ("experts", "moe_cap", None))
+    # dispatch buffers [E,C,D]: experts over "model" (ep) and capacity over
+    # the batch axes, the memory-critical layout.  Each rank gathers only its
+    # own experts' slots of its capacity shard, from all the tokens: DTensor's
+    # own gather would make every expert's slots on every rank first
+    xe = local(_gather_slots, ((None, None), ("experts", "moe_cap")),
+               out_like=((mo.n_experts, cap, d), ("experts", "moe_cap", None)))(xf, gidx)
     act = activation(cfg.act)
     h = act(torch.einsum("ecd,edf->ecf", xe, p["w_gate"])) \
         * torch.einsum("ecd,edf->ecf", xe, p["w_in"])
@@ -120,7 +133,10 @@ def _moe_dispatch(cfg: ModelConfig, p, x: torch.Tensor, router_mode: str):
     ye = constrain(ye, ("experts", "moe_cap", None))
     ye = ye * (gval.to(xf.dtype) * keep)[..., None]
 
-    out = xf.new_zeros(nt, d).index_add(0, gidx.reshape(-1), ye.reshape(-1, d))
+    # each rank adds its own experts' slots back into every token's row: a
+    # pending sum over the ranks that split the slots, resolved once
+    out = local(_combine_slots, (("experts", "moe_cap", None), ("experts", "moe_cap"), None),
+                out_like=((nt, d), (None, None)), partial=("experts", "moe_cap"))(ye, gidx, nt)
     out = constrain(out, ("moe_tokens", None))
 
     if mo.n_shared:

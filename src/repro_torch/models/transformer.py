@@ -48,7 +48,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, cross_entropy, embedding, mlp,
                                        mlp_spec, rms_norm)
 from repro_torch.runtime import shardctx
-from repro_torch.runtime.shardctx import constrain
+from repro_torch.runtime.shardctx import local
 
 
 # ---------------------------------------------------------------------------
@@ -266,10 +266,19 @@ def layer_decode(cfg, desc, p, x, cache, pos: int):
 # Stage execution: a loop over the stacked [R, ...] axis
 # ---------------------------------------------------------------------------
 
-def _take(tree, r: int):
-    """Slice ``[r]`` off every leaf of a dict tree (views, no copies)."""
-    return {k: _take(v, r) if isinstance(v, dict) else v[r]
-            for k, v in tree.items()}
+def _layers(tree, n: int, place=lambda v: v):
+    """A stacked dict tree as its ``n`` layers: one ``unbind`` of each leaf,
+    each layer a dict of views (no copies), each view passed through
+    ``place``.  The backward of ``unbind`` stacks the layers' gradients
+    once, where a ``v[r]`` per layer would allocate a zero gradient the
+    size of the whole stack for each layer and add them up; the reference's
+    scan writes each layer's gradient into its own slice."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _layers(v, n, place) if isinstance(v, dict) else map(place, v.unbind(0))
+        for layer, part in zip(out, parts):
+            layer[k] = part
+    return out
 
 
 _MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -318,9 +327,13 @@ def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
         with shardctx.reenter(mesh_scope):
             return layer_forward(cfg, d, lp, h, positions, n_meta,
                                  use_flash=use_flash)[::2]
+    # under a mesh each layer's gradient takes its leaf's placements as it is
+    # made; DTensor would return it as a pending sum at the global shape
+    layers = [_layers(sp[f"u{j}"], stage.repeat, shardctx.grad_placed)
+              for j in range(len(stage.unit))]
     for r in range(stage.repeat):
         for j, desc in enumerate(stage.unit):
-            p = _take(sp[f"u{j}"], r)
+            p = layers[j][r]
             if remat is not None:
                 # the layer has no randomness: no RNG state to keep; the
                 # aux loss comes out with x, as in the JAX package's carry
@@ -337,10 +350,11 @@ def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
 
 
 def stage_decode(cfg, stage: Stage, sp, x, cache, pos: int):
+    units = [(_layers(sp[f"u{j}"], stage.repeat), _layers(cache[f"u{j}"], stage.repeat))
+             for j in range(len(stage.unit))]
     for r in range(stage.repeat):
         for j, desc in enumerate(stage.unit):
-            x, _ = layer_decode(cfg, desc, _take(sp[f"u{j}"], r), x,
-                                _take(cache[f"u{j}"], r), pos)
+            x, _ = layer_decode(cfg, desc, units[j][0][r], x, units[j][1][r], pos)
     return x, cache
 
 
@@ -364,15 +378,24 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
 
 
 def lm_head(cfg: ModelConfig, params, x):
-    """Logits [B,T,V], or [B,T,K,V] for K codebooks."""
+    """Logits [B,T,V], or [B,T,K,V] for K codebooks, placed ("batch", None,
+    "vocab").  Under a mesh the product runs rank by rank on x's batch
+    shard with d whole and on the head's vocab shard with d gathered, so
+    each rank makes only its shard of the logits: DTensor's own einsum of
+    an FSDP head (d split over "data") makes pending sums of the global
+    batch's logits over the whole vocab."""
+    b, t = x.shape[:2]
     if cfg.tie_embeddings:
-        out = torch.einsum("btd,vd->btv", x, params["tok_emb"])
+        eq, w, w_axes = "btd,vd->btv", params["tok_emb"], ("vocab", None)
+        out = (b, t, w.shape[0]), ("batch", None, "vocab")
     elif cfg.n_codebooks > 1:
-        out = torch.einsum("btd,kdv->btkv", x, params["head"])
-        return constrain(out, ("batch", None, None, "vocab"))
+        eq, w, w_axes = "btd,kdv->btkv", params["head"], (None, None, "vocab")
+        out = (b, t) + w.shape[::2], ("batch", None, None, "vocab")
     else:
-        out = torch.einsum("btd,dv->btv", x, params["head"])
-    return constrain(out, ("batch", None, "vocab"))
+        eq, w, w_axes = "btd,dv->btv", params["head"], (None, "vocab")
+        out = (b, t, w.shape[1]), ("batch", None, "vocab")
+    return local(lambda x, w: torch.einsum(eq, x, w), (("batch", None, None), w_axes),
+                 out_like=out)(x, w)
 
 
 # ---------------------------------------------------------------------------

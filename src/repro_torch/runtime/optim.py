@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec, map_specs
+from repro_torch.runtime.shardctx import placed_like
 from repro_torch.runtime.tree import leaves, tree_map
 
 
@@ -157,8 +158,14 @@ def adafactor_update(cfg: AdafactorConfig, grads, state, params, lr):
         g32 = g.float()
         g2 = g32.square() + cfg.eps1
         if g.ndim >= 2:
-            vr = beta2 * slot["vr"].float() + (1 - beta2) * g2.mean(dim=-1)
-            vc = beta2 * slot["vc"].float() + (1 - beta2) * g2.mean(dim=-2)
+            # each factor in its slot's placements before the outer product,
+            # so that vhat is made at g's shard shape: a factor's mean over a
+            # split dim is a pending sum, and DTensor would resolve it after
+            # the product, on the leaf's whole shape
+            vr = placed_like(beta2 * slot["vr"].float() + (1 - beta2) * g2.mean(dim=-1),
+                             slot["vr"])
+            vc = placed_like(beta2 * slot["vc"].float() + (1 - beta2) * g2.mean(dim=-2),
+                             slot["vc"])
             denom = vr.mean(dim=-1, keepdim=True)
             vhat = (vr[..., None] / torch.clamp(denom[..., None], min=cfg.eps1)) \
                 * vc[..., None, :]

@@ -173,13 +173,16 @@ def grad_placed(x):
     ...] -> [B, nc * cl, ...]``): DTensor may hand the gradient a split of
     the merged dim that the backward's view cannot cut evenly (2 chunks
     over a mesh dim of 4), and ``x``'s own placements came from an even
-    merge.  Outside a scope, or on a plain tensor, it is ``x``."""
+    merge.  ``transformer.stage_forward`` puts each layer's view of a
+    stacked leaf through it, so that the layer's gradient is made in the
+    leaf's placements rather than as a pending sum at the global shape.
+    Outside a scope, or on a plain tensor, it is ``x``."""
     if _CTX.get() is None or not is_dtensor(x):
         return x
     return _GradPlaced.apply(x)
 
 
-def local(fn, in_axes: tuple, out_like=0):
+def local(fn, in_axes: tuple, out_like=0, partial: tuple = ()):
     """``fn`` run on each rank's local shards.
 
     Inside a scope, argument ``i`` is constrained to ``in_axes[i]`` (an
@@ -194,7 +197,11 @@ def local(fn, in_axes: tuple, out_like=0):
     flows back into ``fn``'s own backward rank by rank.  An input
     replicated over a mesh dim that splits the result gets only this
     rank's share of its gradient, so that gradient is a partial sum over
-    the dim.  Outside a scope, or on plain tensors, it is ``fn`` itself.
+    the dim.  With ``partial`` (logical axes of ``in_axes``), ``fn``'s result
+    is this rank's term of a sum over the mesh dims that split those axes
+    (a scatter-add of this rank's rows): it comes back as a pending sum
+    (``Partial``) over them, for the next ``constrain`` to resolve.  Outside
+    a scope, or on plain tensors, it is ``fn`` itself.
 
     While ``fn`` runs, ``axis_index`` and ``all_reduce_`` name a logical
     axis of ``in_axes`` and act over the mesh dims that split it."""
@@ -210,14 +217,17 @@ def local(fn, in_axes: tuple, out_like=0):
                 constrain(DTensor.from_local(a, mesh, rep, run_check=False)
                           if _plain(a) else a, ax)
                 for a, ax in zip(args, in_axes)]
-        out_pl = (args[out_like].placements if isinstance(out_like, int)
-                  else placements(*out_like))
         split = {}
         for a, axes in zip(args, in_axes):
             for d, name in enumerate(axes or ()):
                 if name is not None and is_dtensor(a):
                     split.setdefault(name, tuple(i for i, p in enumerate(a.placements)
                                                  if p.is_shard(d)))
+        out_pl = list(args[out_like].placements if isinstance(out_like, int)
+                      else placements(*out_like))
+        for name in partial:
+            for i in split.get(name, ()):
+                out_pl[i] = Partial()
 
         def to_local(a):
             if not is_dtensor(a):

@@ -8,14 +8,18 @@ one (arch x shape) cell, with no allocation: the dry-run
 Where JAX scans over the microbatch axis, the port runs a Python loop: each
 microbatch's gradient comes from ``torch.autograd.grad`` and is added into
 an accumulator in ``cfg.grad_accum_dtype``, so only one microbatch's
-activations and one bf16 gradient tree live at a time.
+activations and one bf16 gradient tree live at a time.  Under a mesh each
+gradient reaches its accumulator in its leaf's placements, so accumulators
+are made and added at the shard shape, as the reference's scan carries a
+parameter-shaped accumulator that XLA shards.
 
 With ``shard_ctx=(mesh, rules)`` the step runs under ``shardctx.scope``:
 params, optimizer state and batch are DTensors laid out by
 ``sharding.spec_shardings`` (``launch/train.py::build``), the model's
-``constrain`` calls place its intermediates, and each gradient is reduced
-to its parameter's placements (an all-reduce over the batch axes for a
-replicated leaf, a reduce-scatter for a sharded one) before the update.
+``constrain`` calls place its intermediates, and each microbatch's gradient
+is reduced to its parameter's placements (an all-reduce over the batch axes
+for a replicated leaf, a reduce-scatter for a sharded one) before it is
+accumulated.
 The loss is the global batch's mean and ``gnorm`` the global norm; both
 come back as plain tensors.
 """
@@ -101,6 +105,16 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
     return {"tokens": toks, "cache": tf.cache_specs(cfg, b, t)}
 
 
+def _accumulate(acc, grads, dtype):
+    """``acc`` plus ``grads`` leaf by leaf in ``dtype``, in place; for
+    ``acc`` None a copy of ``grads`` in ``dtype``."""
+    if acc is None:
+        return [g.to(dtype, copy=True) for g in grads]
+    for a, g in zip(acc, grads):
+        a.add_(g.to(dtype))
+    return acc
+
+
 def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
                     use_flash: bool = False, compress_fn=None, shard_ctx=None):
     """Returns train_step(params, opt_state, batch, step) -> (p, s, metrics).
@@ -117,7 +131,16 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
 
     def micro_grads(params, flat, mb):
         loss, _ = tf.train_loss(cfg, params, mb, use_flash=use_flash)
-        return loss.detach(), torch.autograd.grad(loss, flat)
+        grads = list(torch.autograd.grad(loss, flat))
+        if shard_ctx is not None:
+            # each gradient in its leaf's placements before it is added, one
+            # leaf at a time: a stacked leaf's come placed from the layers'
+            # backward (``transformer.stage_forward``), the others (tok_emb,
+            # head, norms) may come as pending sums
+            for i, p in enumerate(flat):
+                if tuple(grads[i].placements) != tuple(p.placements):
+                    grads[i] = grads[i].redistribute(p.device_mesh, p.placements)
+        return loss.detach(), grads
 
     def train_step(params, opt_state, batch, step):
         with _maybe_scope(shard_ctx):
@@ -136,12 +159,8 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
                 grads, lsum = None, None
                 for m in range(n_micro):
                     loss, g = micro_grads(params, flat, {k: v[m] for k, v in batch.items()})
-                    if grads is None:
-                        grads, lsum = [x.to(acc_dt, copy=True) for x in g], loss.float()
-                    else:
-                        for a, x in zip(grads, g):
-                            a.add_(x.to(acc_dt))
-                        lsum = lsum + loss
+                    grads = _accumulate(grads, g, acc_dt)
+                    lsum = loss.float() if lsum is None else lsum + loss
                     del g
                 loss = lsum / n_micro
                 for a in grads:
@@ -149,10 +168,6 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
         finally:
             for x in flat:
                 x.requires_grad_(False)
-        if shard_ctx is not None:        # partial sums -> the leaf's layout
-            grads = list(grads)
-            for i, p in enumerate(flat):     # one leaf at a time: no 2nd tree
-                grads[i] = grads[i].redistribute(p.device_mesh, p.placements)
         grads = unflatten(params, grads)
         if compress_fn is not None:
             grads = compress_fn(grads)

@@ -1,0 +1,283 @@
+"""The sharded step's layouts on a fake (2, 4) group: no rank builds a tensor
+larger than the shard the reference's layout keeps, at the places where
+DTensor's own choice of layout would build it whole.
+
+The reference writes a ``constrain`` (``with_sharding_constraint``) at each
+of these places, and under GSPMD the constraint picks the layout of the op
+that makes the tensor.  The port makes each of them rank by rank instead
+(``shardctx.local``, ``shardctx.grad_placed``), so each rank's local op
+makes only its shard.  For the reduced configs of yi-6b, mixtral-8x7b,
+gemma3-27b (FSDP, tied head) and deepseek-v3-671b (FSDP, MLA, expert
+parallel MoE, MTP), a train cell (2 microbatches), a prefill and a decode
+cell are run once as rank 0 of 8 under ``RankTrace``, and:
+
+* the LM head's products make no more than the logits' shard
+  ``("batch", None, "vocab")``, and the head returns that shard;
+* the MoE dispatch gathers no more than its ``("experts", "moe_cap",
+  None)`` shard of slots, and scatter-adds no more rows back (prefill
+  dispatches its tokens in two groups, as a production prefill does above
+  ``MAX_DISPATCH_TOKENS``);
+* no collective runs inside a query chunk's attention (the chunks are cut
+  small so that 40 tokens walk 5 of them): k and v are placed once;
+* each layer's weight gradient leaves ``grad_placed`` in its leaf's
+  placements, and each gradient accumulator is at its leaf's shard shape;
+* no op of the rank's op list outputs a tensor of the global shape of a
+  stacked leaf that the layout splits (what a ``select`` backward per
+  layer, or a whole-shape accumulator, makes).
+
+Each cell runs in a subprocess of its own (this file as a script), so that
+no pytest worker keeps a default process group.
+"""
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+TIMEOUT = 240          # seconds, for one cell's subprocess
+ARCHS = ("yi-6b", "mixtral-8x7b", "gemma3-27b", "deepseek-v3-671b")
+MOE_ARCHS = ("mixtral-8x7b", "deepseek-v3-671b")
+KINDS = ("train", "prefill", "decode")
+MICROBATCHES = 2
+SEQ = 40               # no dim of a reduced stacked leaf is 40: no shape coincides
+
+
+# ----------------------------------------------------------- the subprocess
+
+def _local_shape(shape, mesh, placements):
+    shape = list(shape)
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            shape[p.dim] //= mesh.size(i)
+    return shape
+
+
+def config(arch):
+    """The arch's reduced config; deepseek-v3's with a second MoE layer, so
+    that its MoE stage stacks two layers (the full config stacks 58)."""
+    from repro_torch.configs import reduced_config
+
+    cfg = reduced_config(arch)
+    if arch == "deepseek-v3-671b":
+        cfg = cfg.replace(n_layers=4, layer_kinds=cfg.kinds + cfg.kinds[-1:],
+                          windows=cfg.layer_windows + cfg.layer_windows[-1:],
+                          moe_layers=cfg.layer_moe + (True,))
+    return cfg
+
+
+def trace_cell(arch, kind, out):
+    """Run the arch's cell of ``kind`` on a fake (2, 4) group and write what
+    each site made, and the op lines that made a split stacked leaf whole."""
+    import contextlib
+    import contextvars
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention, moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import shardctx, steps
+    from repro_torch.runtime.tree import leaves
+
+    dryrun.get_config = config
+    moe.MAX_DISPATCH_TOKENS = 160                 # prefill: 2 groups of 160
+    attention._CHUNK_THRESHOLD, attention._CHUNK_Q = 512, 8   # 5 query chunks
+    region = contextvars.ContextVar("region", default=None)
+    sites = {}
+
+    def record(name, **kw):
+        sites.setdefault(name, []).append(kw)
+
+    @contextlib.contextmanager
+    def inside(name):
+        tok = region.set(name)
+        try:
+            yield
+        finally:
+            region.reset(tok)
+
+    class SiteTrace(dryrun.RankTrace):
+        """``RankTrace`` that also notes the products made inside the head,
+        the gathers and scatter-adds inside the MoE dispatch, and any
+        collective inside a chunk's attention."""
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            n = len(self.ops)
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            where = region.get()
+            if where is None or len(self.ops) == n:
+                return out
+            line = self.ops[-1]
+            outs = [list(x.shape) for x in dryrun._tensors(out)]
+            if where == "head" and " flops=" in line:
+                record("head_products", shapes=outs, line=line)
+            elif where == "moe" and func is torch.ops.aten.index.Tensor:
+                record("moe_gathers", shapes=outs, line=line)
+            elif where == "moe" and func is torch.ops.aten.index_add.default:
+                record("moe_combines", source=list(args[3].shape), line=line)
+            elif where == "sdpa" and line.split(" ")[0] in dryrun.COLLECTIVES:
+                record("sdpa_collectives", line=line)
+            return out
+
+    head, dispatch, sdpa = tf.lm_head, moe._moe_dispatch, attention._sdpa
+
+    def lm_head(cfg, params, x):
+        with inside("head"):
+            y = head(cfg, params, x)
+        axes = ("batch",) + (None,) * (y.ndim - 2) + ("vocab",)
+        want = _local_shape(y.shape, y.device_mesh, shardctx.placements(y.shape, axes))
+        record("head", local=list(y.to_local().shape), want=want)
+        return y
+
+    def moe_dispatch(cfg, p, x, router_mode):
+        with inside("moe"):
+            y = dispatch(cfg, p, x, router_mode)
+        shape = (cfg.moe.n_experts, moe.capacity(x.shape[0] * x.shape[1], cfg.moe),
+                 x.shape[2])
+        pl = shardctx.placements(shape, ("experts", "moe_cap", None))
+        record("moe", want=_local_shape(shape, x.device_mesh, pl))
+        return y
+
+    def chunk_sdpa(*a):
+        with inside("sdpa"):
+            return sdpa(*a)
+
+    grad_placed_bwd = shardctx._GradPlaced.backward
+
+    def placed_bwd(ctx, grad):
+        g = grad_placed_bwd(ctx, grad)
+        mesh, want = ctx.spec
+        record("grad_placed", local=list(g.to_local().shape),
+               want=_local_shape(g.shape, mesh, want))
+        return g
+
+    accumulate = getattr(steps, "_accumulate", None)   # None: nothing to see
+
+    def accumulated(acc, grads, dtype):
+        acc = accumulate(acc, grads, dtype)
+        record("accumulators", local=[list(a.to_local().shape) for a in acc])
+        return acc
+
+    tf.lm_head, moe._moe_dispatch, attention._sdpa = lm_head, moe_dispatch, chunk_sdpa
+    shardctx._GradPlaced.backward = staticmethod(placed_bwd)
+    if accumulate is not None:
+        steps._accumulate = accumulated
+
+    with dryrun.fake_group(8):
+        mesh = make_mesh((2, 4), ("data", "model"))
+        shape = ShapeConfig("c", kind, SEQ, 8)
+        cfg, fn, args, _ = dryrun.build_cell(
+            arch, shape, mesh, microbatches=MICROBATCHES if kind == "train" else None)
+        stages = args[0]["stages"]
+        # stacks of two layers or more: a stack of one has a layer's size
+        split = {tuple(x.shape) for st in stages for x in leaves(st)
+                 if x.shape[0] > 1 and tuple(x.to_local().shape) != tuple(x.shape)}
+        with SiteTrace(dryrun._tensors(args), keep_ops=True) as trace:
+            fn(*args)
+    whole = []
+    for line in trace.ops:
+        outs = line.split(" -> ", 1)[1] if " -> " in line else ""
+        for m in re.finditer(r"\[([\d, ]*)\]", outs):
+            if tuple(int(v) for v in m.group(1).split(",") if v.strip()) in split:
+                whole.append(line)
+    Path(out).write_text(json.dumps({
+        "sites": sites,
+        "leaves": [list(x.to_local().shape) for x in leaves(args[0])],
+        "split_stacked": sorted(map(list, split)),
+        "layer_leaves": sum(x.shape[0] for st in stages for x in leaves(st)),
+        "whole": whole}))
+
+
+# ------------------------------------------------------------------- tests
+
+_TRACES = {}
+
+
+def _trace(tmp_path_factory, arch, kind):
+    if (arch, kind) not in _TRACES:
+        tmp = tmp_path_factory.mktemp(f"{arch}-{kind}")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        proc = subprocess.run([sys.executable, str(Path(__file__)), arch, kind,
+                               str(tmp / "out.json")],
+                              cwd=tmp, env=env, capture_output=True, text=True,
+                              timeout=TIMEOUT)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        _TRACES[arch, kind] = json.loads((tmp / "out.json").read_text())
+    return _TRACES[arch, kind]
+
+
+def _numel(shape):
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_no_op_makes_a_split_stacked_leaf_whole(tmp_path_factory, arch, kind):
+    cell = _trace(tmp_path_factory, arch, kind)
+    assert cell["split_stacked"], "the layout splits no stacked leaf: nothing to hold"
+    assert cell["whole"] == [], cell["whole"][:8]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_the_head_makes_only_its_shard_of_the_logits(tmp_path_factory, arch, kind):
+    sites = _trace(tmp_path_factory, arch, kind)["sites"]
+    heads = sites["head"]
+    # the MTP module runs the head a second time in deepseek-v3's train cell
+    assert len(heads) >= 1
+    for h in heads:
+        assert h["local"] == h["want"]
+    want = max(_numel(h["want"]) for h in heads)
+    assert sites.get("head_products"), "the head made no product"
+    for p in sites["head_products"]:
+        assert all(_numel(s) <= want for s in p["shapes"]), p["line"]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_the_moe_dispatch_moves_only_its_experts_slots(tmp_path_factory, arch, kind):
+    """The gather makes no more than the rank's ``xe`` shard, and the
+    scatter-add back takes no more rows than the rank's slots."""
+    sites = _trace(tmp_path_factory, arch, kind)["sites"]
+    want = max(_numel(m["want"]) for m in sites["moe"])
+    slots = max(m["want"][0] * m["want"][1] for m in sites["moe"])
+    assert sites.get("moe_gathers"), "the dispatch gathered nothing"
+    for g in sites["moe_gathers"]:
+        assert all(_numel(s) <= want for s in g["shapes"]), g["line"]
+    assert sites.get("moe_combines"), "the dispatch scattered nothing back"
+    for c in sites["moe_combines"]:
+        assert c["source"][0] <= slots, c["line"]
+
+
+@pytest.mark.parametrize("kind", ("train", "prefill"))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_no_query_chunk_resolves_k_or_v(tmp_path_factory, arch, kind):
+    sites = _trace(tmp_path_factory, arch, kind)["sites"]
+    assert sites.get("sdpa_collectives", []) == []
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_layer_gradients_and_accumulators_are_at_the_shard_shape(tmp_path_factory, arch):
+    cell = _trace(tmp_path_factory, arch, "train")
+    placed = cell["sites"].get("grad_placed", [])
+    # every layer's view of every stacked leaf, in each microbatch
+    assert len(placed) >= MICROBATCHES * cell["layer_leaves"]
+    for g in placed:
+        assert g["local"] == g["want"]
+    acc = cell["sites"].get("accumulators", [])
+    assert len(acc) == MICROBATCHES
+    for shapes in acc:
+        assert shapes["local"] == cell["leaves"]
+
+
+if __name__ == "__main__":
+    trace_cell(*sys.argv[1:])

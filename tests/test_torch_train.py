@@ -230,6 +230,49 @@ def test_remat_dots_backward_recomputes_no_unbatched_product(loss_pair):
     assert counts["dots"][1] == counts["full"][1] > counts["none"][1]
 
 
+def _per_layer_selects(tree, n, place=lambda v: v):
+    """The stage's layers as a ``v[r]`` per layer and leaf: the
+    ``select`` whose backward fills a stack-sized zero gradient per layer."""
+    return [{k: _per_layer_selects(v, n, place)[r] if isinstance(v, dict) else place(v[r])
+             for k, v in tree.items()} for r in range(n)]
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_unbind_per_stage_gives_the_select_loops_gradients(monkeypatch, arch, policy):
+    """``stage_forward`` takes a stage's layers with one ``unbind`` of each
+    stacked leaf; a ``v[r]`` per layer summed stack-sized zero gradients.
+    Both give every parameter gradient bit for bit (adding zeros is exact),
+    under remat "full" and "dots": two train steps of two microbatches,
+    the accumulated gradient tree of each step and the weights after."""
+    _, tcfg = _configs(arch, train_microbatches=2, remat=True, remat_policy=policy)
+    pspecs = ttf.param_specs(tcfg)
+    state = train.init_state((pspecs, topt_state_specs(tcfg, pspecs)), torch.device("cpu"), 2)
+    rng = np.random.default_rng(4)
+    tokens = [torch.from_numpy(rng.integers(0, SCALE["vocab"], (2, 2, 64)).astype(np.int32))
+              for _ in range(2)]
+    runs = []
+    for layers in (ttf._layers, _per_layer_selects):
+        monkeypatch.setattr(ttf, "_layers", layers)
+        seen = []
+
+        def keep(g):
+            seen.append(tree_map(torch.clone, g))
+            return g
+        step = tsteps.make_train_step(tcfg, tsteps.TrainHParams(**HP), compress_fn=keep)
+        p, o = tree_map(torch.clone, state)
+        for i, t in enumerate(tokens):
+            p, o, _ = step(p, o, {"tokens": t}, i)
+        runs.append((seen, p))
+    (seen_a, p_a), (seen_b, p_b) = runs
+    assert len(seen_a) == len(seen_b) == 2
+    for ga, gb in zip(seen_a, seen_b):
+        for (path, a), b in zip(flatten(ga), leaves(gb)):
+            assert torch.equal(a, b), path
+    for (path, a), b in zip(flatten(p_a), leaves(p_b)):
+        assert torch.equal(a, b), path
+
+
 @pytest.mark.parametrize("remat", [True, False])
 def test_mla_mtp_train_loss_and_grads_match_jax(remat):
     """deepseek-v3-671b's reduced config (MLA, two dense layers and a

@@ -429,6 +429,20 @@ def test_unified_cli_dispatch():
     assert main(["definitely-not-a-command"]) == 2
 
 
+@pytest.mark.parametrize("name", ["serve_worker", "serve-worker",
+                                  "serve_estimator", "serve-estimator"])
+def test_unified_cli_takes_the_references_underscore_spellings(name, monkeypatch, capsys):
+    """Both spellings of a hyphenated subcommand reach its launcher, as the
+    reference's ``_ALIASES`` map them; an unknown name still exits 2."""
+    from repro_torch.launch.__main__ import main
+    monkeypatch.setattr(sys, "argv", list(sys.argv))   # main rewrites it
+    with pytest.raises(SystemExit) as done:
+        main([name, "--help"])
+    assert done.value.code == 0
+    assert f"python -m repro_torch {name.replace('_', '-')}" in capsys.readouterr().out
+    assert main([name + "_nope"]) == 2
+
+
 def test_unified_cli_entrypoint_subprocess():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-m", "repro_torch", "--help"],

@@ -13,8 +13,9 @@ device's idle share (1 - kernel time / wall time; one stream, so kernels
 do not overlap), the same share against the untraced step's wall time
 (the tracer's host work stretches the traced step once the device is
 fast), the device time of the flash-attention kernels (K2 forward, K2
-bwd, each kernel of a group on its own line) and of the GEMMs, and the
-kernels that take the most device time.
+bwd, each kernel of a group on its own line), of the GEMMs, of the zero
+fills and of the bf16 adds, and the kernels that take the most device
+time.
 
 ``--mesh`` runs the step as ``chip_smoke.py``'s phase 23 does: through
 ``make_train_step(shard_ctx=...)`` on a 1x1 ("data", "model") mesh over
@@ -57,6 +58,10 @@ GROUPS = {
     "K2 bwd (delta, dkdv, dq kernels)": ("delta_kernel", "dkdv_kernel", "dq_kernel",
                                          "dkdv_wgmma_kernel", "dq_wgmma_kernel"),
     "GEMMs (cuBLAS)": ("nvjet", "gemm", "xmma", "cutlass", "sm90_"),
+    # what a stacked leaf's per-layer ``select`` backward cost: zero fills of
+    # the stack and bf16 adds of them
+    "fills (FillFunctor)": ("FillFunctor",),
+    "bf16 adds": ("CUDAFunctor_add<c10::BFloat16>",),
 }
 
 
