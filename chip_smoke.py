@@ -262,8 +262,12 @@ Phases, each of which raises on failure (exit code != 0):
                (b) weights and prompts drawn here), ``mem_device_bytes``
                (argument + temp) within 0.8-1.25x the measured peak over the
                baseline (phase 23's; (b) one ``make_prefill_step`` call, 32
-               K2 launches); 0 kernel launches and 0 card bytes while
-               pricing (``dryrun_launches``)
+               K2 launches); (c) a production cell, mixtral-8x7b
+               prefill_32k on the 256-rank pod16x16 fake mesh, through the
+               dry-run's CLI (``launch/dryrun.py::main``) in a child
+               process: ``[ok]`` and ``mem_device_bytes`` under 80e9; 0
+               kernel launches and 0 card bytes while pricing
+               (``dryrun_launches``)
 serve_model counts one K2 launch per attention-bearing layer of a GQA
 model, and none for MLA.
 The whole shapes (phases 4, 11, 14, 17, 19-21) are held against the plain
@@ -2433,6 +2437,61 @@ def _dryrun_child(tag) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+# a production cell on the 256-rank pod16x16 fake mesh, through the dry-run's
+# CLI: it runs rank by rank the full-sequence attention on its heads shard and
+# the prefill's ring packing on its batch shard
+DRYRUN_PRODUCTION = ("mixtral-8x7b", "prefill_32k")
+DRYRUN_PRODUCTION_TIMEOUT = 600
+DRYRUN_PRODUCTION_BYTES = 80e9
+_DRYRUN_PRODUCTION_CHILD = """
+import contextlib, io, json, sys, time
+import torch
+from repro_torch.kernels import flash_attention as fa, matmul_blocked as mm
+from repro_torch.launch import dryrun
+arch, shape, out = sys.argv[1:4]
+t0 = time.perf_counter()
+said = io.StringIO()
+with contextlib.redirect_stdout(said):
+    dryrun.main(["--arch", arch, "--shape", shape, "--out", out])
+with open(f"{out}/{arch}__{shape}__pod16x16.json") as f:
+    rec = json.load(f)
+print(json.dumps({"said": said.getvalue(), "record": rec,
+                  "launches": {"matmul": mm.launches, "flash": fa.launches,
+                               "flash_bwd": fa.bwd_launches},
+                  "cuda_bytes": torch.cuda.memory_allocated() if torch.cuda.is_initialized() else 0,
+                  "wall_s": time.perf_counter() - t0}))
+"""
+
+
+def _dryrun_production(tag, smi) -> dict:
+    """Phase 32 (c): ``DRYRUN_PRODUCTION`` priced by ``python -m repro_torch
+    dryrun``'s ``main`` in a child process on the 512-rank fake group;
+    gates: ``[ok]``, ``mem_device_bytes`` under 80e9 (checked by the
+    caller: no kernel launch and no card bytes)."""
+    arch, shape = DRYRUN_PRODUCTION
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as out:
+        proc = subprocess.run([sys.executable, "-c", _DRYRUN_PRODUCTION_CHILD, arch, shape, out],
+                              cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=DRYRUN_PRODUCTION_TIMEOUT)
+    if proc.returncode != 0:
+        raise SystemExit(f"[{tag}] (c) {arch} {shape} on pod16x16 failed: "
+                         f"{proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec = got["record"]
+    coll = {k: v["count"] for k, v in rec["collectives"].items() if v["count"]}
+    print(f"[{tag}] (c) {arch} {shape} on pod16x16 (256 ranks): "
+          f"{got['said'].strip().splitlines()[0][:160]}; mem_device_bytes "
+          f"{rec['mem_device_bytes']} (args {rec['memory']['argument_size_in_bytes']} + temp "
+          f"{rec['memory']['temp_size_in_bytes']}; gate < {DRYRUN_PRODUCTION_BYTES:.0e}), "
+          f"flops {rec['flops']:.4e}, collectives {coll}, trace_s {rec['trace_s']}, child "
+          f"wall_s {got['wall_s']:.1f}, torch {torch.__version__}; on {smi}", flush=True)
+    if "[ok]" not in got["said"] or not rec["mem_device_bytes"] < DRYRUN_PRODUCTION_BYTES:
+        raise SystemExit(f"[{tag}] (c) {arch} {shape}: {got['said'].strip()[:300]}, "
+                         f"mem_device_bytes {rec['mem_device_bytes']}")
+    return got
+
+
 def _dryrun_check(tag, name, rec, args_bytes, peak_bytes, what, smi):
     """One cell's prediction against the card's readings (both printed)."""
     args = rec["memory"]["argument_size_in_bytes"]
@@ -2462,10 +2521,13 @@ def phase_dryrun(device, smi, sharded) -> dict:
     t0 = time.perf_counter()
     _reset_counts()
     priced = _dryrun_child(tag)
+    production = _dryrun_production(tag, smi)
     parent = _ds_kernel_launches()
-    if any(priced["launches"].values()) or any(parent.values()) or priced["cuda_bytes"]:
-        raise SystemExit(f"[{tag}] launches while pricing: child {priced['launches']}, "
-                         f"this process {parent}; child's card bytes {priced['cuda_bytes']}")
+    launches = {k: n + production["launches"][k] for k, n in priced["launches"].items()}
+    cuda_bytes = priced["cuda_bytes"] + production["cuda_bytes"]
+    if any(launches.values()) or any(parent.values()) or cuda_bytes:
+        raise SystemExit(f"[{tag}] launches while pricing: children {launches}, "
+                         f"this process {parent}; children's card bytes {cuda_bytes}")
     (shape, _, _) = DRYRUN_CELLS["prefill"]
     cfg = get_config("yi-6b")
     torch.cuda.empty_cache()
@@ -2493,11 +2555,11 @@ def phase_dryrun(device, smi, sharded) -> dict:
                                  f"yi-6b whole, flash prefill of {shape[3]} x {shape[2]} "
                                  f"(make_prefill_step; {cfg.n_layers} K2 launches on the "
                                  "card)", smi)}
-    print(f"[{tag}] priced in a child process in {priced['wall_s']:.1f} s on a one-rank "
-          f"fake mesh: kernel launches {priced['launches']} (this process "
-          f"{parent}), card bytes {priced['cuda_bytes']}; phase wall_s "
+    print(f"[{tag}] priced in child processes in {priced['wall_s']:.1f} s on a one-rank "
+          f"fake mesh and {production['wall_s']:.1f} s on pod16x16: kernel launches "
+          f"{launches} (this process {parent}), card bytes {cuda_bytes}; phase wall_s "
           f"{time.perf_counter() - t0:.1f}", flush=True)
-    report["launches"] = priced["launches"]
+    report["launches"] = launches
     return report
 
 

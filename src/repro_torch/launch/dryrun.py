@@ -58,6 +58,7 @@ import contextlib
 import dataclasses
 import json
 import time
+import traceback
 import weakref
 from pathlib import Path
 
@@ -360,6 +361,7 @@ def main(argv=None):
                           f"trace={rec['trace_s']}s", flush=True)
                 except Exception as e:  # noqa: BLE001 -- report and continue
                     failures.append(tag)
+                    traceback.print_exc()
                     print(f"[FAIL] {tag}: {type(e).__name__}: {e}", flush=True)
     if failures:
         raise SystemExit(f"{len(failures)} cell(s) failed: {failures}")

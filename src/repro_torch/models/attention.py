@@ -72,18 +72,31 @@ _CHUNK_THRESHOLD = 32 * 1024 * 1024
 _CHUNK_Q = 1024
 
 
+_HEADS = ("batch", None, "heads", None)
+_SCORES = ("batch", "heads", None, "attn_kv")
+
+
 def _attend(q, k, v, positions, window, n_meta, scale):
-    """Full-sequence attention, chunked over queries when the scores are large."""
-    t, s = q.shape[1], k.shape[1]
-    k, v = _repeat_kv(k, v, q.shape[2] // k.shape[2])
+    """Full-sequence attention, chunked over queries when the scores are large.
+
+    Where the scores split their heads over the mesh, each query chunk runs
+    rank by rank on the heads shard (``_sdpa``'s ``by_rank``): k and v are
+    placed on it once, before the chunks."""
+    b, t, h = q.shape[:3]
+    s = k.shape[1]
+    k, v = _repeat_kv(k, v, h // k.shape[2])
+    pl = shardctx.placements((b, h, t, s), _SCORES)    # None outside a scope
+    by_rank = pl is not None and any(p.is_shard(1) for p in pl)
+    if by_rank:
+        k, v = constrain(k, _HEADS), constrain(v, _HEADS)
     if t * s < _CHUNK_THRESHOLD:
         mask = causal_window_mask(positions, positions, window, n_meta)
-        return _sdpa(q, k, v, mask[None], scale)
+        return _sdpa(q, k, v, mask[None], scale, by_rank)
     outs = []
     for c in range(0, t, _CHUNK_Q):
         mask = causal_window_mask(positions[c:c + _CHUNK_Q], positions,
                                   window, n_meta)
-        outs.append(_sdpa(q[:, c:c + _CHUNK_Q], k, v, mask[None], scale))
+        outs.append(_sdpa(q[:, c:c + _CHUNK_Q], k, v, mask[None], scale, by_rank))
     return torch.cat(outs, dim=1)
 
 
@@ -93,19 +106,32 @@ def _repeat_kv(k, v, g: int):
     heads cannot split as the queries do."""
     if g == 1:
         return k, v
-    k = constrain(k.repeat_interleave(g, dim=2), ("batch", None, "heads", None))
-    v = constrain(v.repeat_interleave(g, dim=2), ("batch", None, "heads", None))
+    k = constrain(k.repeat_interleave(g, dim=2), _HEADS)
+    v = constrain(v.repeat_interleave(g, dim=2), _HEADS)
     return k, v
 
 
-def _sdpa(q, k, v, mask, scale):
+def _sdpa(q, k, v, mask, scale, by_rank: bool = False):
     """q,k:[B,T|S,H|KV,dh] v:[B,S,KV,dv] (KV divides H; MLA's dv differs
-    from dh); mask:[1,T,S] bool."""
+    from dh); mask:[1,T,S] bool.
+
+    ``by_rank`` (full-sequence attention whose scores split the heads; k and
+    v already repeated up to H): the score product, the mask, the softmax
+    and the value product run rank by rank on q, k and v's heads shard with
+    the mask replicated (this function again, on the local shards, where
+    ``constrain`` and the repeat do nothing), so each rank makes only its
+    heads' [B,H,T,S] scores, forward and backward.  DTensor's own einsums keep the rank's
+    heads in the forward but not in the backward (an all-gather of the
+    probabilities over heads), and torch 2.11's refuses to flatten a batch
+    and a head dim that are both split."""
+    if by_rank:
+        return local(_sdpa, (_HEADS, _HEADS, _HEADS, (None, None, None), None),
+                     out_like=0)(q, k, v, mask, scale)
     k, v = _repeat_kv(k, v, q.shape[2] // k.shape[2])
     scores = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
     # heads take "model" when they divide it; otherwise the key axis does
     # (hymba's 25 heads): the resolver drops the loser per tensor
-    scores = constrain(scores, ("batch", "heads", None, "attn_kv"))
+    scores = constrain(scores, _SCORES)
     scores = scores.masked_fill(~mask[:, None], torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhts,bshd->bthd", probs, v)
@@ -242,8 +268,7 @@ def mla_forward(cfg: ModelConfig, p, x, positions, *, n_meta: int = 0,
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     # placed once, as the scores take them: each of _attend's query chunks
     # would otherwise resolve a pending sum of k and v again
-    axes = ("batch", None, "heads", None)
-    k, v = constrain(k, axes), constrain(v, axes)
+    k, v = constrain(k, _HEADS), constrain(v, _HEADS)
 
     y = _attend(q_full, k, v, positions, 0, n_meta, scale)
     out = torch.einsum("bthk,hkd->btd", y, p["wo"])

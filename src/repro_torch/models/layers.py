@@ -137,8 +137,26 @@ def mlp_spec(d_model: int, d_ff: int, dtype: str, stacked: int | None = None):
 
 
 def mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = activation(act)(x @ params["wg"]) * (x @ params["wi"])
-    return h @ params["wo"]
+    """x [B,T,D].  Where the rules split D of the weights (FSDP), the up and
+    gate products run rank by rank on x's batch shard with D whole and on
+    the weights' ffn shard with D gathered, and the down product gives this
+    rank's term of the sum over the ffn shards, a pending sum for the next
+    ``constrain``: DTensor's own product contracts the split D without
+    gathering the weight and makes whole-ffn pending sums."""
+    wg, wi, wo = params["wg"], params["wi"], params["wo"]
+    pl = shardctx.placements(wi.shape, ("embed", "ffn"))   # None outside a scope
+    if pl is None or not any(p.is_shard(0) for p in pl):
+        return _gate(x, wg, wi, act) @ wo
+    b, t, d = x.shape
+    h = shardctx.local(_gate, (("batch", None, None), (None, "ffn"), (None, "ffn"), None),
+                       out_like=((b, t, wi.shape[1]), ("batch", None, "ffn")))(x, wg, wi, act)
+    y = shardctx.local(torch.matmul, (("batch", None, "ffn"), ("ffn", None)),
+                       out_like=((b, t, d), ("batch", None, None)), partial=("ffn",))(h, wo)
+    return shardctx.constrain(y, ("batch", None, None))
+
+
+def _gate(x, wg, wi, act):
+    return activation(act)(x @ wg) * (x @ wi)
 
 
 # ---------------------------------------------------------------------------

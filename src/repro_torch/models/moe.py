@@ -86,6 +86,11 @@ def _gather_slots(xf, gidx):
     return xf[gidx.reshape(-1)].reshape(gidx.shape + xf.shape[1:])
 
 
+def _topk(k: int):
+    """The top ``k`` along the last dim, as a (values, indices) tuple."""
+    return lambda x: tuple(torch.topk(x, k, dim=-1))
+
+
 def _combine_slots(ye, gidx, n: int):
     """ye [E,C,D] scatter-added at the slots gidx [E,C] into n zero rows."""
     d = ye.shape[-1]
@@ -99,15 +104,20 @@ def _moe_dispatch(cfg: ModelConfig, p, x: torch.Tensor, router_mode: str):
     xf0 = x.reshape(nt, d)
     xf = constrain(xf0, ("moe_tokens", None))
 
+    # both top-k picks run rank by rank: each rank's own tokens' experts,
+    # and each rank's own experts' slots from all the tokens (DTensor in
+    # torch 2.11 has no rule for a top-k's backward, which scatters into
+    # plain zeros)
+    pick = local(_topk(mo.top_k), (("moe_tokens", None),), out_like=[0, 0])
     logits = xf.float() @ p["router"].float()
     if router_mode == "sigmoid":                     # DeepSeek-V3 style
         scores = torch.sigmoid(logits)
-        topv, topi = torch.topk(scores, mo.top_k, dim=-1)
+        topv, topi = pick(scores)
         weights = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
         probs = scores / torch.clamp(scores.sum(-1, keepdim=True), min=1e-9)
     else:                                            # mixtral: softmax-then-topk
         probs = torch.softmax(logits, dim=-1)
-        topv, topi = torch.topk(probs, mo.top_k, dim=-1)
+        topv, topi = pick(probs)
         weights = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
 
     # token->expert affinity matrix (nonzero only at routed slots)
@@ -116,7 +126,8 @@ def _moe_dispatch(cfg: ModelConfig, p, x: torch.Tensor, router_mode: str):
     cap = capacity(nt, mo)
     # per-expert picks; among the many zero affinities topk may take any,
     # and ``keep`` zeroes whatever it takes
-    gval, gidx = torch.topk(affinity.t(), cap, dim=-1)    # [E,C]
+    gval, gidx = local(_topk(cap), (("experts", None),),
+                       out_like=[0, 0])(affinity.t())     # [E,C]
     keep = (gval > 0.0).to(xf.dtype)
 
     # dispatch buffers [E,C,D]: experts over "model" (ep) and capacity over

@@ -48,7 +48,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, cross_entropy, embedding, mlp,
                                        mlp_spec, rms_norm)
 from repro_torch.runtime import shardctx
-from repro_torch.runtime.shardctx import local
+from repro_torch.runtime.shardctx import constrain, local
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +171,19 @@ def _mtp_desc(cfg: ModelConfig) -> LayerDesc:
 # ---------------------------------------------------------------------------
 
 def _ring_pack(k, window: int, n_meta: int):
-    """Pack full-sequence keys/values into a ring cache of capacity window."""
+    """Pack full-sequence keys/values into a ring cache of capacity window.
+
+    Under a mesh it runs rank by rank on k's batch and kv shard with the
+    whole sequence, and the ring is then placed on the cache's axes (a
+    slice of each rank's ring): DTensor's ``new_zeros`` would make the
+    ring replicated, the whole global batch on every rank."""
+    b, t, kv, dh = k.shape
+    ring = local(_pack, (("batch", None, "kv", None), None, None),
+                 out_like=((b, window, kv, dh), ("batch", None, "kv", None)))(k, window, n_meta)
+    return constrain(ring, ("batch", "kv_seq", "kv", None))
+
+
+def _pack(k, window: int, n_meta: int):
     b, t, kv, dh = k.shape
     w = min(window, max(t - n_meta, 1))
     start = max(n_meta, t - w)
@@ -266,19 +278,25 @@ def layer_decode(cfg, desc, p, x, cache, pos: int):
 # Stage execution: a loop over the stacked [R, ...] axis
 # ---------------------------------------------------------------------------
 
-def _layers(tree, n: int, place=lambda v: v):
+def _layers(tree, n: int):
     """A stacked dict tree as its ``n`` layers: one ``unbind`` of each leaf,
-    each layer a dict of views (no copies), each view passed through
-    ``place``.  The backward of ``unbind`` stacks the layers' gradients
-    once, where a ``v[r]`` per layer would allocate a zero gradient the
-    size of the whole stack for each layer and add them up; the reference's
-    scan writes each layer's gradient into its own slice."""
+    each layer a dict of views (no copies).  The backward of ``unbind``
+    stacks the layers' gradients once, where a ``v[r]`` per layer would
+    allocate a zero gradient the size of the whole stack for each layer and
+    add them up; the reference's scan writes each layer's gradient into its
+    own slice."""
     out = [{} for _ in range(n)]
     for k, v in tree.items():
-        parts = _layers(v, n, place) if isinstance(v, dict) else map(place, v.unbind(0))
+        parts = _layers(v, n) if isinstance(v, dict) else v.unbind(0)
         for layer, part in zip(out, parts):
             layer[k] = part
     return out
+
+
+def _placed(tree):
+    """A layer's dict of views, each through ``shardctx.grad_placed``."""
+    return {k: _placed(v) if isinstance(v, dict) else shardctx.grad_placed(v)
+            for k, v in tree.items()}
 
 
 _MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -327,13 +345,15 @@ def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
         with shardctx.reenter(mesh_scope):
             return layer_forward(cfg, d, lp, h, positions, n_meta,
                                  use_flash=use_flash)[::2]
-    # under a mesh each layer's gradient takes its leaf's placements as it is
-    # made; DTensor would return it as a pending sum at the global shape
-    layers = [_layers(sp[f"u{j}"], stage.repeat, shardctx.grad_placed)
-              for j in range(len(stage.unit))]
+    layers = [_layers(sp[f"u{j}"], stage.repeat) for j in range(len(stage.unit))]
     for r in range(stage.repeat):
         for j, desc in enumerate(stage.unit):
-            p = layers[j][r]
+            # under a mesh each layer's gradient takes its leaf's placements
+            # as it is made (DTensor would return it as a pending sum at the
+            # global shape); placed here, next to the layer, the backward
+            # places it as soon as the layer's backward has made it, where
+            # a placement made before the loop would wait for every layer's
+            p = _placed(layers[j][r])
             if remat is not None:
                 # the layer has no randomness: no RNG state to keep; the
                 # aux loss comes out with x, as in the JAX package's carry

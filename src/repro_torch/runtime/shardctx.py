@@ -191,7 +191,9 @@ def local(fn, in_axes: tuple, out_like=0, partial: tuple = ()):
     result (one tensor) comes back as a DTensor with the placements of
     argument ``out_like``, or, for ``out_like = (shape, logical axes)``,
     with the placements ``constrain`` gives a result of that global shape
-    and those axes.  The caller picks axes under which ``fn``
+    and those axes; for an ``fn`` that returns a tuple of tensors,
+    ``out_like`` is a list of such entries, one for each.  The caller picks
+    axes under which ``fn``
     computes its shard of the result from its shards of the inputs and the
     collectives below.  Both hand-overs are differentiable: the gradient
     flows back into ``fn``'s own backward rank by rank.  An input
@@ -223,24 +225,31 @@ def local(fn, in_axes: tuple, out_like=0, partial: tuple = ()):
                 if name is not None and is_dtensor(a):
                     split.setdefault(name, tuple(i for i, p in enumerate(a.placements)
                                                  if p.is_shard(d)))
-        out_pl = list(args[out_like].placements if isinstance(out_like, int)
-                      else placements(*out_like))
-        for name in partial:
-            for i in split.get(name, ()):
-                out_pl[i] = Partial()
+        out_pls = []
+        for like in (out_like if isinstance(out_like, list) else [out_like]):
+            pl = list(args[like].placements if isinstance(like, int) else placements(*like))
+            for name in partial:
+                for i in split.get(name, ()):
+                    pl[i] = Partial()
+            out_pls.append(pl)
+        # a mesh dim that splits any result
+        out_split = [any(pl[i].is_shard() for pl in out_pls) for i in range(mesh.ndim)]
 
         def to_local(a):
             if not is_dtensor(a):
                 return a
-            grad_pl = [Partial() if p.is_replicate() and o.is_shard() else p
-                       for p, o in zip(a.placements, out_pl)]
+            grad_pl = [Partial() if p.is_replicate() and o else p
+                       for p, o in zip(a.placements, out_split)]
             return a.to_local(grad_placements=grad_pl)
         tok = _REGION.set((mesh, split))
         try:
             out = fn(*(to_local(a) for a in args))
         finally:
             _REGION.reset(tok)
-        return DTensor.from_local(out, mesh, out_pl, run_check=False)
+        if isinstance(out_like, list):
+            return tuple(DTensor.from_local(o, mesh, pl, run_check=False)
+                         for o, pl in zip(out, out_pls))
+        return DTensor.from_local(out, mesh, out_pls[0], run_check=False)
     return run
 
 

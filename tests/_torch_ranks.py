@@ -6,6 +6,10 @@ their own).  Rank 0 writes what the test compares into an ``.npz``.
 
 Each variant character is one run: ``0`` plain attention, ``1`` flash,
 ``k`` plain attention with top-k gradient compression and error feedback.
+
+    python tests/_torch_ranks.py sharded_prefill <out dir> <arch>
+
+writes the plain and the sharded prefill's last logits and caches.
 """
 import datetime
 import os
@@ -136,7 +140,68 @@ def _sharded_step(rank, mesh, out, arch, flash, compress):
         np.savez(out, **result)
 
 
-CASES = {"sharded_step": (sharded_step, 4)}
+PREFILL = dict(seq=64, batch=8)
+
+
+def sharded_prefill(rank, world, store_path, out, arch):
+    """The port's prefill step on a (2, 2) mesh and its plain prefill from the
+    same fp32 weights and prompts: rank 0 writes both last logits and every
+    cache leaf into ``<out>/prefill.npz``; each rank checks that it holds
+    only the shard of each cache leaf that ``cache_specs`` gives."""
+    import numpy as np
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeConfig, reduced_config
+    from repro_torch.launch.serve import scale_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import init_param_tree
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.tree import flatten, leaves, tree_map
+
+    torch_setup(rank, world, store_path)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        cfg = scale_config(reduced_config(arch), **SCALE).replace(
+            param_dtype="float32", compute_dtype="float32")
+        shape = ShapeConfig("p", "prefill", PREFILL["seq"], PREFILL["batch"])
+        rules = shd.make_rules(cfg, mesh, shape)
+        pspecs = tf.param_specs(cfg)
+        params = init_param_tree(pspecs, torch.Generator().manual_seed(0),
+                                 torch.device("cpu"))
+        sp = shd.distribute_tree(tree_map(torch.clone, params), mesh,
+                                 shd.spec_shardings(pspecs, mesh, rules))
+        bspecs = steps.input_specs(cfg, shape)
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, SCALE["vocab"], bspecs["tokens"].shape).astype(np.int32))
+        batch = shd.distribute_tree({"tokens": tokens}, mesh,
+                                    shd.spec_shardings(bspecs, mesh, rules))
+        logits, cache = steps.make_prefill_step(cfg)(params, {"tokens": tokens})
+        slogits, scache = steps.make_prefill_step(cfg, shard_ctx=(mesh, rules))(sp, batch)
+        cspecs = tf.cache_specs(cfg, shape.global_batch, shape.seq_len)["stages"]
+        for (path, x), s in zip(flatten(scache["stages"]), leaves(cspecs)):
+            want = list(x.shape)
+            for i, p in enumerate(shd.pspec_placements(
+                    shd.resolve_pspec(s.axes, tuple(x.shape), rules, mesh), mesh)):
+                if p.is_shard():
+                    want[p.dim] //= mesh.size(i)
+            assert list(x.to_local().shape) == want, (path, x.to_local().shape, want)
+        full = {path: x.full_tensor().numpy() for path, x in flatten(scache["stages"])}
+        last = slogits.full_tensor().numpy()
+        if rank == 0:
+            result = {"plain/logits": logits.numpy(), "sharded/logits": last,
+                      "pos": np.array([cache["pos"], scache["pos"]])}
+            for path, x in flatten(cache["stages"]):
+                result[f"plain/{path}"] = x.numpy()
+                result[f"sharded/{path}"] = full[path]
+            np.savez(os.path.join(out, "prefill.npz"), **result)
+    finally:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+CASES = {"sharded_step": (sharded_step, 4), "sharded_prefill": (sharded_prefill, 4)}
 
 
 def _entry(rank, case, world, store_path, argv):

@@ -21,9 +21,23 @@ cell are run once as rank 0 of 8 under ``RankTrace``, and:
   small so that 40 tokens walk 5 of them): k and v are placed once;
 * each layer's weight gradient leaves ``grad_placed`` in its leaf's
   placements, and each gradient accumulator is at its leaf's shard shape;
+* the backward places a layer's weight gradients before it recomputes the
+  layer below (per-layer remat), so no layer's gradient waits at the whole
+  shape for the rest of the backward;
 * no op of the rank's op list outputs a tensor of the global shape of a
   stacked leaf that the layout splits (what a ``select`` backward per
-  layer, or a whole-shape accumulator, makes).
+  layer, or a whole-shape accumulator, makes);
+* no op, forward or backward, outputs attention scores or probabilities
+  (a tensor ending in a query chunk's and the keys' lengths) with more
+  than the rank's batch and heads shard of the scores' ``("batch",
+  "heads", None, "attn_kv")``, in a train and a prefill cell whose
+  (micro)batch gives each rank one sequence;
+* where the rules split D of the MLP's weights (FSDP), no op outputs a
+  tensor with the whole ffn dim (DTensor's product of the split D made
+  whole-ffn pending sums);
+* the prefill's ring cache is made at the shard of the cache's
+  ``("batch", "kv_seq", "kv", None)``, and nothing inside its packing
+  outputs more than the rank's batch and kv shard.
 
 Each cell runs in a subprocess of its own (this file as a script), so that
 no pytest worker keeps a default process group.
@@ -44,6 +58,8 @@ MOE_ARCHS = ("mixtral-8x7b", "deepseek-v3-671b")
 KINDS = ("train", "prefill", "decode")
 MICROBATCHES = 2
 SEQ = 40               # no dim of a reduced stacked leaf is 40: no shape coincides
+BATCH = 8
+DATA = 2               # the mesh's "data" dim, which the batch splits
 
 
 # ----------------------------------------------------------- the subprocess
@@ -69,9 +85,11 @@ def config(arch):
     return cfg
 
 
-def trace_cell(arch, kind, out):
-    """Run the arch's cell of ``kind`` on a fake (2, 4) group and write what
-    each site made, and the op lines that made a split stacked leaf whole."""
+def trace_cell(arch, kind, out, batch=BATCH):
+    """Run the arch's cell of ``kind`` (global batch ``batch``) on a fake
+    (2, 4) group and write what each site made, and the op lines that made
+    a split stacked leaf whole, attention scores past the rank's heads or
+    an FSDP MLP's whole ffn dim."""
     import contextlib
     import contextvars
 
@@ -123,9 +141,51 @@ def trace_cell(arch, kind, out):
                 record("moe_combines", source=list(args[3].shape), line=line)
             elif where == "sdpa" and line.split(" ")[0] in dryrun.COLLECTIVES:
                 record("sdpa_collectives", line=line)
+            elif where == "ring":
+                record("ring_ops", shapes=outs, line=line)
             return out
 
     head, dispatch, sdpa = tf.lm_head, moe._moe_dispatch, attention._sdpa
+    attend, mlp, ring_pack = attention._attend, tf.mlp, tf._ring_pack
+    layer = tf.layer_forward
+
+    def layer_forward(*a, **kw):
+        # the backward's recompute of a layer (per-layer remat)
+        if torch._C._current_autograd_node() is not None:
+            record("backward", event="recompute")
+        return layer(*a, **kw)
+
+    def local_shape(shape, axes, mesh):
+        return _local_shape(shape, mesh, shardctx.placements(shape, axes))
+
+    def attend_rows(q, k, v, *a):
+        # the query lengths of the chunks, and the rank's batch x heads rows
+        # of the scores [B, H, T, S]
+        b, t, h = q.shape[:3]
+        s = k.shape[1]
+        step = attention._CHUNK_Q if t * s >= attention._CHUNK_THRESHOLD else t
+        rows = local_shape((b, h, t, s), ("batch", "heads", None, "attn_kv"), q.device_mesh)
+        record("attend", s=s, chunks=sorted({min(step, t - c) for c in range(0, t, step)}),
+               rows=rows[0] * rows[1], heads=h, local_heads=rows[1])
+        return attend(q, k, v, *a)
+
+    def mlp_ffn(params, x, act):
+        shape = x.shape[:2] + params["wi"].shape[-1:]
+        record("mlp", ffn=shape[-1], d=x.shape[-1],
+               local_ffn=local_shape(shape, ("batch", None, "ffn"), x.device_mesh)[-1],
+               fsdp=local_shape(params["wi"].shape, ("embed", "ffn"),
+                                x.device_mesh)[0] < params["wi"].shape[0])
+        return mlp(params, x, act)
+
+    def ring(k, window, n_meta):
+        with inside("ring"):
+            r = ring_pack(k, window, n_meta)
+        shape = (k.shape[0], window) + k.shape[2:]
+        mesh = k.device_mesh
+        record("ring", local=list(r.to_local().shape),
+               want=local_shape(shape, ("batch", "kv_seq", "kv", None), mesh),
+               batch_shard=local_shape(shape, ("batch", None, "kv", None), mesh))
+        return r
 
     def lm_head(cfg, params, x):
         with inside("head"):
@@ -151,6 +211,7 @@ def trace_cell(arch, kind, out):
     grad_placed_bwd = shardctx._GradPlaced.backward
 
     def placed_bwd(ctx, grad):
+        record("backward", event="place")
         g = grad_placed_bwd(ctx, grad)
         mesh, want = ctx.spec
         record("grad_placed", local=list(g.to_local().shape),
@@ -165,13 +226,15 @@ def trace_cell(arch, kind, out):
         return acc
 
     tf.lm_head, moe._moe_dispatch, attention._sdpa = lm_head, moe_dispatch, chunk_sdpa
+    attention._attend, tf.mlp, tf._ring_pack = attend_rows, mlp_ffn, ring
+    tf.layer_forward = layer_forward
     shardctx._GradPlaced.backward = staticmethod(placed_bwd)
     if accumulate is not None:
         steps._accumulate = accumulated
 
     with dryrun.fake_group(8):
         mesh = make_mesh((2, 4), ("data", "model"))
-        shape = ShapeConfig("c", kind, SEQ, 8)
+        shape = ShapeConfig("c", kind, SEQ, int(batch))
         cfg, fn, args, _ = dryrun.build_cell(
             arch, shape, mesh, microbatches=MICROBATCHES if kind == "train" else None)
         stages = args[0]["stages"]
@@ -180,18 +243,34 @@ def trace_cell(arch, kind, out):
                  if x.shape[0] > 1 and tuple(x.to_local().shape) != tuple(x.shape)}
         with SiteTrace(dryrun._tensors(args), keep_ops=True) as trace:
             fn(*args)
-    whole = []
+    # scores [.., tq, S] of a query chunk: at most the rank's rows of them
+    scores = {}
+    for a in sites.get("attend", []):
+        for tq in a["chunks"]:
+            scores[tq, a["s"]] = max(scores.get((tq, a["s"]), 0), a["rows"])
+    # an FSDP MLP's [.., ffn] activations and sums, its [D, ffn] and [ffn, D]
+    # weights and their gradients
+    whole_ffn = {(m["ffn"], m["d"]) for m in sites.get("mlp", []) if m["fsdp"]}
+    whole, over_heads, ffn_lines = [], [], []
     for line in trace.ops:
         outs = line.split(" -> ", 1)[1] if " -> " in line else ""
         for m in re.finditer(r"\[([\d, ]*)\]", outs):
-            if tuple(int(v) for v in m.group(1).split(",") if v.strip()) in split:
+            dims = tuple(int(v) for v in m.group(1).split(",") if v.strip())
+            if dims in split:
                 whole.append(line)
+            ends = dims[-2:] if dims[-2:] in scores else dims[:-3:-1]   # [.., S, tq] too
+            if len(dims) >= 3 and ends in scores and \
+                    _numel(dims) > scores[ends] * ends[0] * ends[1]:
+                over_heads.append(line)
+            if len(dims) >= 2 and any(f == dims[-1] or (f, d) == dims[-2:]
+                                      for f, d in whole_ffn):
+                ffn_lines.append(line)
     Path(out).write_text(json.dumps({
         "sites": sites,
         "leaves": [list(x.to_local().shape) for x in leaves(args[0])],
         "split_stacked": sorted(map(list, split)),
         "layer_leaves": sum(x.shape[0] for st in stages for x in leaves(st)),
-        "whole": whole}))
+        "whole": whole, "over_heads": over_heads, "whole_ffn": ffn_lines}))
 
 
 # ------------------------------------------------------------------- tests
@@ -199,17 +278,17 @@ def trace_cell(arch, kind, out):
 _TRACES = {}
 
 
-def _trace(tmp_path_factory, arch, kind):
-    if (arch, kind) not in _TRACES:
-        tmp = tmp_path_factory.mktemp(f"{arch}-{kind}")
+def _trace(tmp_path_factory, arch, kind, batch=BATCH):
+    if (arch, kind, batch) not in _TRACES:
+        tmp = tmp_path_factory.mktemp(f"{arch}-{kind}-{batch}")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         proc = subprocess.run([sys.executable, str(Path(__file__)), arch, kind,
-                               str(tmp / "out.json")],
+                               str(tmp / "out.json"), str(batch)],
                               cwd=tmp, env=env, capture_output=True, text=True,
                               timeout=TIMEOUT)
         assert proc.returncode == 0, proc.stderr[-4000:]
-        _TRACES[arch, kind] = json.loads((tmp / "out.json").read_text())
-    return _TRACES[arch, kind]
+        _TRACES[arch, kind, batch] = json.loads((tmp / "out.json").read_text())
+    return _TRACES[arch, kind, batch]
 
 
 def _numel(shape):
@@ -263,6 +342,62 @@ def test_the_moe_dispatch_moves_only_its_experts_slots(tmp_path_factory, arch, k
 def test_no_query_chunk_resolves_k_or_v(tmp_path_factory, arch, kind):
     sites = _trace(tmp_path_factory, arch, kind)["sites"]
     assert sites.get("sdpa_collectives", []) == []
+
+
+@pytest.mark.parametrize("kind", ("train", "prefill"))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_sequence_attention_makes_only_its_heads_scores(tmp_path_factory, arch, kind):
+    """Forward and backward (under per-layer remat in the train cell), each
+    rank makes only its heads' scores and probabilities.  Each rank holds
+    one sequence of each (micro)batch, as a rank of the production train_4k
+    cells does: there DTensor's backward of the score einsums all-gathered
+    the probabilities over heads, and here (torch 2.13) its view back from
+    the flattened batch x heads dim, split twice, raises."""
+    batch = DATA * (MICROBATCHES if kind == "train" else 1)
+    cell = _trace(tmp_path_factory, arch, kind, batch)
+    attends = cell["sites"].get("attend", [])
+    assert attends, "no full-sequence attention ran"
+    for a in attends:
+        assert a["local_heads"] < a["heads"], "the heads are not split"
+        assert a["rows"] == a["local_heads"], "a rank holds more than one sequence"
+    assert cell["over_heads"] == [], cell["over_heads"][:8]
+
+
+@pytest.mark.parametrize("kind", ("train", "prefill"))
+def test_the_fsdp_mlp_makes_no_whole_ffn_sum(tmp_path_factory, kind):
+    cell = _trace(tmp_path_factory, "gemma3-27b", kind)
+    mlps = cell["sites"].get("mlp", [])
+    assert mlps and all(m["fsdp"] and m["local_ffn"] < m["ffn"] for m in mlps), mlps[:2]
+    assert cell["whole_ffn"] == [], cell["whole_ffn"][:8]
+
+
+@pytest.mark.parametrize("arch", ("mixtral-8x7b", "gemma3-27b"))
+def test_the_ring_cache_is_made_at_its_shard(tmp_path_factory, arch):
+    sites = _trace(tmp_path_factory, arch, "prefill")["sites"]
+    rings = sites.get("ring", [])
+    assert rings, "no windowed layer packed a ring"
+    bound = max(_numel(r["batch_shard"]) for r in rings)
+    for r in rings:
+        assert r["want"] != r["batch_shard"], "the cache's kv_seq is not split"
+        assert r["local"] == r["want"]
+    assert sites.get("ring_ops"), "the packing made nothing"
+    for op in sites["ring_ops"]:
+        assert all(_numel(s) <= bound for s in op["shapes"]), op["line"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_each_layers_gradients_are_placed_before_the_next_recompute(tmp_path_factory, arch):
+    """The backward places a layer's weight gradients as soon as the layer's
+    backward has made them, before it recomputes the layer below.  A
+    placement made for every layer before the forward's loop ran last in the
+    backward (autograd runs the ready node made latest first), so every
+    layer's gradient waited as a pending sum at the whole shape (deepseek-v3
+    train_4k's expert gradients on pod16x16)."""
+    events = [e["event"] for e in _trace(tmp_path_factory, arch, "train")["sites"]["backward"]]
+    recomputes = [i for i, e in enumerate(events) if e == "recompute"]
+    assert len(recomputes) >= 2 * MICROBATCHES, events[:40]
+    for a, b in zip(recomputes, recomputes[1:]):
+        assert "place" in events[a:b], events[max(0, a - 4):b + 4]
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -12,7 +12,8 @@
   configs at the scale of ``tests/test_torch_train.py``: two sharded steps
   (TP rules for yi-6b, with and without flash, and with top-k compression;
   FSDP rules and MoE for mixtral-8x7b; the SSD's rank-local convolution
-  for hymba-1.5b) against
+  for hymba-1.5b; MLA, the MoE and MTP under FSDP for deepseek-v3-671b;
+  the FSDP MLP and the tied head for gemma3-27b) against
   the port's plain step from the same weights and tokens: loss and gnorm
   within rtol 1e-5, every parameter within 1e-5 of its leaf's scale (the
   leaf's largest entry, and at least the peak learning rate: an AdamW step
@@ -24,6 +25,8 @@
   plain step is the oracle: the JAX package's sharded step fails under jax
   0.9 (ROADMAP.md section 3), and its plain step is held to the port's in
   ``tests/test_torch_train.py``.
+* mixtral-8x7b's prefill on the same mesh against the port's plain
+  prefill: the last logits and the windowed ring caches.
 """
 import jax
 import numpy as np
@@ -182,7 +185,27 @@ def test_yi_sharded_compressed_step_on_four_ranks_matches_plain(yi_runs):
     _check_sharded_run(yi_runs / "variantk.npz", weights=False)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "hymba-1.5b", "deepseek-v3-671b",
+                                  "gemma3-27b"])
 def test_sharded_step_on_four_ranks_matches_plain(tmp_path, arch):
     _torch_ranks.run(tmp_path, "sharded_step", tmp_path, arch, "0")
     _check_sharded_run(tmp_path / "variant0.npz")
+
+
+def test_sharded_prefill_on_four_ranks_matches_plain(tmp_path):
+    """mixtral-8x7b's prefill on the (2, 2) mesh: its two windowed layers
+    (window 32) pack 64-token prompts into rings that wrap.  The last logits
+    and every cache leaf within 1e-5 of the plain prefill's largest entry,
+    and each rank holds only the shard of each cache leaf that
+    ``cache_specs`` gives (checked in the ranks)."""
+    _torch_ranks.run(tmp_path, "sharded_prefill", tmp_path, "mixtral-8x7b")
+    with np.load(tmp_path / "prefill.npz") as z:
+        out = {k: z[k] for k in z.files}
+    assert out["pos"][0] == out["pos"][1] == _torch_ranks.PREFILL["seq"]
+    paths = [k[len("plain/"):] for k in out if k.startswith("plain/")]
+    assert "logits" in paths and any(p.endswith("/k") for p in paths)
+    for path in paths:
+        a, b = out[f"plain/{path}"], out[f"sharded/{path}"]
+        assert a.shape == b.shape, path
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-5 * np.abs(a).max(), err_msg=path)
+
