@@ -262,11 +262,14 @@ Phases, each of which raises on failure (exit code != 0):
                (b) weights and prompts drawn here), ``mem_device_bytes``
                (argument + temp) within 0.8-1.25x the measured peak over the
                baseline (phase 23's; (b) one ``make_prefill_step`` call, 32
-               K2 launches); (c) a production cell, mixtral-8x7b
-               prefill_32k on the 256-rank pod16x16 fake mesh, through the
-               dry-run's CLI (``launch/dryrun.py::main``) in a child
-               process: ``[ok]`` and ``mem_device_bytes`` under 80e9; 0
-               kernel launches and 0 card bytes while pricing
+               K2 launches); (c) three production cells on the 256-rank
+               pod16x16 fake mesh, mixtral-8x7b prefill_32k, yi-6b
+               decode_32k (decode over a sequence-split cache) and
+               hymba-1.5b prefill_32k (attention over a split key axis, the
+               SSD's chunk block), each through the dry-run's CLI
+               (``launch/dryrun.py::main``) in a child process of its own,
+               all at once: ``[ok]`` and ``mem_device_bytes`` under 80e9;
+               0 kernel launches and 0 card bytes while pricing
                (``dryrun_launches``)
 serve_model counts one K2 launch per attention-bearing layer of a GQA
 model, and none for MLA.
@@ -2437,10 +2440,14 @@ def _dryrun_child(tag) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-# a production cell on the 256-rank pod16x16 fake mesh, through the dry-run's
-# CLI: it runs rank by rank the full-sequence attention on its heads shard and
-# the prefill's ring packing on its batch shard
-DRYRUN_PRODUCTION = ("mixtral-8x7b", "prefill_32k")
+# production cells on the 256-rank pod16x16 fake mesh, through the dry-run's
+# CLI: mixtral-8x7b's prefill runs rank by rank the full-sequence attention
+# on its heads shard and the ring packing on its batch shard; yi-6b's decode
+# attends over its shard of a sequence-split cache; hymba-1.5b's prefill
+# attends over a split key axis (25 heads on 16) and runs the SSD's chunk
+# block on its chunk shard
+DRYRUN_PRODUCTION = (("mixtral-8x7b", "prefill_32k"), ("yi-6b", "decode_32k"),
+                     ("hymba-1.5b", "prefill_32k"))
 DRYRUN_PRODUCTION_TIMEOUT = 600
 DRYRUN_PRODUCTION_BYTES = 80e9
 _DRYRUN_PRODUCTION_CHILD = """
@@ -2463,33 +2470,47 @@ print(json.dumps({"said": said.getvalue(), "record": rec,
 """
 
 
-def _dryrun_production(tag, smi) -> dict:
-    """Phase 32 (c): ``DRYRUN_PRODUCTION`` priced by ``python -m repro_torch
-    dryrun``'s ``main`` in a child process on the 512-rank fake group;
-    gates: ``[ok]``, ``mem_device_bytes`` under 80e9 (checked by the
-    caller: no kernel launch and no card bytes)."""
-    arch, shape = DRYRUN_PRODUCTION
+def _dryrun_production(tag, smi) -> list:
+    """Phase 32 (c): each cell of ``DRYRUN_PRODUCTION`` priced by ``python -m
+    repro_torch dryrun``'s ``main`` in a child process of its own on the
+    512-rank fake group, all at once; gates: ``[ok]``, ``mem_device_bytes``
+    under 80e9 (checked by the caller: no kernel launch and no card
+    bytes)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     with tempfile.TemporaryDirectory() as out:
-        proc = subprocess.run([sys.executable, "-c", _DRYRUN_PRODUCTION_CHILD, arch, shape, out],
-                              cwd=ROOT, env=env, capture_output=True, text=True,
-                              timeout=DRYRUN_PRODUCTION_TIMEOUT)
-    if proc.returncode != 0:
-        raise SystemExit(f"[{tag}] (c) {arch} {shape} on pod16x16 failed: "
-                         f"{proc.stdout[-1500:]} {proc.stderr[-3000:]}")
-    got = json.loads(proc.stdout.strip().splitlines()[-1])
-    rec = got["record"]
-    coll = {k: v["count"] for k, v in rec["collectives"].items() if v["count"]}
-    print(f"[{tag}] (c) {arch} {shape} on pod16x16 (256 ranks): "
-          f"{got['said'].strip().splitlines()[0][:160]}; mem_device_bytes "
-          f"{rec['mem_device_bytes']} (args {rec['memory']['argument_size_in_bytes']} + temp "
-          f"{rec['memory']['temp_size_in_bytes']}; gate < {DRYRUN_PRODUCTION_BYTES:.0e}), "
-          f"flops {rec['flops']:.4e}, collectives {coll}, trace_s {rec['trace_s']}, child "
-          f"wall_s {got['wall_s']:.1f}, torch {torch.__version__}; on {smi}", flush=True)
-    if "[ok]" not in got["said"] or not rec["mem_device_bytes"] < DRYRUN_PRODUCTION_BYTES:
-        raise SystemExit(f"[{tag}] (c) {arch} {shape}: {got['said'].strip()[:300]}, "
-                         f"mem_device_bytes {rec['mem_device_bytes']}")
-    return got
+        procs = [subprocess.Popen([sys.executable, "-c", _DRYRUN_PRODUCTION_CHILD, arch,
+                                   shape, out], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for arch, shape in DRYRUN_PRODUCTION]
+        said = []
+        try:
+            for p in procs:
+                said.append(p.communicate(timeout=DRYRUN_PRODUCTION_TIMEOUT) + (p.returncode,))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    cells = []
+    for (arch, shape), (stdout, stderr, rc) in zip(DRYRUN_PRODUCTION, said):
+        if rc != 0:
+            raise SystemExit(f"[{tag}] (c) {arch} {shape} on pod16x16 failed: "
+                             f"{stdout[-1500:]} {stderr[-3000:]}")
+        got = json.loads(stdout.strip().splitlines()[-1])
+        rec = got["record"]
+        coll = {k: v["count"] for k, v in rec["collectives"].items() if v["count"]}
+        print(f"[{tag}] (c) {arch} {shape} on pod16x16 (256 ranks): "
+              f"{got['said'].strip().splitlines()[0][:160]}; mem_device_bytes "
+              f"{rec['mem_device_bytes']} (args {rec['memory']['argument_size_in_bytes']} + "
+              f"temp {rec['memory']['temp_size_in_bytes']}; gate < "
+              f"{DRYRUN_PRODUCTION_BYTES:.0e}), flops {rec['flops']:.4e}, collectives {coll}, "
+              f"trace_s {rec['trace_s']}, child wall_s {got['wall_s']:.1f}, torch "
+              f"{torch.__version__}; on {smi}", flush=True)
+        if "[ok]" not in got["said"] or not rec["mem_device_bytes"] < DRYRUN_PRODUCTION_BYTES:
+            raise SystemExit(f"[{tag}] (c) {arch} {shape}: {got['said'].strip()[:300]}, "
+                             f"mem_device_bytes {rec['mem_device_bytes']}")
+        cells.append(got)
+    return cells
 
 
 def _dryrun_check(tag, name, rec, args_bytes, peak_bytes, what, smi):
@@ -2523,8 +2544,9 @@ def phase_dryrun(device, smi, sharded) -> dict:
     priced = _dryrun_child(tag)
     production = _dryrun_production(tag, smi)
     parent = _ds_kernel_launches()
-    launches = {k: n + production["launches"][k] for k, n in priced["launches"].items()}
-    cuda_bytes = priced["cuda_bytes"] + production["cuda_bytes"]
+    launches = {k: n + sum(c["launches"][k] for c in production)
+                for k, n in priced["launches"].items()}
+    cuda_bytes = priced["cuda_bytes"] + sum(c["cuda_bytes"] for c in production)
     if any(launches.values()) or any(parent.values()) or cuda_bytes:
         raise SystemExit(f"[{tag}] launches while pricing: children {launches}, "
                          f"this process {parent}; children's card bytes {cuda_bytes}")
@@ -2556,7 +2578,8 @@ def phase_dryrun(device, smi, sharded) -> dict:
                                  f"(make_prefill_step; {cfg.n_layers} K2 launches on the "
                                  "card)", smi)}
     print(f"[{tag}] priced in child processes in {priced['wall_s']:.1f} s on a one-rank "
-          f"fake mesh and {production['wall_s']:.1f} s on pod16x16: kernel launches "
+          f"fake mesh and {max(c['wall_s'] for c in production):.1f} s on pod16x16 "
+          f"({len(production)} cells at once): kernel launches "
           f"{launches} (this process {parent}), card bytes {cuda_bytes}; phase wall_s "
           f"{time.perf_counter() - t0:.1f}", flush=True)
     report["launches"] = launches

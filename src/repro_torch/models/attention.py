@@ -74,29 +74,42 @@ _CHUNK_Q = 1024
 
 _HEADS = ("batch", None, "heads", None)
 _SCORES = ("batch", "heads", None, "attn_kv")
+_CACHE = ("batch", "kv_seq", "kv", None)
 
 
 def _attend(q, k, v, positions, window, n_meta, scale):
     """Full-sequence attention, chunked over queries when the scores are large.
 
     Where the scores split their heads over the mesh, each query chunk runs
-    rank by rank on the heads shard (``_sdpa``'s ``by_rank``): k and v are
-    placed on it once, before the chunks."""
+    rank by rank on the heads shard (``_sdpa``'s ``by_rank``); where they
+    split the key axis instead (hymba's 25 heads on a model axis of 16),
+    each chunk runs rank by rank on the key shard (``_sdpa_over_keys``).
+    Either way k and v are placed on their shard once, before the chunks."""
     b, t, h = q.shape[:3]
     s = k.shape[1]
-    k, v = _repeat_kv(k, v, h // k.shape[2])
     pl = shardctx.placements((b, h, t, s), _SCORES)    # None outside a scope
     by_rank = pl is not None and any(p.is_shard(1) for p in pl)
+    by_keys = pl is not None and not by_rank and any(p.is_shard(3) for p in pl)
+    if by_keys:
+        # the region repeats the kv heads on its key shard
+        keys = ("batch", "attn_kv", None, None)
+        k, v = constrain(k, keys), constrain(v, keys)
+    else:
+        k, v = _repeat_kv(k, v, h // k.shape[2])
     if by_rank:
         k, v = constrain(k, _HEADS), constrain(v, _HEADS)
+
+    def sdpa(q, mask):
+        if by_keys:
+            return _sdpa_over_keys(q, k, v, mask, scale, "attn_kv")
+        return _sdpa(q, k, v, mask, scale, by_rank)
     if t * s < _CHUNK_THRESHOLD:
-        mask = causal_window_mask(positions, positions, window, n_meta)
-        return _sdpa(q, k, v, mask[None], scale, by_rank)
+        return sdpa(q, causal_window_mask(positions, positions, window, n_meta)[None])
     outs = []
     for c in range(0, t, _CHUNK_Q):
         mask = causal_window_mask(positions[c:c + _CHUNK_Q], positions,
                                   window, n_meta)
-        outs.append(_sdpa(q[:, c:c + _CHUNK_Q], k, v, mask[None], scale, by_rank))
+        outs.append(sdpa(q[:, c:c + _CHUNK_Q], mask[None]))
     return torch.cat(outs, dim=1)
 
 
@@ -137,22 +150,98 @@ def _sdpa(q, k, v, mask, scale, by_rank: bool = False):
     return torch.einsum("bhts,bshd->bthd", probs, v)
 
 
+def _sdpa_over_keys(q, k, v, mask, scale, axis: str, k_pre=None, v_pre=None):
+    """``_sdpa`` rank by rank on the shard of the key axis: q [B,T,H,dh] with
+    its heads whole, k and v [B,S,KV,d] and the mask [1,T,S] split alike on
+    their key dim, logical ``axis`` ("attn_kv" for the full sequence,
+    "kv_seq" for a decode cache).  Each rank makes the scores of its keys
+    only (``_KeyShardAttention``) and returns the whole output.  A decode
+    step's never-evicted prefix ``k_pre``/``v_pre`` [B,P,KV,d] (meta tokens)
+    joins the first key shard's keys, so it is counted once.  DTensor's own
+    einsums gather every key's scores, and torch 2.11's refuse to flatten
+    q's split batch and heads."""
+    keys, whole = ("batch", axis, None, None), ("batch", None, None, None)
+    return local(_key_shard_local, (whole, keys, keys, (None, None, axis), whole, whole,
+                                    None, None), out_like=0)(
+        q, k, v, mask, k_pre, v_pre, scale, axis)
+
+
+def _key_shard_local(q, k, v, mask, k_pre, v_pre, scale, axis):
+    if k_pre is not None and shardctx.axis_index(axis) == 0:
+        k, v = torch.cat([k_pre, k], dim=1), torch.cat([v_pre, v], dim=1)
+        pre = torch.ones(mask.shape[:-1] + (k_pre.shape[1],), dtype=torch.bool,
+                         device=mask.device)
+        mask = torch.cat([pre, mask], dim=-1)
+    k, v = _repeat_kv(k, v, q.shape[2] // k.shape[2])
+    return _KeyShardAttention.apply(q, k, v, mask, scale, axis)
+
+
+def _masked_scores(q, k, mask, scale):
+    scores = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
+    return scores.masked_fill(~mask[:, None], torch.finfo(torch.float32).min)
+
+
+class _KeyShardAttention(torch.autograd.Function):
+    """Softmax attention from this rank's shard of the keys, as flash-decoding
+    splits it: the row max and the sum of exponentials are all-reduced over
+    the ranks that hold the other key shards, each rank's probabilities are
+    normalised by them and cast to ``v.dtype`` (where ``_sdpa`` casts), and
+    the value products are all-reduced, so every rank returns the whole
+    output.  A query row that sees no key has the masked fill as every
+    score, so each key gets ``1 / S`` of it: the mean of V over all keys, as
+    ``_sdpa``'s softmax gives.  The backward recomputes the local
+    probabilities from the saved max and sum; dK and dV are exact on the key
+    shard, and dQ, a sum over the shards, is all-reduced here (the region
+    hands q, replicated over the key axis, a replicated gradient)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, axis):
+        e = _masked_scores(q, k, mask, scale)
+        m = shardctx.all_reduce_(e.amax(dim=-1), axis, "max")
+        e = e.sub_(m[..., None]).exp_()
+        se = shardctx.all_reduce_(e.sum(dim=-1), axis)
+        out = torch.einsum("bhts,bshd->bthd", e.div_(se[..., None]).to(v.dtype), v)
+        ctx.save_for_backward(q, k, v, mask, m, se)
+        # the backward runs after the region has ended: it takes it up again
+        ctx.scale, ctx.axis, ctx.region = scale, axis, shardctx.region()
+        return shardctx.all_reduce_(out, axis)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask, m, se = ctx.saved_tensors
+        with shardctx.in_region(ctx.region):
+            p32 = _masked_scores(q, k, mask, ctx.scale).sub_(m[..., None]).exp_() \
+                .div_(se[..., None])
+            dv = torch.einsum("bhts,bthd->bshd", p32.to(v.dtype), dout)
+            dp = torch.einsum("bthd,bshd->bhts", dout, v).float()
+            # the softmax's backward: p * (dp - the sum over every key of p * dp)
+            delta = shardctx.all_reduce_((dp * p32).sum(dim=-1), ctx.axis)
+            ds = dp.sub_(delta[..., None]).mul_(p32).masked_fill_(~mask[:, None], 0.0)
+            ds = ds.mul_(ctx.scale).to(q.dtype)
+            dk = torch.einsum("bhts,bthd->bshd", ds, q)
+            dq = shardctx.all_reduce_(torch.einsum("bhts,bshd->bthd", ds, k), ctx.axis)
+        return dq, dk, dv, None, None, None
+
+
 # ---------------------------------------------------------------------------
 # GQA: full-sequence path
 # ---------------------------------------------------------------------------
 
 def _project(x, w, heads: str):
     """x [B,T,D] by w [D,H,dh] -> [B,T,H,dh], placed ("batch", None, heads,
-    None).  Where the rules split no H over the mesh (mixtral's 8 kv heads
-    on a model axis of 16), DTensor places the einsum's flat [B*T, H*dh]
-    product by cost and may split H*dh over a mesh dim that H does not
-    divide, which the view back to heads refuses: there it runs rank by rank
-    (``_project_local``).  Elsewhere it is the einsum, placed by
-    ``constrain``."""
+    None).  It runs rank by rank (``_project_local``) where the rules split
+    w's D (FSDP: DTensor's einsum contracts the split D and makes pending
+    sums of every head over the global batch) or split no H over the mesh
+    (mixtral's 8 kv heads on a model axis of 16: DTensor places the
+    einsum's flat [B*T, H*dh] product by cost and may split H*dh over a mesh
+    dim that H does not divide, which the view back to heads refuses).  A
+    TP weight whose heads split is the einsum, placed by ``constrain``."""
     axes = ("batch", None, heads, None)
     shape = x.shape[:2] + w.shape[1:]
     pl = shardctx.placements(shape, axes)          # None outside a scope
-    if pl is None or any(p.is_shard(2) for p in pl):
+    fsdp = pl is not None and any(
+        d.is_shard(0) for d in shardctx.placements(w.shape, ("embed", heads, None)))
+    if pl is None or (any(d.is_shard(2) for d in pl) and not fsdp):
         return constrain(_einsum_project(x, w), axes)
     return _project_local(x, w, heads)
 
@@ -171,6 +260,26 @@ def _einsum_project(x, w):
     return torch.einsum("btd,dhk->bthk", x, w)
 
 
+def _out_project(y, wo):
+    """y [B,T,H,dv] by wo [H,dv,D] -> [B,T,D], placed ("batch", None, None).
+    Under a mesh it runs rank by rank on y's batch and heads shard and on
+    wo's heads shard with D gathered (FSDP): each rank's product is its
+    term of the sum over the heads shards, a pending sum that ``constrain``
+    resolves.  DTensor's own einsum takes the gradient of the output in
+    whatever placements the layer's sum hands it (the sequence split where
+    a hybrid layer adds the SSD's output) and flattens its split batch and
+    sequence dims, which the view back refuses."""
+    b, t = y.shape[:2]
+    axes = ("batch", None, None)
+    out = local(_einsum_out, (("batch", None, "heads", None), ("heads", None, None)),
+                out_like=((b, t, wo.shape[-1]), axes), partial=("heads",))(y, wo)
+    return constrain(out, axes)
+
+
+def _einsum_out(y, wo):
+    return torch.einsum("bthk,hkd->btd", y, wo)
+
+
 def gqa_forward(p, x, positions, *, window: int, theta: float, n_meta: int,
                 return_kv: bool = False, use_flash: bool = False):
     """x: [B,T,D]; positions: [T] absolute. Returns y (and optionally (k, v))."""
@@ -185,7 +294,7 @@ def gqa_forward(p, x, positions, *, window: int, theta: float, n_meta: int,
                                 scale=dh ** -0.5)
     else:
         y = _attend(q, k, v, positions, window, n_meta, dh ** -0.5)
-    out = torch.einsum("bthk,hkd->btd", y, p["wo"])
+    out = _out_project(y, p["wo"])
     if return_kv:
         return out, (k, v)
     return out
@@ -228,17 +337,20 @@ def gqa_decode(p, x, cache, pos: int, *, window: int, theta: float, n_meta: int)
         valid = idx <= pos
     mask = valid[None, None, :]                      # [1,1,S]
 
-    if "k_pre" in cache:                             # never-evicted prefix (meta)
-        k_all = torch.cat([cache["k_pre"], k], dim=1)
-        v_all = torch.cat([cache["v_pre"], v], dim=1)
-        pre = torch.ones((1, 1, n_prefix), dtype=torch.bool, device=x.device)
-        mask = torch.cat([pre, mask], dim=-1)
+    pl = shardctx.placements(k.shape, _CACHE)        # None outside a scope
+    if pl is not None and any(d.is_shard(1) for d in pl):
+        # a sequence-split cache (flash-decoding): each rank attends over its
+        # shard of the cache, the mask split with it
+        y = _sdpa_over_keys(q, k, v, mask, dh ** -0.5, "kv_seq",
+                            cache.get("k_pre"), cache.get("v_pre"))
     else:
-        k_all, v_all = k, v
-
-    y = _sdpa(q, k_all, v_all, mask, dh ** -0.5)
-    out = torch.einsum("bthk,hkd->btd", y, p["wo"])
-    return out, cache
+        if "k_pre" in cache:                         # never-evicted prefix (meta)
+            k = torch.cat([cache["k_pre"], k], dim=1)
+            v = torch.cat([cache["v_pre"], v], dim=1)
+            pre = torch.ones((1, 1, n_prefix), dtype=torch.bool, device=x.device)
+            mask = torch.cat([pre, mask], dim=-1)
+        y = _sdpa(q, k, v, mask, dh ** -0.5)
+    return _out_project(y, p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec, rms_norm
+from repro_torch.runtime import shardctx
 from repro_torch.runtime.shardctx import constrain, grad_placed, local
 
 
@@ -79,6 +80,17 @@ def _causal_conv_local(xbc, w, b):
     return F.silu(out.transpose(1, 2))
 
 
+def _pad_steps(x, pad: int):
+    """x [B,T,C] with ``pad`` zero steps on the right, rank by rank on the
+    batch shard under a mesh: torch 2.11's DTensor fails to plan the
+    redistribution for the pad."""
+    if not pad:
+        return x
+    shape = (x.shape[0], x.shape[1] + pad, x.shape[2])
+    return local(lambda x: F.pad(x, (0, 0, 0, pad)), (("batch", None, None),),
+                 out_like=(shape, ("batch", None, None)))(x)
+
+
 def _segsum(x):
     """Stable segment-sum: out[i,j] = sum_{j<k<=i} x[k], -inf for j>i."""
     t = x.shape[-1]
@@ -86,6 +98,61 @@ def _segsum(x):
     out = cs[..., :, None] - cs[..., None, :]
     upper = torch.ones((t, t), dtype=torch.bool, device=x.device).triu_(1)
     return out.masked_fill_(upper, float("-inf"))
+
+
+def _chunk_block(cm, bm, da_h, cum, xdt):
+    """Each chunk's own output (the quadratic term within the chunk) and its
+    end-state.  cm, bm: [B,nc,cl,G,N]; da_h and its cumulative sum cum:
+    [B,nc,nh,cl]; xdt: [B,nc,cl,nh,hd].  Returns y [B,nc,cl,nh,hd] and
+    states [B,nc,nh,hd,N].
+
+    The reference's einsum("bchij,bcjh,bcjhd->bcihd", cb * L, dt, x) is
+    taken as (C B^T * L), one [B,nc,nh,cl,cl] product (C B^T broadcast over
+    each group's heads), times (dt * x) by a batched matmul; each
+    [B,nc,nh,cl,cl] block is dropped once used (0.73 GB at hymba's
+    prefill).  The end-states are its einsum("bcjhn,bchj,bcjh,bcjhd->bchdn",
+    B, decay, dt, x): the decay to the chunk's end folded into (dt * x)
+    first, then summed against B."""
+    b, nc, cl, g, n = cm.shape
+    nh, hd = xdt.shape[3:]
+    hpg = nh // g
+    lmat = _segsum(da_h).exp_()                                  # [B,nc,nh,cl,cl]
+    cb = torch.einsum("bcign,bcjgn->bcgij", cm, bm)              # [B,nc,G,cl,cl]
+    m = lmat.reshape(b, nc, g, hpg, cl, cl) * cb[:, :, :, None]
+    del lmat
+    y = m.reshape(b, nc, nh, cl, cl) @ xdt.permute(0, 1, 3, 2, 4)   # [B,nc,nh,cl,hd]
+    del m
+    decay_last = torch.exp(cum[..., -1:] - cum).permute(0, 1, 3, 2)   # [B,nc,cl,nh]
+    xw = (xdt * decay_last[..., None]).reshape(b, nc, cl, g, hpg, hd)
+    states = torch.einsum("bcjgn,bcjgpd->bcgpdn", bm, xw).reshape(b, nc, nh, hd, n)
+    return y.permute(0, 1, 3, 2, 4), states
+
+
+def _inter_chunk(cm, states, cum, carry):
+    """The inter-chunk recurrence and its output: the state *before* each
+    chunk, from ``carry`` (the state before the first; None: zeros), and C
+    against it.  cm: [B,nc,cl,G,N]; states: [B,nc,nh,hd,N]; cum:
+    [B,nc,nh,cl].  Returns y_off [B,nc,cl,nh,hd] and the state after the
+    last chunk [B,nh,hd,N].  Each sequence's chunks follow one another, so
+    under a mesh it runs rank by rank on the batch shard with every chunk."""
+    b, nc, cl, g, n = cm.shape
+    nh, hd = states.shape[2:4]
+    hpg = nh // g
+    chunk_decay = torch.exp(cum[..., -1])                        # [B,nc,nh]
+    if carry is None:
+        carry = states.new_zeros((b, nh, hd, n))
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                       # [B,nc,nh,hd,N]
+    # einsum("bcihn,bchdn,bchi->bcihd", C, prev, exp(cum)): C against the
+    # state, then the decay from the chunk's start
+    y_off = torch.einsum("bcign,bcgpdn->bcigpd", cm,
+                         prev_states.reshape(b, nc, g, hpg, hd, n))
+    y_off = y_off.reshape(b, nc, cl, nh, hd) \
+        * torch.exp(cum).permute(0, 1, 3, 2)[..., None]
+    return y_off, carry
 
 
 def ssd_forward(cfg: ModelConfig, p, x, *, initial_state=None,
@@ -97,7 +164,6 @@ def ssd_forward(cfg: ModelConfig, p, x, *, initial_state=None,
     s, d_in, nh, conv_dim = _dims(cfg)
     b, t0, _ = x.shape
     g, n, hd = s.n_groups, s.d_state, s.head_dim
-    hpg = nh // g
     cl = min(s.chunk, t0)
     pad = (-t0) % cl
     t = t0 + pad
@@ -109,16 +175,13 @@ def ssd_forward(cfg: ModelConfig, p, x, *, initial_state=None,
     # 16), which the chunk reshapes and einsums then refuse
     zxbcdt = constrain(x @ p["in_proj"], ("batch", None, "ffn"))
     z, xbc_raw, dt = _split_zxbcdt(cfg, zxbcdt)
-    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    # padded steps must be identity for the state: xBC = 0 and dt = 0
+    # (decay 1, input 0)
+    xbc = _pad_steps(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"]), pad)
     # torch's softplus is the identity above its threshold of 20, where
     # jax.nn.softplus adds log1p(exp(-x)) < 2.1e-9: below fp32's resolution
     # at 20 (1.9e-6), so the two agree to the last bit that fp32 holds
-    dt = F.softplus(dt.float() + p["dt_bias"])                   # [B,T0,nh]
-    if pad:
-        # padded steps must be identity for the state: xBC = 0 and dt = 0
-        # (decay 1, input 0)
-        xbc = F.pad(xbc, (0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
+    dt = _pad_steps(F.softplus(dt.float() + p["dt_bias"]), pad)     # [B,T,nh]
     xs, bm, cm = _split_xbc(cfg, xbc)
     xs = xs.reshape(b, nc, cl, nh, hd).float()
     bm = bm.reshape(b, nc, cl, g, n).float()
@@ -126,66 +189,66 @@ def ssd_forward(cfg: ModelConfig, p, x, *, initial_state=None,
     dt = dt.reshape(b, nc, cl, nh)
     a = -torch.exp(p["a_log"].float())                           # [nh]
     da_h = (dt * a).permute(0, 1, 3, 2).contiguous()             # [B,nc,nh,cl]
-    cum = torch.cumsum(da_h, dim=-1)                             # [B,nc,nh,cl]
+    # on the batch shard: torch 2.11's DTensor has no rule for the flip in
+    # a cumsum's backward
+    cum = local(torch.cumsum, (("batch", None, None, None), None),
+                out_like=0)(da_h, -1)                            # [B,nc,nh,cl]
     xdt = xs * dt[..., None]                                     # [B,nc,cl,nh,hd]
 
-    # ---- intra-chunk (quadratic within the chunk) -------------------------
-    # the reference's einsum("bchij,bcjh,bcjhd->bcihd", cb * L, dt, x) is
-    # taken as (C B^T * L), one [B,nc,nh,cl,cl] product (C B^T broadcast
-    # over each group's heads), times (dt * x) by a batched matmul; each
-    # [B,nc,nh,cl,cl] block is dropped once used (0.73 GB at hymba's prefill)
-    # the [cl x cl] blocks shard over the chunk axis ("ssm_chunks" ->
-    # model): SSM head counts (hymba's 50) rarely divide the mesh
-    lmat = constrain(_segsum(da_h).exp_(),
-                     ("batch", "ssm_chunks", None, None, None))  # [B,nc,nh,cl,cl]
-    cb = constrain(torch.einsum("bcign,bcjgn->bcgij", cm, bm),
-                   ("batch", "ssm_chunks", None, None, None))    # [B,nc,G,cl,cl]
-    m = lmat.reshape(b, nc, g, hpg, cl, cl) * cb[:, :, :, None]
-    del lmat
-    y = m.reshape(b, nc, nh, cl, cl) @ xdt.permute(0, 1, 3, 2, 4)   # [B,nc,nh,cl,hd]
-    del m
-    y = constrain(y.permute(0, 1, 3, 2, 4),
-                  ("batch", "ssm_chunks", None, None, None))     # [B,nc,cl,nh,hd]
-
-    # ---- chunk end-states --------------------------------------------------
-    # einsum("bcjhn,bchj,bcjh,bcjhd->bchdn", B, decay, dt, x): the decay to
-    # the chunk's end folded into (dt * x) first, then summed against B
-    decay_last = torch.exp(cum[..., -1:] - cum).permute(0, 1, 3, 2)   # [B,nc,cl,nh]
-    xw = (xdt * decay_last[..., None]).reshape(b, nc, cl, g, hpg, hd)
-    states = torch.einsum("bcjgn,bcjgpd->bcgpdn", bm, xw).reshape(
-        b, nc, nh, hd, n)
-
-    # ---- inter-chunk recurrence: the state *before* each chunk -------------
-    chunk_decay = torch.exp(cum[..., -1])                        # [B,nc,nh]
-    carry = (x.new_zeros((b, nh, hd, n), dtype=torch.float32)
-             if initial_state is None else initial_state.float())
-    prev = []
-    for c in range(nc):
-        prev.append(carry)
-        carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
-    prev_states = torch.stack(prev, dim=1)                       # [B,nc,nh,hd,N]
-
-    # ---- inter-chunk output contribution -----------------------------------
-    # einsum("bcihn,bchdn,bchi->bcihd", C, prev, exp(cum)): C against the
-    # state, then the decay from the chunk's start
-    y_off = torch.einsum("bcign,bcgpdn->bcigpd", cm,
-                         prev_states.reshape(b, nc, g, hpg, hd, n))
-    y_off = y_off.reshape(b, nc, cl, nh, hd) \
-        * torch.exp(cum).permute(0, 1, 3, 2)[..., None]
+    # the [cl x cl] blocks and the chunk end-states, chunk by chunk: rank by
+    # rank on the chunk axis ("ssm_chunks" -> model, as the reference
+    # constrains them; SSM head counts, hymba's 50, rarely divide the mesh).
+    # Each chunk needs only its own inputs, so the region is exact with no
+    # collective; DTensor's batched products flatten the split batch and
+    # chunk dims, which torch 2.11 (and 2.13's backward) refuse.  The
+    # recurrence over the chunks then runs on the batch shard
+    chunks = ("batch", "ssm_chunks", None, None, None)
+    y, states = local(_chunk_block, (chunks, chunks, chunks[:4], chunks[:4], chunks),
+                      out_like=[((b, nc, cl, nh, hd), chunks),
+                                ((b, nc, nh, hd, n), chunks)])(cm, bm, da_h, cum, xdt)
+    seqs = ("batch", None, None, None, None)
+    y_off, carry = local(_inter_chunk, (seqs, seqs, seqs[:4], seqs[:4]),
+                         out_like=[((b, nc, cl, nh, hd), seqs), ((b, nh, hd, n), seqs[:4])])(
+        cm, states, cum, None if initial_state is None else initial_state.float())
 
     # the merges of (nc, cl) and of (nh, hd) keep their own placements for
     # the backward's split (``grad_placed``)
     y = grad_placed((y + y_off).reshape(b, t, nh, hd))
     y = y + p["d_skip"][:, None] * grad_placed(xs.reshape(b, t, nh, hd))
-    y = grad_placed(y.reshape(b, t, d_in))[:, :t0].to(x.dtype)
+    # the sequence split of the chunks' merge given up for d_in's before the
+    # steps are cut and the product flattens the batch and sequence dims
+    y = constrain(grad_placed(y.reshape(b, t, d_in)), ("batch", None, "ffn"))
+    y = y[:, :t0].to(x.dtype)
 
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"]
     if return_state:
         # conv tail for the decode handoff: the last K-1 pre-activation,
-        # unpadded conv inputs
-        return out, {"state": carry, "conv": xbc_raw[:, -(s.d_conv - 1):]}
+        # unpadded conv inputs, copied: a view would hold the whole input
+        # projection until the prefill stacks every layer's cache (torch
+        # 2.11's DTensor slices to a view)
+        return out, {"state": carry, "conv": xbc_raw[:, -(s.d_conv - 1):].clone()}
     return out
+
+
+def _state_step(state, xs, dt, a, bm, cm, hpg: int):
+    """The recurrent step of the heads of ``state`` [B,h,hd,N], in place:
+    state = state * exp(dt A) + dt x B^T, B broadcast over its group's
+    heads; returns C against the new state [B,h,hd].  xs [B,h,hd]; dt [B,h];
+    a [h]; bm, cm [B,G,1,N] of every group, ``hpg`` heads a group.  On a
+    heads shard (``shardctx.splits("heads")``) it takes the groups of its
+    heads."""
+    b, h, hd, n = state.shape
+    if shardctx.splits("heads"):
+        h0 = shardctx.axis_index("heads") * h
+        bm, cm = (m[:, h0 // hpg:(h0 + h - 1) // hpg + 1] for m in (bm, cm))
+    g = bm.shape[1]
+    hpg = h // g
+    da = torch.exp(dt * a)                                       # [B,h]
+    upd = ((dt[..., None] * xs).reshape(b, g, hpg, hd)[..., None] * bm[..., None, :]
+           ).reshape(b, h, hd, n)
+    state.mul_(da[..., None, None]).add_(upd)
+    return (state.reshape(b, g, hpg, hd, n) @ cm.reshape(b, g, 1, n, 1)).reshape(b, h, hd)
 
 
 def ssd_decode(cfg: ModelConfig, p, x, cache):
@@ -211,14 +274,12 @@ def ssd_decode(cfg: ModelConfig, p, x, cache):
 
     dt = F.softplus(dt.float() + p["dt_bias"])                   # [B,nh]
     a = -torch.exp(p["a_log"].float())
-    da = torch.exp(dt * a)                                       # [B,nh]
-
-    # state = state * exp(dt A) + dt x B^T, B broadcast over its group's heads
-    upd = ((dt[..., None] * xs).reshape(b, g, hpg, hd)[..., None] * bm[..., None, :]
-           ).reshape(b, nh, hd, n)
-    state = cache["state"]
-    state.mul_(da[..., None, None]).add_(upd)
-    y = (state.reshape(b, g, hpg, hd, n) @ cm.reshape(b, g, 1, n, 1)).reshape(b, nh, hd)
+    # rank by rank on the state's batch and heads shard, written in place:
+    # DTensor's grouped product flattens the split batch and heads
+    heads = ("batch", "heads", None, None)
+    y = local(_state_step, (heads, heads[:3], heads[:2], heads[1:2],
+                            ("batch", None, None, None), ("batch", None, None, None), None),
+              out_like=((b, nh, hd), heads[:3]))(cache["state"], xs, dt, a, bm, cm, hpg)
     y = y + p["d_skip"][:, None] * xs
     y = y.reshape(b, 1, d_in).to(x.dtype)
 

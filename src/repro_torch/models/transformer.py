@@ -238,8 +238,9 @@ def layer_forward(cfg, desc, p, x, positions, n_meta, *, collect=False,
             entry["k"] = _ring_pack(k, desc.window, n_meta)
             entry["v"] = _ring_pack(v, desc.window, n_meta)
             if n_meta:
-                entry["k_pre"] = k[:, :n_meta]
-                entry["v_pre"] = v[:, :n_meta]
+                # copies, as the conv tail's (``ssm.ssd_forward``)
+                entry["k_pre"] = k[:, :n_meta].clone()
+                entry["v_pre"] = v[:, :n_meta].clone()
         else:
             entry["k"], entry["v"] = k, v
     if desc.kind == "hybrid":                    # parallel attention + SSM

@@ -241,11 +241,8 @@ def local(fn, in_axes: tuple, out_like=0, partial: tuple = ()):
             grad_pl = [Partial() if p.is_replicate() and o else p
                        for p, o in zip(a.placements, out_split)]
             return a.to_local(grad_placements=grad_pl)
-        tok = _REGION.set((mesh, split))
-        try:
+        with in_region((mesh, split)):
             out = fn(*(to_local(a) for a in args))
-        finally:
-            _REGION.reset(tok)
         if isinstance(out_like, list):
             return tuple(DTensor.from_local(o, mesh, pl, run_check=False)
                          for o, pl in zip(out, out_pls))
@@ -280,6 +277,24 @@ def set_slot_(x, dim: int, index: int, value) -> None:
     offset = shard * mine.shape[dim]
     if offset <= index < offset + mine.shape[dim]:
         mine.select(dim, index - offset).copy_(value)
+
+
+def region():
+    """The running ``local`` region (``None`` outside one).  An autograd
+    Function's forward keeps it for its backward, which runs after the
+    region has ended (``in_region``)."""
+    return _REGION.get()
+
+
+@contextlib.contextmanager
+def in_region(r):
+    """``axis_index`` and ``all_reduce_`` act as in region ``r`` (what
+    ``region()`` returned) while the block runs; ``r`` None: no region."""
+    tok = _REGION.set(r)
+    try:
+        yield
+    finally:
+        _REGION.reset(tok)
 
 
 def _split(axis: str):

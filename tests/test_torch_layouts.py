@@ -37,7 +37,24 @@ cell are run once as rank 0 of 8 under ``RankTrace``, and:
   whole-ffn pending sums);
 * the prefill's ring cache is made at the shard of the cache's
   ``("batch", "kv_seq", "kv", None)``, and nothing inside its packing
-  outputs more than the rank's batch and kv shard.
+  outputs more than the rank's batch and kv shard;
+* where the scores split the key axis instead of the heads (hymba-1.5b,
+  given the full config's group of 5 query heads to 1 kv head: 5 heads on
+  a model axis of 4), no op, forward or backward, outputs scores or
+  probabilities with the whole key axis;
+* a decode step over a cache whose kv_seq splits makes scores only for the
+  rank's shard of the cache;
+* the SSD's ``[.., cl, cl]`` chunk blocks (mamba2-370m and hymba-1.5b) are
+  made, forward and backward, at no more than the rank's shard of the
+  reference's ``("batch", "ssm_chunks", None, None, None)``;
+* under FSDP (gemma3-27b) each product of a GQA projection makes no more
+  than the rank's batch and heads shard of its ``[B, T, H, dh]`` result, and
+  each product of the output projection no more than the rank's batch
+  shard of ``[B, T, D]``.
+
+The cells of the last four run at one sequence a rank, where torch 2.13's
+DTensor refused (and torch 2.11's refuses) to flatten the split batch and
+heads of decode's scores and the split batch and chunks of the SSD's block.
 
 Each cell runs in a subprocess of its own (this file as a script), so that
 no pytest worker keeps a default process group.
@@ -60,6 +77,8 @@ MICROBATCHES = 2
 SEQ = 40               # no dim of a reduced stacked leaf is 40: no shape coincides
 BATCH = 8
 DATA = 2               # the mesh's "data" dim, which the batch splits
+SSD_CHUNK = 8
+SSD_TOKENS = 64        # 8 chunks of the SSD, 2 a rank on the model dim of 4
 
 
 # ----------------------------------------------------------- the subprocess
@@ -74,10 +93,21 @@ def _local_shape(shape, mesh, placements):
 
 def config(arch):
     """The arch's reduced config; deepseek-v3's with a second MoE layer, so
-    that its MoE stage stacks two layers (the full config stacks 58)."""
+    that its MoE stage stacks two layers (the full config stacks 58), and
+    hymba's with 5 query heads to 1 kv head, which split no mesh axis of 4
+    (its full config's 25 split none of 16)."""
+    import dataclasses
+
     from repro_torch.configs import reduced_config
 
     cfg = reduced_config(arch)
+    if arch == "hymba-1.5b":
+        # the full config's group: 25 query heads to 5 kv heads
+        cfg = cfg.replace(n_heads=5, n_kv_heads=1)
+    if cfg.ssm is not None:
+        # chunks of 8: no other dim of the SSD (16 heads of 16, a state of
+        # 16) has a chunk's length, so its [.., cl, cl] blocks can be told
+        cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=SSD_CHUNK))
     if arch == "deepseek-v3-671b":
         cfg = cfg.replace(n_layers=4, layer_kinds=cfg.kinds + cfg.kinds[-1:],
                           windows=cfg.layer_windows + cfg.layer_windows[-1:],
@@ -85,11 +115,12 @@ def config(arch):
     return cfg
 
 
-def trace_cell(arch, kind, out, batch=BATCH):
-    """Run the arch's cell of ``kind`` (global batch ``batch``) on a fake
-    (2, 4) group and write what each site made, and the op lines that made
-    a split stacked leaf whole, attention scores past the rank's heads or
-    an FSDP MLP's whole ffn dim."""
+def trace_cell(arch, kind, out, batch=BATCH, seq=SEQ):
+    """Run the arch's cell of ``kind`` (global batch ``batch``, ``seq``
+    tokens) on a fake (2, 4) group and write what each site made, and the
+    op lines that made a split stacked leaf whole, attention scores past the
+    rank's heads or keys, an FSDP MLP's whole ffn dim or an SSD chunk block
+    past the rank's shard."""
     import contextlib
     import contextvars
 
@@ -98,7 +129,7 @@ def trace_cell(arch, kind, out, batch=BATCH):
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import attention, moe
+    from repro_torch.models import attention, moe, ssm
     from repro_torch.models import transformer as tf
     from repro_torch.runtime import shardctx, steps
     from repro_torch.runtime.tree import leaves
@@ -143,11 +174,18 @@ def trace_cell(arch, kind, out, batch=BATCH):
                 record("sdpa_collectives", line=line)
             elif where == "ring":
                 record("ring_ops", shapes=outs, line=line)
+            elif where == "decode":
+                record("decode_ops", shapes=[s for s, x in zip(outs, dryrun._tensors(out))
+                                             if x.is_floating_point()], line=line)
+            elif where in ("project", "out_project") and " flops=" in line:
+                sites[where][-1]["products"].append({"shapes": outs, "line": line})
             return out
 
     head, dispatch, sdpa = tf.lm_head, moe._moe_dispatch, attention._sdpa
     attend, mlp, ring_pack = attention._attend, tf.mlp, tf._ring_pack
     layer = tf.layer_forward
+    decode, project, ssd = attention.gqa_decode, attention._project, ssm.ssd_forward
+    out_project = getattr(attention, "_out_project", None)
 
     def layer_forward(*a, **kw):
         # the backward's recompute of a layer (per-layer remat)
@@ -166,7 +204,7 @@ def trace_cell(arch, kind, out, batch=BATCH):
         step = attention._CHUNK_Q if t * s >= attention._CHUNK_THRESHOLD else t
         rows = local_shape((b, h, t, s), ("batch", "heads", None, "attn_kv"), q.device_mesh)
         record("attend", s=s, chunks=sorted({min(step, t - c) for c in range(0, t, step)}),
-               rows=rows[0] * rows[1], heads=h, local_heads=rows[1])
+               rows=rows[0] * rows[1], heads=h, local_heads=rows[1], local_keys=rows[3])
         return attend(q, k, v, *a)
 
     def mlp_ffn(params, x, act):
@@ -204,6 +242,34 @@ def trace_cell(arch, kind, out, batch=BATCH):
         record("moe", want=_local_shape(shape, x.device_mesh, pl))
         return y
 
+    def ssd_forward(cfg, p, x, **kw):
+        # the [B, nc, nh, cl, cl] blocks, T padded to whole chunks
+        b, t0 = x.shape[:2]
+        cl = min(cfg.ssm.chunk, t0)
+        shape = (b, -(-t0 // cl), ssm._dims(cfg)[2], cl, cl)
+        record("ssd", cl=cl, shard=_numel(local_shape(
+            shape, ("batch", "ssm_chunks", None, None, None), x.device_mesh)))
+        return ssd(cfg, p, x, **kw)
+
+    def gqa_decode(p, x, cache, pos, **kw):
+        k = cache["k"]
+        record("decode_cache", s=k.shape[1], local_s=k.to_local().shape[1])
+        with inside("decode"):
+            return decode(p, x, cache, pos, **kw)
+
+    def projected(x, w, heads):
+        shape = x.shape[:2] + w.shape[1:]
+        record("project", heads=heads, products=[], want=_numel(local_shape(
+            shape, ("batch", None, heads, None), x.device_mesh)))
+        with inside("project"):
+            return project(x, w, heads)
+
+    def out_projected(y, wo):
+        record("out_project", products=[], want=_numel(local_shape(
+            y.shape[:2] + wo.shape[-1:], ("batch", None, None), y.device_mesh)))
+        with inside("out_project"):
+            return out_project(y, wo)
+
     def chunk_sdpa(*a):
         with inside("sdpa"):
             return sdpa(*a)
@@ -228,13 +294,17 @@ def trace_cell(arch, kind, out, batch=BATCH):
     tf.lm_head, moe._moe_dispatch, attention._sdpa = lm_head, moe_dispatch, chunk_sdpa
     attention._attend, tf.mlp, tf._ring_pack = attend_rows, mlp_ffn, ring
     tf.layer_forward = layer_forward
+    attention.gqa_decode, attention._project = gqa_decode, projected
+    ssm.ssd_forward = ssd_forward
+    if out_project is not None:
+        attention._out_project = out_projected
     shardctx._GradPlaced.backward = staticmethod(placed_bwd)
     if accumulate is not None:
         steps._accumulate = accumulated
 
     with dryrun.fake_group(8):
         mesh = make_mesh((2, 4), ("data", "model"))
-        shape = ShapeConfig("c", kind, SEQ, int(batch))
+        shape = ShapeConfig("c", kind, int(seq), int(batch))
         cfg, fn, args, _ = dryrun.build_cell(
             arch, shape, mesh, microbatches=MICROBATCHES if kind == "train" else None)
         stages = args[0]["stages"]
@@ -251,11 +321,17 @@ def trace_cell(arch, kind, out, batch=BATCH):
     # an FSDP MLP's [.., ffn] activations and sums, its [D, ffn] and [ffn, D]
     # weights and their gradients
     whole_ffn = {(m["ffn"], m["d"]) for m in sites.get("mlp", []) if m["fsdp"]}
-    whole, over_heads, ffn_lines = [], [], []
+    # scores [.., H, tq, S] of a query chunk over a split key axis: none whole
+    whole_keys = {(tq, a["s"]): a["heads"] for a in sites.get("attend", [])
+                  if a["local_keys"] < a["s"] for tq in a["chunks"]}
+    # the SSD's [B, nc, nh, cl, cl] blocks: at most the rank's shard of them
+    block = max(((s["cl"], s["shard"]) for s in sites.get("ssd", [])), default=None)
+    whole, over_heads, ffn_lines, key_lines, block_lines = [], [], [], [], []
+    blocks = 0
     for line in trace.ops:
         outs = line.split(" -> ", 1)[1] if " -> " in line else ""
-        for m in re.finditer(r"\[([\d, ]*)\]", outs):
-            dims = tuple(int(v) for v in m.group(1).split(",") if v.strip())
+        for m in re.finditer(r"(\w+)\[([\d, ]*)\]", outs):
+            dims = tuple(int(v) for v in m.group(2).split(",") if v.strip())
             if dims in split:
                 whole.append(line)
             ends = dims[-2:] if dims[-2:] in scores else dims[:-3:-1]   # [.., S, tq] too
@@ -265,12 +341,23 @@ def trace_cell(arch, kind, out, batch=BATCH):
             if len(dims) >= 2 and any(f == dims[-1] or (f, d) == dims[-2:]
                                       for f, d in whole_ffn):
                 ffn_lines.append(line)
+            floating = m.group(1).startswith(("float", "bfloat"))
+            ends = dims[-2:] if dims[-2:] in whole_keys else dims[:-3:-1]
+            if floating and len(dims) >= 3 and ends in whole_keys and \
+                    _numel(dims) % (whole_keys[ends] * ends[0] * ends[1]) == 0:
+                key_lines.append(line)
+            if block and dims[-2:] == (block[0],) * 2:
+                blocks += 1
+                if _numel(dims) > block[1]:
+                    block_lines.append(line)
     Path(out).write_text(json.dumps({
         "sites": sites,
         "leaves": [list(x.to_local().shape) for x in leaves(args[0])],
         "split_stacked": sorted(map(list, split)),
         "layer_leaves": sum(x.shape[0] for st in stages for x in leaves(st)),
-        "whole": whole, "over_heads": over_heads, "whole_ffn": ffn_lines}))
+        "whole": whole, "over_heads": over_heads, "whole_ffn": ffn_lines,
+        "whole_keys": key_lines, "block": block, "blocks": blocks,
+        "over_block": block_lines}))
 
 
 # ------------------------------------------------------------------- tests
@@ -278,17 +365,23 @@ def trace_cell(arch, kind, out, batch=BATCH):
 _TRACES = {}
 
 
-def _trace(tmp_path_factory, arch, kind, batch=BATCH):
-    if (arch, kind, batch) not in _TRACES:
-        tmp = tmp_path_factory.mktemp(f"{arch}-{kind}-{batch}")
+def _trace(tmp_path_factory, arch, kind, batch=BATCH, seq=SEQ):
+    if (arch, kind, batch, seq) not in _TRACES:
+        tmp = tmp_path_factory.mktemp(f"{arch}-{kind}-{batch}-{seq}")
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         proc = subprocess.run([sys.executable, str(Path(__file__)), arch, kind,
-                               str(tmp / "out.json"), str(batch)],
+                               str(tmp / "out.json"), str(batch), str(seq)],
                               cwd=tmp, env=env, capture_output=True, text=True,
                               timeout=TIMEOUT)
         assert proc.returncode == 0, proc.stderr[-4000:]
-        _TRACES[arch, kind, batch] = json.loads((tmp / "out.json").read_text())
-    return _TRACES[arch, kind, batch]
+        _TRACES[arch, kind, batch, seq] = json.loads((tmp / "out.json").read_text())
+    return _TRACES[arch, kind, batch, seq]
+
+
+def _one_sequence_a_rank(kind):
+    """The global batch that gives each data rank one sequence of each
+    (micro)batch."""
+    return DATA * (MICROBATCHES if kind == "train" else 1)
 
 
 def _numel(shape):
@@ -353,8 +446,7 @@ def test_full_sequence_attention_makes_only_its_heads_scores(tmp_path_factory, a
     cells does: there DTensor's backward of the score einsums all-gathered
     the probabilities over heads, and here (torch 2.13) its view back from
     the flattened batch x heads dim, split twice, raises."""
-    batch = DATA * (MICROBATCHES if kind == "train" else 1)
-    cell = _trace(tmp_path_factory, arch, kind, batch)
+    cell = _trace(tmp_path_factory, arch, kind, _one_sequence_a_rank(kind))
     attends = cell["sites"].get("attend", [])
     assert attends, "no full-sequence attention ran"
     for a in attends:
@@ -412,6 +504,88 @@ def test_layer_gradients_and_accumulators_are_at_the_shard_shape(tmp_path_factor
     assert len(acc) == MICROBATCHES
     for shapes in acc:
         assert shapes["local"] == cell["leaves"]
+
+
+@pytest.mark.parametrize("kind", ("train", "prefill"))
+def test_attention_over_a_split_key_axis_makes_only_its_keys_scores(tmp_path_factory, kind):
+    """hymba-1.5b's heads split no mesh axis, so its scores split the key
+    axis: forward and backward (per-layer remat in the train cell), no op
+    outputs scores or probabilities of a query chunk with every key.
+    DTensor's own einsums gathered every key's scores (``[4, 25, 4224,
+    4224]`` fp32 a rank in the production train_4k cell)."""
+    cell = _trace(tmp_path_factory, "hymba-1.5b", kind, _one_sequence_a_rank(kind))
+    attends = cell["sites"].get("attend", [])
+    assert attends, "no full-sequence attention ran"
+    for a in attends:
+        assert a["local_heads"] == a["heads"], "the heads split"
+        assert a["local_keys"] < a["s"], "the key axis is not split"
+        assert a["rows"] == a["local_heads"], "a rank holds more than one sequence"
+    assert cell["whole_keys"] == [], cell["whole_keys"][:8]
+
+
+@pytest.mark.parametrize("arch", ("yi-6b", "gemma3-27b"))
+def test_decode_attention_runs_on_its_key_shard(tmp_path_factory, arch):
+    """A decode step over a cache whose kv_seq splits over "model": no op
+    of the step's attention outputs a floating tensor with the whole cache
+    length (a cache of 24 slots, a length no other dim of the reduced
+    configs has), and the scores are made on the rank's 6 slots.  At one
+    sequence a rank DTensor's score einsum flattened q's split batch and
+    heads and refused the view back."""
+    cell = _trace(tmp_path_factory, arch, "decode", _one_sequence_a_rank("decode"), 24)
+    caches = cell["sites"].get("decode_cache", [])
+    assert caches, "no GQA decode ran"
+    assert all(c["local_s"] < c["s"] for c in caches), caches[:2]
+    s = {c["s"] for c in caches}
+    local = {c["local_s"] for c in caches}
+    ops = cell["sites"].get("decode_ops", [])
+    whole = [o["line"] for o in ops if any(sh and sh[-1] in s for sh in o["shapes"])]
+    assert whole == [], whole[:8]
+    assert any(sh and sh[-1] in local for o in ops for sh in o["shapes"]), \
+        "no scores were made on the key shard"
+
+
+@pytest.mark.parametrize("kind", ("train", "prefill"))
+@pytest.mark.parametrize("arch", ("mamba2-370m", "hymba-1.5b"))
+def test_the_ssd_chunk_block_runs_on_its_chunk_shard(tmp_path_factory, arch, kind):
+    """Forward and backward, no op outputs a ``[.., cl, cl]`` chunk block
+    larger than the rank's shard of the reference's ``("batch",
+    "ssm_chunks", None, None, None)``: 8 chunks of 8 tokens, 2 a rank on the
+    model dim, one sequence a rank on the data dim.  DTensor's batched
+    product flattened the split batch and chunk dims, all-gathered the
+    blocks over the chunks, and at one sequence a rank its backward refused
+    the view back."""
+    # a train cell's tokens follow the reduced config's 8 meta tokens; a
+    # prefill cell's prompt counts them
+    meta = 8 if arch == "hymba-1.5b" and kind == "train" else 0
+    cell = _trace(tmp_path_factory, arch, kind, _one_sequence_a_rank(kind),
+                  SSD_TOKENS - meta)
+    cl, shard = cell["block"]
+    assert shard < _numel((1, SSD_TOKENS // cl, 16, cl, cl)), "the chunks are not split"
+    assert cell["blocks"], "no chunk block was made"
+    assert cell["over_block"] == [], cell["over_block"][:8]
+
+
+@pytest.mark.parametrize("kind", ("train", "prefill"))
+def test_the_fsdp_gqa_projections_make_only_their_heads(tmp_path_factory, kind):
+    """gemma3-27b (FSDP): each product of a q, k or v projection makes no
+    more than the rank's batch and heads shard of ``[B, T, H, dh]``, and
+    each product of the output projection no more than the rank's batch
+    shard of ``[B, T, D]``.  DTensor's einsum contracted the split D and
+    made pending sums of every head (``[1, 65536, 4096]`` a rank in the
+    production train_4k cell)."""
+    sites = _trace(tmp_path_factory, "gemma3-27b", kind, _one_sequence_a_rank(kind))["sites"]
+    projections = sites.get("project", [])
+    assert any(p["heads"] == "heads" for p in projections), "no q projection ran"
+    for p in projections:
+        assert p["products"], "a projection made no product"
+        for op in p["products"]:
+            assert all(_numel(sh) <= p["want"] for sh in op["shapes"]), op["line"]
+    out_projections = sites.get("out_project", [])
+    assert out_projections, "no output projection ran"
+    for p in out_projections:
+        assert p["products"], "an output projection made no product"
+        for op in p["products"]:
+            assert all(_numel(sh) <= p["want"] for sh in op["shapes"]), op["line"]
 
 
 if __name__ == "__main__":

@@ -185,10 +185,17 @@ def test_yi_sharded_compressed_step_on_four_ranks_matches_plain(yi_runs):
     _check_sharded_run(yi_runs / "variantk.npz", weights=False)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "hymba-1.5b", "deepseek-v3-671b",
-                                  "gemma3-27b"])
-def test_sharded_step_on_four_ranks_matches_plain(tmp_path, arch):
-    _torch_ranks.run(tmp_path, "sharded_step", tmp_path, arch, "0")
+@pytest.mark.parametrize("arch, batch, heads", [
+    pytest.param(arch, 8, "", id=arch)
+    for arch in ("mixtral-8x7b", "hymba-1.5b", "deepseek-v3-671b", "gemma3-27b")] + [
+    # one sequence a rank in each microbatch; hymba's 5 heads split no mesh
+    # axis, so its scores split the key axis (``attention._KeyShardAttention``
+    # and its backward), and the SSD's chunk block runs on its chunk shard
+    # (5 chunks on 2: replicated; mamba2's 4 on 2: split)
+    pytest.param("hymba-1.5b", 4, "5x1", id="hymba-1.5b-5-heads-one-sequence-a-rank"),
+    pytest.param("mamba2-370m", 4, "", id="mamba2-370m-one-sequence-a-rank")])
+def test_sharded_step_on_four_ranks_matches_plain(tmp_path, arch, batch, heads):
+    _torch_ranks.run(tmp_path, "sharded_step", tmp_path, arch, "0", batch, heads)
     _check_sharded_run(tmp_path / "variant0.npz")
 
 
@@ -209,3 +216,43 @@ def test_sharded_prefill_on_four_ranks_matches_plain(tmp_path):
         assert a.shape == b.shape, path
         np.testing.assert_allclose(b, a, rtol=0, atol=1e-5 * np.abs(a).max(), err_msg=path)
 
+
+
+@pytest.mark.parametrize("arch, heads", [("yi-6b", ""), ("hymba-1.5b", "5x1")])
+def test_sharded_decode_on_four_ranks_matches_plain(tmp_path, arch, heads):
+    """Decode steps on the (2, 2) mesh after a plain prefill, the cache's
+    kv_seq split over "model" and one sequence a rank, so each rank attends
+    over its shard of the cache (``attention._sdpa_over_keys``): hymba's
+    windowed layer (window 32) has a ring that wrapped in the 72-token
+    prefill and its 8 meta keys beside it.  Each step's logits and every
+    cache leaf after the last step within 1e-5 of the plain decode's largest
+    entry."""
+    _torch_ranks.run(tmp_path, "sharded_decode", tmp_path, arch, heads)
+    with np.load(tmp_path / "decode.npz") as z:
+        out = {k: z[k] for k in z.files}
+    assert out["pos"][0] == out["pos"][1]
+    paths = [k[len("plain/"):] for k in out if k.startswith("plain/")]
+    assert sum(p.startswith("logits") for p in paths) == _torch_ranks.DECODE["steps"]
+    assert any(p.endswith("/k") for p in paths)
+    for path in paths:
+        a, b = out[f"plain/{path}"], out[f"sharded/{path}"]
+        assert a.shape == b.shape, path
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-5 * np.abs(a).max(), err_msg=path)
+
+
+def test_attention_over_a_split_key_axis_matches_sdpa(tmp_path):
+    """``attention._sdpa_over_keys`` with the keys split over "model" on the
+    (2, 2) mesh against the plain ``_sdpa`` (fp32): the output, with and
+    without a decode step's never-evicted prefix, and the gradients of q, k
+    and v within 1e-5 of the plain one's largest entry, for a mask with a
+    query row that sees no key on any shard (the mean of V over all keys,
+    and its gradient, as the plain softmax gives) and rows whose keys all
+    lie on one shard."""
+    _torch_ranks.run(tmp_path, "key_shard_attention", tmp_path)
+    with np.load(tmp_path / "keys.npz") as z:
+        out = {k: z[k] for k in z.files}
+    np.testing.assert_allclose(out["plain/out"][:, 0],
+                               np.repeat(out["plain/out"][:, 0, :1], 3, axis=1))
+    for name in ("out", "prefix", "grad_q", "grad_k", "grad_v"):
+        a, b = out[f"plain/{name}"], out[f"sharded/{name}"]
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-5 * np.abs(a).max(), err_msg=name)
