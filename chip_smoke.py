@@ -55,10 +55,13 @@ Phases, each of which raises on failure (exit code != 0):
                kernel's
  11. k2-bwd-timing  K2 bwd at train_4k as the train run calls it (q
                [1,4096,32,128], k/v [1,4096,4,128] bf16, causal), and at
-               phi-3-vision's (d = 96, MHA) and h2o-danube's (d = 120, group
-               4, window 4096) train_4k shapes, beside its plain version,
-               SDPA's backward and the bound on the real d; dq, dk and dv
-               also held by the row check
+               phi-3-vision's (d = 96, MHA), h2o-danube's (d = 120, group
+               4, window 4096) and hymba's (d = 64, group 5, 4096 tokens
+               after 128 meta keys, window 1024) train_4k shapes, beside its
+               plain version, SDPA's backward (under the boolean mask, kv
+               heads expanded, where a window masks) and the bound on the
+               real d over the live pairs; dq, dk and dv also held by the
+               row check
  12. train     Yi-6B at its published widths, 8 of its 32 layers, bf16
                params, fp32 AdamW moments and gradient accumulation, 8
                microbatches with per-layer remat, seq 4096, global batch 8,
@@ -68,9 +71,12 @@ Phases, each of which raises on failure (exit code != 0):
                to their formulas); then one step at 2 layers and seq 1024,
                flash against plain attention: loss, gnorm and each
                attention weight's gradient, at Yi-6B's widths (d = 128),
-               phi-3-vision's (d = 96, 576 image positions first) and
+               phi-3-vision's (d = 96, 576 image positions first),
                h2o-danube's (d = 120, group 4, window cut to 512 so that it
-               masks), each with its K2 bwd launches counted
+               masks), hymba's (2 hybrid layers, d = 64, group 5, 128 meta
+               tokens, layer 1's window cut to 256; the meta tokens'
+               gradient too) and musicgen's (d = 64, 4 codebooks), each
+               with its K2 bwd launches counted
  13. train-launcher  ``python -m repro_torch train --preset small
                --use-flash`` through its ``main``, on a mesh planned by
                ``plan_mesh`` for one NCCL rank (1x1; a one-rank mesh places
@@ -103,7 +109,7 @@ Phases, each of which raises on failure (exit code != 0):
                T = 1100; deepseek-v3 widths, its first 2 layers (dense MLA:
                d_model 7168, 128 heads, kv rank 512; the absorbed latent
                decode against the decompressed forward), T = 600, 0 K2
-               launches
+               launches; deepseek-7b widths (MHA, d = 128), T = 600
  16. serve-mixtral  mixtral-8x7b at its published widths, 16 of its 32
                layers (the whole model is 93 GB in bf16, the cut ~47 GB),
                bf16 random weights: 8 x 512-token prompts, 32 new tokens;
@@ -271,6 +277,31 @@ Phases, each of which raises on failure (exit code != 0):
                all at once: ``[ok]`` and ``mem_device_bytes`` under 80e9;
                0 kernel launches and 0 card bytes while pricing
                (``dryrun_launches``)
+ 33. serve-deepseek7b  K2 at deepseek-7b's prefill shape (q/k/v
+               [8,2048,32,128], causal, MHA) as in phase 20; then
+               deepseek-7b whole (30 layers, 32 kv heads at d = 128: an
+               8.2 GB cache), bf16 random weights, through
+               ``serve.generate``: 8 x 2048-token prompts, 32 new tokens; 30
+               K2 launches, 0 K2 bwd, finite logits, peak under 80 GB
+ 34. train-ssm  phase 12's step (seq 4096, global batch 8, bf16 params,
+               fp32 moments and accumulation, remat, flash, 1 warm-up and 3
+               timed steps) on hymba-1.5b whole (32 hybrid layers, 128 meta
+               tokens, 4 microbatches) and mamba2-370m whole (48 SSD layers,
+               2 microbatches): step ms, tokens/s, model-FLOP share, peak
+               memory under 80 GB, finite losses and gnorms, K2 and K2 bwd
+               launches equal to attention layers x microbatches x steps x
+               2 and x 1 (hymba 1024 and 512, mamba2 0); then the plain
+               SSD's backward (its chunk loop under remat) on the card
+               against the host's: mamba2-370m widths, 2 layers, fp32, 2 x
+               1024 tokens, the same weights and tokens, every gradient
+               leaf by its norm and by its largest entry, and planted faults
+               in one leaf's gradient rejected
+ 35. train-whole  the same step on h2o-danube-3-4b (24 layers, window
+               4096, d = 120), phi-3-vision-4.2b (32 layers, d = 96, 576
+               image positions of the 4096) and musicgen-large (48 layers,
+               4 codebooks) whole, 8 microbatches each: the same readings
+               and gates (K2 1536, 2048 and 3072 launches, K2 bwd 768, 1024
+               and 1536), each model freed before the next is drawn
 serve_model counts one K2 launch per attention-bearing layer of a GQA
 model, and none for MLA.
 The whole shapes (phases 4, 11, 14, 17, 19-21) are held against the plain
@@ -508,15 +539,9 @@ def flash_work(b, t, s, h, kv, d, causal=True, dtype_bytes=2, window=0, n_meta=0
     """(flops, bytes) the function needs: each live (query, key) pair costs
     a d-long dot product and a d-long update, 2 flops per multiply-add; q
     and k, v read once, o written once.  A window keeps the ``window`` keys
-    up to each query's own, and the ``n_meta`` first keys beside them."""
-    if causal:
-        live = 0
-        for r in range(t):
-            hi = max(0, r + s - t + 1)             # the row sees keys [0, hi)
-            lo = max(0, hi - window) if window else 0
-            live += hi - lo + min(n_meta, lo)
-    else:
-        live = t * s
+    up to each query's own, and the ``n_meta`` first keys beside them
+    (``fa.live_pairs``)."""
+    live = fa.live_pairs(t, s, window=window, n_meta=n_meta, causal=causal)
     return 4 * d * live * b * h, (2 * b * t * h + 2 * b * s * kv) * d * dtype_bytes
 
 
@@ -1014,24 +1039,27 @@ def phase_k2_bwd(device):
     return worst_abs[torch.bfloat16], worst_rel
 
 
-# phase 11: K2 bwd at train_4k as the train run calls it (Yi-6B's GQA), and
-# at phi-3-vision's (d = 96, MHA) and h2o-danube's (d = 120, group 4, its
-# window of 4096, which at T = 4096 masks nothing) train_4k flash shapes:
-# (key, B, T, H, KV, d, window)
-BWD_TIMING = [("train_4k", 1, 4096, 32, 4, 128, 0),
-              ("phi3_train_4k", 1, 4096, 32, 32, 96, 0),
-              ("h2o_train_4k", 1, 4096, 32, 8, 120, 4096)]
+# phase 11: K2 bwd at train_4k as the train run calls it (Yi-6B's GQA), at
+# phi-3-vision's (d = 96, MHA) and h2o-danube's (d = 120, group 4, its
+# window of 4096, which at T = 4096 masks nothing) train_4k flash shapes,
+# and at hymba-1.5b's (d = 64, group 5, 4096 tokens after 128 meta tokens,
+# window 1024, as its windowed layers take it in phase 34):
+# (key, B, T, H, KV, d, window, meta keys)
+BWD_TIMING = [("train_4k", 1, 4096, 32, 4, 128, 0, 0),
+              ("phi3_train_4k", 1, 4096, 32, 32, 96, 0, 0),
+              ("h2o_train_4k", 1, 4096, 32, 8, 120, 4096, 0),
+              ("hymba_train_4k", 1, 4224, 25, 5, 64, 1024, 128)]
 
 
-def time_k2_bwd(name, b, t, h, kvh, d, window, device, seed):
+def time_k2_bwd(name, b, t, h, kvh, d, window, n_meta, device, seed):
     """K2 bwd at one causal shape beside its plain version, SDPA's backward
     and the bound: 2.5 times the forward's products (S recomputed, dV, dP,
-    dK and dQ, each d-long per live pair, on the real d), q, k, v, o, dO and
-    lse read once and dq, dk, dv written once."""
+    dK and dQ, each d-long per live pair (``fa.live_pairs``), on the real
+    d), q, k, v, o, dO and lse read once and dq, dk, dv written once."""
     gen = torch.Generator(device=device).manual_seed(seed)
     q, k, v = qkv(gen, b, t, t, h, kvh, d, torch.bfloat16, device)
     g = rand(gen, q.shape, torch.bfloat16, device)
-    kw = dict(scale=d ** -0.5, window=window)
+    kw = dict(scale=d ** -0.5, window=window, n_meta=n_meta)
     o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     got = fa.flash_attention_bwd_cuda(q, k, v, o, g, lse, **kw)
     want = plain_fp32(fa.flash_attention_bwd_plain, q, k, v, o, g, **kw)
@@ -1045,26 +1073,39 @@ def time_k2_bwd(name, b, t, h, kvh, d, window, device, seed):
                         iters=5, warmup=2)
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, g, **kw),
                        iters=3, warmup=1)
-    # the yardstick: SDPA's backward alone, its forward's graph kept (the
-    # window masks nothing at these shapes, so it is the causal mask)
-    assert window == 0 or window >= t
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=kvh != h)
+    # the yardstick: SDPA's backward alone, its forward's graph kept; where
+    # the window masks (or meta keys stand beside it) the mask as a boolean,
+    # kv heads expanded outside the timing, else the causal mask alone
+    masked = 0 < window < t
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt, vt = ((x.repeat_interleave(h // kvh, dim=2) if masked else x).transpose(1, 2)
+              .contiguous().requires_grad_(True) for x in (k, v))
+    if masked:
+        pos = torch.arange(t, device=device)
+        mask = (pos[:, None] >= pos[None]) & ((pos[:, None] - pos[None] < window)
+                                             | (pos[None] < n_meta))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    else:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=kvh != h)
     gt = g.transpose(1, 2).contiguous()
     library_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
                                                      retain_graph=True), iters=20)
-    fwd_flops, _ = flash_work(b, t, t, h, kvh, d, window=window)
+    fwd_flops, _ = flash_work(b, t, t, h, kvh, d, window=window, n_meta=n_meta)
     flops = 2.5 * fwd_flops
     nbytes = (2 * (3 * b * t * h * d + 2 * b * t * kvh * d)    # q, o, dO; k, v (bf16)
               + 4 * b * h * t                                  # lse (fp32)
               + 2 * (b * t * h * d + 2 * b * t * kvh * d))     # dq; dk, dv (bf16)
     bound_ms, bound_by, t_bytes, t_ops = bound(flops, nbytes)
     print(f"[k2-bwd-timing] {name} q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"
-          f"{f' window {window}' if window else ''}: "
+          f"{f' window {window}' if window else ''}"
+          f"{f', {n_meta} meta keys' if n_meta else ''}: "
           f"kernel_ms={kernel_ms:.4f} ({flops / kernel_ms / 1e9:.2f} TFLOP/s, "
           f"{bound_ms / kernel_ms:.4f} of the bound) plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} (SDPA backward, {bound_ms / library_ms:.4f} of "
-          f"the bound) bound_ms={bound_ms:.5f} by {bound_by} ({nbytes / 1e6:.1f} MB -> "
+          f"library_ms={library_ms:.4f} (SDPA backward"
+          f"{', the mask as a boolean, kv heads expanded' if masked else ''}, "
+          f"{bound_ms / library_ms:.4f} of the bound) bound_ms={bound_ms:.5f} by {bound_by} "
+          f"({nbytes / 1e6:.1f} MB -> "
           f"{t_bytes:.5f} ms, {flops / 1e9:.2f} GFLOP -> {t_ops:.5f} ms); max abs err "
           f"{err[0]:.3e}, {err[1]:.3e} of max |grad|, max head err {heads:.3e} of the "
           f"head's norm (tol {HEAD_TOL})", flush=True)
@@ -1078,8 +1119,8 @@ def phase_k2_bwd_timing(device):
     """K2 bwd at each BWD_TIMING shape; the first's readings are the
     record's own keys, the others' come under ``<key>_*``."""
     times = {}
-    for i, (key, b, t, h, kvh, d, window) in enumerate(BWD_TIMING):
-        got = time_k2_bwd(key, b, t, h, kvh, d, window, device, seed=6 + i)
+    for i, (key, b, t, h, kvh, d, window, n_meta) in enumerate(BWD_TIMING):
+        got = time_k2_bwd(key, b, t, h, kvh, d, window, n_meta, device, seed=6 + i)
         times.update(dict(got, shape=key) if i == 0 else
                       {f"{key}_{k}": v for k, v in got.items()})
     return times
@@ -1090,9 +1131,13 @@ TRAIN_CHECK = dict(layers=2, seq=1024, batch=8, micro=8)
 # the flash-vs-plain step at Yi-6B's widths (d = 128), then at phi-3-vision's
 # (d = 96; 576 image embeddings and 448 text tokens a sequence) and
 # h2o-danube's (d = 120, GQA group 4, the window cut from 4096 to 512 so
-# that it masks at seq 1024): (arch, config replacements)
+# that it masks at seq 1024), hymba-1.5b's (d = 64, group 5, the 128 meta
+# tokens kept; layer 0 global and layer 1 windowed, its window cut from
+# 1024 to 256 so that it masks at seq 1024 + 128) and musicgen-large's
+# (d = 64, MHA, 4 codebooks): (arch, config replacements)
 TRAIN_CHECKS = [("yi-6b", {}), ("phi-3-vision-4.2b", {}),
-                ("h2o-danube-3-4b", dict(windows=(512, 512)))]
+                ("h2o-danube-3-4b", dict(windows=(512, 512))),
+                ("hymba-1.5b", dict(windows=(0, 256))), ("musicgen-large", {})]
 # flash vs plain attention, one step from the same bf16 weights, relative
 # differences: the loss (an fp32 mean over 8K tokens) and the gnorm (over
 # every parameter) read at most 2.43e-05 and 1.79e-04 over Yi-6B's,
@@ -1101,7 +1146,10 @@ TRAIN_CHECKS = [("yi-6b", {}), ("phi-3-vision-4.2b", {}),
 # wo of both layers, one microbatch) by its norm (read at most 3.43e-04)
 # and by its largest entry error over its largest entry (at most
 # 1.10e-02, phi-3's: bf16 gradients), where a head or one of dq, dk, dv
-# gone wrong would show whole
+# gone wrong would show whole.  hymba's and musicgen's widths read loss
+# 6.74e-06 and 6.01e-06, gnorm 5.98e-05 and 9.93e-06, gradients by norm at
+# most 5.07e-04 (hymba's windowed wk) and by largest entry 8.52e-03
+# (hymba's meta tokens), on the same card: the limits stand
 TRAIN_CHECK_TOL = dict(loss=1e-4, gnorm=1e-3, attn_norm=2e-3, attn_max=2e-2)
 
 
@@ -1123,8 +1171,11 @@ def _train_setup(cfg, seq, batch, use_flash, device, seed=0, mesh=None, **step_k
 
 def _attention_grads(cfg, params, batch, use_flash):
     """{path: fp32 gradient} of the first microbatch's loss for the
-    attention weights."""
-    named = [(path, x) for path, x in flatten(params) if "/attn/" in path]
+    attention weights, and for the meta tokens where the model has them
+    (hymba: what flash changes in their gradient comes back through K2
+    bwd's meta keys; the SSD's share is the same on both paths)."""
+    named = [(path, x) for path, x in flatten(params)
+             if "/attn/" in path or path == "meta"]
     for _, x in named:
         x.requires_grad_(True)
     try:
@@ -1138,8 +1189,36 @@ def _attention_grads(cfg, params, batch, use_flash):
 
 
 def matmul_params(cfg) -> int:
-    """Parameters that enter a matrix product: all but the embedding table."""
-    return cfg.n_params() - cfg.vocab * cfg.d_model
+    """Parameters that enter a matrix product: all but the embedding tables
+    (one a codebook; a tied table enters the head's product) and the meta
+    tokens."""
+    tables = 0 if cfg.tie_embeddings else cfg.n_codebooks * cfg.vocab * cfg.d_model
+    return cfg.n_params() - tables - cfg.meta_tokens * cfg.d_model
+
+
+def model_flops(cfg, seq, batch) -> float:
+    """A train step's model FLOPs at ``batch`` sequences of ``seq``
+    positions (image positions included): 6 x the matmul parameters a
+    position, 3 x the forward's attention products over each attention
+    layer's live pairs (its window and the meta keys), and 3 x the SSD's
+    chunk products (C B^T, its product with dt x, the chunk end-states and
+    C against the carried state; every [cl x cl] block whole)."""
+    t = seq + cfg.meta_tokens
+    flops = 6 * matmul_params(cfg) * seq * batch
+    for kind, window in zip(cfg.kinds, cfg.layer_windows):
+        if kind != "ssm":
+            attn, _ = flash_work(batch, t, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                 window=window, n_meta=cfg.meta_tokens)
+            flops += 3 * attn
+        if kind != "attn":
+            s = cfg.ssm
+            nh = s.expand * cfg.d_model // s.head_dim
+            cl = min(s.chunk, t)
+            nc = -(-t // cl)
+            flops += 3 * batch * 2 * nc * cl * (s.n_groups * cl * s.d_state
+                                                 + nh * cl * s.head_dim
+                                                 + 2 * nh * s.head_dim * s.d_state)
+    return flops
 
 
 def _timed_steps(tag, cfg, device, *, mesh=None, after=0, **step_kw):
@@ -1186,11 +1265,13 @@ def _timed_steps(tag, cfg, device, *, mesh=None, after=0, **step_kw):
                 launches={"fwd": fa.launches, "bwd": fa.bwd_launches})
 
 
-def train_launches(n_steps: int) -> dict:
-    """K2 and K2 bwd launches of ``n_steps`` of phase 12's step: one each a
-    layer a microbatch, and K2 once more where remat recomputes the layer."""
-    per_step = TRAIN["layers"] * TRAIN["micro"]
-    return {"fwd": 2 * per_step * n_steps, "bwd": per_step * n_steps}
+def train_launches(cfg, n_steps: int) -> dict:
+    """K2 and K2 bwd launches of ``n_steps`` train steps of ``cfg``: one
+    each an attention-bearing layer a microbatch (``cfg``'s own
+    ``train_microbatches``), and K2 once more where remat recomputes the
+    layer."""
+    per_step = attention_layers(cfg) * cfg.train_microbatches
+    return {"fwd": (2 if cfg.remat else 1) * per_step * n_steps, "bwd": per_step * n_steps}
 
 
 def _yi_train_cfg(**replace):
@@ -1204,37 +1285,55 @@ def phase_train(device, smi):
     cfg = _yi_train_cfg()
     assert (cfg.param_dtype, cfg.opt_dtype, cfg.grad_accum_dtype, cfg.remat) == \
         ("bfloat16", "float32", "float32", True), cfg
-    r = _timed_steps("train", cfg, device)
-    n_steps, launches = r["n_steps"], r["launches"]
-    want = train_launches(n_steps)
-    if launches != want:
-        raise SystemExit(f"[train] K2 launches over {n_steps} steps {launches}, "
-                         f"expected {want}")
-    losses, gnorms, peak = r["losses"], r["gnorms"], r["peak_mem_gb"] * 1e9
-    step_s = r["step_ms"] / 1e3
-    tokens = c["seq"] * c["batch"]
-    attn_fwd, _ = flash_work(1, c["seq"], c["seq"], cfg.n_heads, cfg.n_kv_heads,
-                             cfg.head_dim)
-    model_flops = 6 * matmul_params(cfg) * tokens \
-        + 3 * attn_fwd * c["layers"] * c["batch"]
-    mfu = model_flops / step_s / PEAK_FLOPS[torch.bfloat16]
-    report = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s, mfu=mfu,
-                  peak_mem_gb=peak / 1e9, losses=losses, gnorms=gnorms,
-                  launches=launches, params=cfg.n_params(), card=smi)
-    print(f"[train] yi-6b widths, {c['layers']} of 32 layers ({cfg.n_params() / 1e9:.3f} B "
-          f"params), bf16 params, fp32 moments and accumulation, {c['micro']} microbatches "
-          f"x {c['batch'] // c['micro']} x {c['seq']} tokens, remat, flash: "
-          f"step_ms={step_s * 1e3:.1f} (mean of {c['timed_steps']} after "
-          f"{c['warmup_steps']} warm-up; warm-up {r['warmup_ms']:.1f}) "
-          f"tokens_per_s={tokens / step_s:.1f} model_flop_share={mfu:.4f} "
-          f"({model_flops / 1e12:.1f} TFLOP a step: 6 x {matmul_params(cfg) / 1e9:.3f} B "
-          f"matmul params x {tokens} tokens + attention) peak_mem_gb={peak / 1e9:.3f} "
-          f"k2_launches={launches['fwd']} (= {c['layers']} layers x {c['micro']} micro x "
-          f"{n_steps} steps x 2) k2_bwd_launches={launches['bwd']} (= {c['layers']} x "
-          f"{c['micro']} x {n_steps})", flush=True)
+    report = _train_run("train", cfg, device, smi, f"yi-6b widths, {c['layers']} of 32 layers")
     for arch, replace in TRAIN_CHECKS:
         train_check(arch, replace, device)
     torch.cuda.empty_cache()
+    return report
+
+
+def _train_run(tag, cfg, device, smi, what):
+    """``_timed_steps`` on ``cfg`` at ``TRAIN``'s shape with its own
+    microbatches: K2 and K2 bwd launches equal to ``train_launches``, the
+    peak under ``MEMORY_GB``; step ms, tokens/s (positions: an image
+    position counts, a frame of codebooks counts once) and the model-FLOP
+    share printed."""
+    c = TRAIN
+    r = _timed_steps(tag, cfg, device)
+    n_steps, launches, micro = r["n_steps"], r["launches"], cfg.train_microbatches
+    want = train_launches(cfg, n_steps)
+    if launches != want:
+        raise SystemExit(f"[{tag}] {cfg.name}: K2 launches over {n_steps} steps {launches}, "
+                         f"expected {want}")
+    losses, gnorms, peak = r["losses"], r["gnorms"], r["peak_mem_gb"] * 1e9
+    if not peak < MEMORY_GB * 1e9:
+        raise SystemExit(f"[{tag}] {cfg.name}: peak memory {peak / 1e9:.3f} GB, over "
+                         f"{MEMORY_GB}")
+    step_s = r["step_ms"] / 1e3
+    tokens = c["seq"] * c["batch"]
+    flops = model_flops(cfg, c["seq"], c["batch"])
+    mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    report = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s, mfu=mfu,
+                  peak_mem_gb=peak / 1e9, losses=losses, gnorms=gnorms,
+                  launches=launches, params=cfg.n_params(), card=smi)
+    n_attn = attention_layers(cfg)
+    extra = (f", {cfg.image_tokens} of them image positions" if cfg.frontend == "vision"
+             else f", {cfg.n_codebooks} codebooks a position" if cfg.n_codebooks > 1
+             else f" after {cfg.meta_tokens} meta tokens" if cfg.meta_tokens else "")
+    print(f"[{tag}] {what} ({cfg.n_params() / 1e9:.3f} B params), bf16 params, fp32 "
+          f"moments and accumulation, {micro} microbatches x {c['batch'] // micro} x "
+          f"{c['seq']} positions{extra}, remat, flash: "
+          f"step_ms={step_s * 1e3:.1f} (mean of {c['timed_steps']} after "
+          f"{c['warmup_steps']} warm-up; warm-up {r['warmup_ms']:.1f}) "
+          f"tokens_per_s={tokens / step_s:.1f} model_flop_share={mfu:.4f} "
+          f"({flops / 1e12:.1f} TFLOP a step: 6 x {matmul_params(cfg) / 1e9:.3f} B "
+          f"matmul params x {tokens} positions + attention"
+          f"{' + SSD chunks' if cfg.ssm is not None else ''}) "
+          f"peak_mem_gb={peak / 1e9:.3f} "
+          f"k2_launches={launches['fwd']} (= {n_attn} attention layers x {micro} micro x "
+          f"{n_steps} steps x 2) k2_bwd_launches={launches['bwd']} (= {n_attn} x "
+          f"{micro} x {n_steps}); loss {losses[0]:.4f} -> {losses[-1]:.4f}, gnorm "
+          f"{gnorms[0]:.4f} -> {gnorms[-1]:.4f}", flush=True)
     return report
 
 
@@ -1242,8 +1341,9 @@ def train_check(arch, replace, device):
     """Flash against plain attention, one step from the same weights at an
     arch's published widths, cut to 2 layers and seq 1024."""
     c = TRAIN_CHECK
-    cfg = get_config(arch).replace(n_layers=c["layers"], train_microbatches=c["micro"],
-                                   **replace)
+    whole = get_config(arch)
+    cfg = whole.replace(n_layers=c["layers"], layer_kinds=whole.layer_kinds[:c["layers"]],
+                        train_microbatches=c["micro"], **replace)
     out, grads = {}, {}
     fa.bwd_launches = 0
     for use_flash in (True, False):
@@ -1255,8 +1355,9 @@ def train_check(arch, replace, device):
         out[use_flash] = {k: float(metrics[k]) for k in ("loss", "gnorm")}
         del params, opt
         pipe.stop()
-    # one microbatch's gradients, then a step of c["micro"]: K2 bwd each layer
-    want_bwd = c["layers"] * (1 + c["micro"])
+    # one microbatch's gradients, then a step of c["micro"]: K2 bwd each
+    # attention layer
+    want_bwd = attention_layers(cfg) * (1 + c["micro"])
     if fa.bwd_launches != want_bwd:
         raise SystemExit(f"[train] {arch}: {fa.bwd_launches} K2 bwd launches, expected "
                          f"{want_bwd}")
@@ -1275,8 +1376,9 @@ def train_check(arch, replace, device):
             raise SystemExit(f"[train] {arch} flash vs plain: the gradient of {path} differs")
     del grads
     print(f"[train] {arch} widths (d = {cfg.head_dim}, windows {cfg.layer_windows}, "
-          f"{cfg.image_tokens if cfg.frontend == 'vision' else 0} image positions), "
-          f"{c['layers']} layers, seq {c['seq']}, one step flash vs plain: loss "
+          f"{cfg.image_tokens if cfg.frontend == 'vision' else 0} image positions, "
+          f"{cfg.meta_tokens} meta tokens, {cfg.n_codebooks} codebooks), "
+          f"{c['layers']} {cfg.kinds[0]} layers, seq {c['seq']}, one step flash vs plain: loss "
           f"{out[True]['loss']:.5f} vs {out[False]['loss']:.5f} (rel {errs['loss']:.2e}, "
           f"tol {TRAIN_CHECK_TOL['loss']}), gnorm {out[True]['gnorm']:.5f} vs "
           f"{out[False]['gnorm']:.5f} (rel {errs['gnorm']:.2e}, tol "
@@ -1342,7 +1444,7 @@ def _print_steps(tag, what, r, full):
 def _same_launches(tag, r):
     """The measured totals equal phase 12's count (which phase 12 held
     exactly) for the run's number of steps."""
-    want = train_launches(r["n_steps"])
+    want = train_launches(_yi_train_cfg(), r["n_steps"])
     if r["launches"] != want:
         raise SystemExit(f"[{tag}] K2 launches over {r['n_steps']} steps {r['launches']}, "
                          f"the unsharded full-remat step's {want}")
@@ -2601,7 +2703,9 @@ DECODE_CASES = [("gemma3 widths", "gemma3-27b", 2, (1024, 0), 1100),
                 ("musicgen widths", "musicgen-large", 2, (0, 0), 600),
                 ("h2o-danube widths", "h2o-danube-3-4b", 2, (1024, 1024), 1100),
                 # dense MLA layers: the absorbed decode over the latent cache
-                ("deepseek-v3 widths", "deepseek-v3-671b", 2, (0, 0), 600)]
+                ("deepseek-v3 widths", "deepseek-v3-671b", 2, (0, 0), 600),
+                # MHA at d = 128, 32 kv heads
+                ("deepseek-7b widths", "deepseek-7b", 2, (0, 0), 600)]
 DECODE_TOL = 2e-3
 DECODE_STEPS = 3
 # phase 16: mixtral-8x7b at 16 of its 32 layers
@@ -2626,6 +2730,27 @@ MUSICGEN_LOCAL = dict(B=8, T=512, H=32, KV=32, d=64, window=0, meta=0)
 # MoE layers: both stages repeat, so both stacked latent caches are written
 # in place at every step)
 DEEPSEEK_SERVE = dict(batch=8, prompt=512, gen=32, layers=5)
+# phase 33: deepseek-7b served whole (MHA at d = 128, 32 kv heads: its cache
+# is 491,520 bytes a token, 8x Yi-6B's), and K2 alone at its prefill shape
+DEEPSEEK7B_SERVE = dict(batch=8, prompt=2048, gen=32)
+DEEPSEEK7B_LOCAL = dict(B=8, T=2048, H=32, KV=32, d=128, window=0, meta=0)
+# phases 34-35: whole models trained at TRAIN's shape (seq 4096, batch 8,
+# 1 warm-up and 3 timed steps), each with its own microbatches (hymba 4,
+# mamba2 2, the others 8): {record key: arch}
+TRAIN_SSM = {"hymba": "hymba-1.5b", "mamba2": "mamba2-370m"}
+TRAIN_WHOLE = {"h2o": "h2o-danube-3-4b", "phi3": "phi-3-vision-4.2b",
+               "musicgen": "musicgen-large"}
+# phase 34: the SSD's backward on the card against the host's, mamba2-370m's
+# published widths cut to 2 layers, fp32 (TF32 off), seq 1024 (4 chunks of
+# 256), 2 sequences, the same weights and tokens on both
+SSD_CHECK = dict(layers=2, seq=1024, batch=2, seed=22)
+# card vs host, relative: the loss read 8.80e-08, the worst leaf (a_log, its
+# gradient reaching the loss only through the chunk loop) 2.052e-05 by its
+# norm (||card - host|| / ||host||) and 2.553e-05 by its largest entry, the
+# others <= 4.8e-06 and 6.7e-06 (NVIDIA H100 80GB HBM3, 700.00 W); the
+# limits leave TRAIN_CHECK_TOL's 5x
+SSD_CHECK_TOL = dict(loss=5e-7, norm=1e-4, max=1.25e-4)
+SSD_FAULT_LEAF = "stages/0/u0/ssm/in_proj"
 MEMORY_GB = 80
 
 
@@ -2646,13 +2771,16 @@ def attention_desc(cfg) -> str:
             f"{m.qk_nope_dim + m.qk_rope_dim}, v head dim {m.v_head_dim})")
 
 
-def planted_faults(tag, got, want, tol, dim=-1, **more):
-    """The relative check over ``dim`` must reject ``got`` [B, T, H, d]
-    with the columns of its second 64-wide box zeroed past row 1024 (half
-    the columns at d = 64, past half the rows at T < 2048), with those rows
-    scaled by 0.9 (10 % low), and each of ``more`` (name: a faulty
-    output).  Prints each fault's error and whether check_close at
-    TOL[bf16] passes it (against the same fp32 plain output)."""
+def planted_faults(tag, got, want, tol, dim=-1, check=None, **more):
+    """The relative check over ``dim`` (or ``check(out)``, an error to hold
+    under ``tol``) must reject ``got`` [B, T, H, d] with the columns of its
+    second 64-wide box zeroed past row 1024 (half the columns at d = 64,
+    past half the rows at T < 2048), with those rows scaled by 0.9 (10 %
+    low), and each of ``more`` (name: a faulty output).  Prints each
+    fault's error and whether check_close at TOL[bf16] passes it (against
+    the same fp32 plain output)."""
+    what = "leaf" if check else "row" if dim == -1 else "head"
+    check = check or (lambda out: rel_error(out, want, dim))
     t, d = got.shape[1], got.shape[-1]
     row, col = min(1024, t // 2), 64 if d > 64 else d // 2
     zeroed, scaled = got.clone(), got.clone()
@@ -2661,12 +2789,12 @@ def planted_faults(tag, got, want, tol, dim=-1, **more):
     faults = {f"columns {col}..{d - 1} zeroed past row {row}": zeroed,
               f"rows past {row} scaled by 0.9": scaled, **more}
     for fault, out in faults.items():
-        rel = rel_error(out, want, dim)
+        rel = check(out)
         if not rel > tol:
             raise SystemExit(f"[{tag}] planted fault ({fault}) passed the check: "
                              f"{rel:.3e} of the norm")
         print(f"[{tag}] planted fault ({fault}): error {rel:.3e} of the "
-              f"{'row' if dim == -1 else 'head'}'s norm, rejected; check_close at "
+              f"{what}'s norm, rejected; check_close at "
               f"{TOL[torch.bfloat16]} would "
               f"{'pass' if excess(out, want, TOL[torch.bfloat16]) <= 0 else 'reject'} it",
               flush=True)
@@ -2865,6 +2993,110 @@ def phase_serve_whole(tag, arch, serve_c, local_c, device, seed):
     return {f"{key}_{k}": v for k, v in local.items()}, report
 
 
+def phase_serve_deepseek7b(device):
+    """deepseek-7b whole: K2 at its prefill shape, then ``serve.generate``
+    with a cache of 32 kv heads a layer; the peak under ``MEMORY_GB``."""
+    c = DEEPSEEK7B_SERVE
+    cfg = get_config("deepseek-7b")
+    cache_gb = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * c["batch"]
+                * (c["prompt"] + c["gen"]) / 1e9)
+    print(f"[serve-deepseek7b] cache {cache_gb:.3f} GB in bf16 at {c['batch']} x "
+          f"{c['prompt'] + c['gen']} positions ({cfg.n_layers} layers x {cfg.n_kv_heads} kv "
+          f"heads x {cfg.head_dim})", flush=True)
+    local, report = phase_serve_whole("serve-deepseek7b", "deepseek-7b", c,
+                                      DEEPSEEK7B_LOCAL, device, seed=23)
+    if not report["peak_mem_gb"] < MEMORY_GB:
+        raise SystemExit(f"[serve-deepseek7b] peak memory {report['peak_mem_gb']:.3f} GB, "
+                         f"over {MEMORY_GB}")
+    return local, report
+
+
+def _leaf_errors(got, want) -> tuple[float, float]:
+    """A gradient leaf's ||got - want|| / ||want|| and its largest entry
+    error over its largest entry."""
+    diff = (got - want).double()
+    return ((diff.norm() / want.double().norm()).item(),
+            (diff.abs().max() / want.double().abs().max()).item())
+
+
+def _loss_and_grads(cfg, params, tokens):
+    """train_loss (per-layer remat, the config's default) and every
+    gradient leaf, on the host."""
+    named = flatten(params)
+    xs = [x.detach().requires_grad_(True) for _, x in named]
+    loss, _ = tfm.train_loss(cfg, tree_unflatten(params, xs), {"tokens": tokens})
+    grads = torch.autograd.grad(loss, xs)
+    return float(loss.detach()), {path: g.detach().cpu() for (path, _), g in zip(named, grads)}
+
+
+def ssd_grad_check(device):
+    """The plain SSD's backward through autograd (its chunk loop under
+    remat) on the card against the same on the host: every gradient leaf
+    within ``SSD_CHECK_TOL`` by its norm and by its largest entry; a leaf
+    with a planted fault must fail."""
+    c = SSD_CHECK
+    whole = get_config("mamba2-370m")
+    cfg = whole.replace(n_layers=c["layers"], layer_kinds=whole.kinds[:c["layers"]],
+                        param_dtype="float32", compute_dtype="float32")
+    assert cfg.remat and not torch.backends.cuda.matmul.allow_tf32
+    params = init_params(cfg, torch.Generator().manual_seed(c["seed"]), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(c["seed"]).integers(
+        0, cfg.vocab, (c["batch"], c["seq"])).astype(np.int32))
+    t0 = time.perf_counter()
+    want_loss, want = _loss_and_grads(cfg, params, tokens)
+    host_s = time.perf_counter() - t0
+    on_card = tree_unflatten(params, [x.to(device) for x in leaves(params)])
+    t0 = time.perf_counter()
+    got_loss, got = _loss_and_grads(cfg, on_card, tokens.to(device))
+    card_s = time.perf_counter() - t0
+    loss_err = abs(got_loss - want_loss) / abs(want_loss)
+    worst = [0.0, 0.0]
+    for path, w in want.items():
+        norm, top = _leaf_errors(got[path], w)
+        worst = [max(worst[0], norm), max(worst[1], top)]
+        print(f"[train-ssm]   ssd d {path:<24} {tuple(w.shape)} norm {w.norm().item():.4e} "
+              f"rel err {norm:.3e} (tol {SSD_CHECK_TOL['norm']}), max abs err {top:.3e} of "
+              f"max |grad| (tol {SSD_CHECK_TOL['max']})", flush=True)
+        if not (norm <= SSD_CHECK_TOL["norm"] and top <= SSD_CHECK_TOL["max"]):
+            raise SystemExit(f"[train-ssm] the SSD's gradient of {path} on the card differs "
+                             "from the host's")
+    if not loss_err <= SSD_CHECK_TOL["loss"]:
+        raise SystemExit(f"[train-ssm] the SSD's loss on the card {got_loss} vs the host's "
+                         f"{want_loss}: relative {loss_err:.3e}")
+    # the check must see one leaf's gradient gone wrong
+    g, w = got[SSD_FAULT_LEAF], want[SSD_FAULT_LEAF]
+    view = (1, g.shape[0] * g.shape[1], 1, g.shape[2])
+    planted_faults("train-ssm", g.reshape(view), w.reshape(view), SSD_CHECK_TOL["norm"],
+                   check=lambda out: _leaf_errors(out.reshape(w.shape), w)[0],
+                   **{f"scaled by 1 + {10 * SSD_CHECK_TOL['norm']:g}":
+                      g.reshape(view) * (1 + 10 * SSD_CHECK_TOL["norm"])})
+    print(f"[train-ssm] the SSD's backward, mamba2-370m widths ({c['layers']} layers, "
+          f"d_state {cfg.ssm.d_state}, {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} "
+          f"heads, chunk {cfg.ssm.chunk}), fp32, {c['batch']} x {c['seq']} tokens, remat: "
+          f"card vs host loss {got_loss:.6f} vs {want_loss:.6f} (rel {loss_err:.3e}, tol "
+          f"{SSD_CHECK_TOL['loss']}); over {len(want)} gradient leaves max rel err "
+          f"{worst[0]:.3e} by norm (tol {SSD_CHECK_TOL['norm']}), {worst[1]:.3e} by largest "
+          f"entry (tol {SSD_CHECK_TOL['max']}); {SSD_FAULT_LEAF}'s planted faults rejected; "
+          f"host {host_s:.1f} s, card {card_s:.1f} s", flush=True)
+    del params, on_card, got, want
+    torch.cuda.empty_cache()
+    return dict(loss_err=loss_err, norm_err=worst[0], max_err=worst[1])
+
+
+def phase_train_whole(tag, archs, device, smi):
+    """Each arch of ``archs`` ({key: arch}) trained whole (``_train_run``),
+    its model freed before the next is drawn; returns {key: report}."""
+    reports = {}
+    for key, arch in archs.items():
+        cfg = get_config(arch)
+        assert (cfg.param_dtype, cfg.opt_dtype, cfg.grad_accum_dtype, cfg.remat) == \
+            ("bfloat16", "float32", "float32", True), cfg
+        reports[key] = _train_run(tag, cfg, device, smi,
+                                  f"{arch} whole, {cfg.n_layers} layers")
+        torch.cuda.empty_cache()
+    return reports
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2908,6 +3140,13 @@ def main() -> int:
     serving = phase_serving(smi)
     fleet = phase_fleet(smi)
     dryrun = phase_dryrun(device, smi, sharded)
+    deepseek7b_local, deepseek7b = phase_serve_deepseek7b(device)
+    trained = phase_train_whole("train-ssm", TRAIN_SSM, device, smi)
+    ssd_grad_check(device)
+    trained.update(phase_train_whole("train-whole", TRAIN_WHOLE, device, smi))
+    # {key}_train_launches: phases 34-35 over their 4 steps
+    whole_launches = {d: {f"{key}_train_launches": r["launches"][d]
+                          for key, r in trained.items()} for d in ("fwd", "bwd")}
     # ds_launches: phases 26 and 27 (the ds-array and mesh paths launch none)
     ds_launches = {k: ds["launches"][k] + blest["launches"][k] for k in ds["launches"]}
     # eval_launches: phases 28-30 (evaluation, closed loop, serving: none)
@@ -2922,12 +3161,15 @@ def main() -> int:
         # mixtral_launches and hymba_launches: phases 14, 16 and 17, and
         # hymba-1.5b's local-layer shape as hymba_local_*; h2o_, phi3_ and
         # musicgen_launches and _local_*: phases 19-21 (d = 120, 96, 64);
-        # deepseek_launches: phase 22 (MLA: 0); sharded_launches and
+        # deepseek_launches: phase 22 (MLA: 0); deepseek7b_launches and
+        # deepseek7b_local_*: phase 33 (MHA at d = 128); sharded_launches and
         # dots_launches: phases 23 and 25 over their 4 steps (phase 12's
         # count, train_launches, is the same); eval_launches: phases 28-30
         # (0: the evaluation, closed-loop and serving paths launch no kernel);
         # fleet_launches: phase 31 (0: the fleet runs on the host);
-        # dryrun_launches: phase 32's pricing (0: meta tensors, shape rules)
+        # dryrun_launches: phase 32's pricing (0: meta tensors, shape rules);
+        # hymba_, mamba2_, h2o_, phi3_ and musicgen_train_launches: phases
+        # 34-35, each model trained whole over 4 steps
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2938,18 +3180,21 @@ def main() -> int:
              hymba_launches=hymba["launches"], h2o_launches=h2o["launches"],
              phi3_launches=phi3["launches"], musicgen_launches=musicgen["launches"],
              deepseek_launches=deepseek["launches"],
+             deepseek7b_launches=deepseek7b["launches"],
              sharded_launches=sharded["launches"]["fwd"],
              dots_launches=dots["launches"]["fwd"], ds_launches=ds_launches["flash"],
              eval_launches=eval_launches["flash"],
              fleet_launches=fleet["launches"]["flash"],
-             dryrun_launches=dryrun["launches"]["flash"], max_abs_err=err, **times,
-             **gemma3_local, **hymba_local, **h2o_local, **phi3_local, **musicgen_local),
+             dryrun_launches=dryrun["launches"]["flash"], **whole_launches["fwd"],
+             max_abs_err=err, **times, **gemma3_local, **hymba_local, **h2o_local,
+             **phi3_local, **musicgen_local, **deepseek7b_local),
         # the times are the bf16 kernels' at train_4k (phase 11), and at
-        # phi-3-vision's and h2o-danube's train_4k shapes as phi3_train_4k_*
-        # and h2o_train_4k_*; the fp32 kernels and the C entry point that
-        # picks between them are in flash_attention_bwd.cu (phase 10).
-        # launches: the full-width train run's (phase 12); sharded_ and
-        # dots_launches: phases 23 and 25
+        # phi-3-vision's, h2o-danube's and hymba's train_4k shapes as
+        # phi3_train_4k_*, h2o_train_4k_* and hymba_train_4k_*; the fp32
+        # kernels and the C entry point that picks between them are in
+        # flash_attention_bwd.cu (phase 10).  launches: the full-width train
+        # run's (phase 12); sharded_ and dots_launches: phases 23 and 25;
+        # {model}_train_launches: phases 34-35
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_bwd_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -2959,8 +3204,8 @@ def main() -> int:
              dots_launches=dots["launches"]["bwd"], ds_launches=ds_launches["flash_bwd"],
              eval_launches=eval_launches["flash_bwd"],
              fleet_launches=fleet["launches"]["flash_bwd"],
-             dryrun_launches=dryrun["launches"]["flash_bwd"], max_abs_err=bwd_err,
-             **bwd_times),
+             dryrun_launches=dryrun["launches"]["flash_bwd"], **whole_launches["bwd"],
+             max_abs_err=bwd_err, **bwd_times),
         # the times are the bf16 kernel's; the fp32 kernel and the C entry
         # point that picks between them are in matmul_blocked.cu (phase 7)
         dict(name="matmul_blocked", route="cuda",
