@@ -3,6 +3,12 @@
 
     python3 chip_smoke.py
 
+A phase runs alone through its function, the kernels built at first use,
+for example phase 36:
+
+    python3 -c "import chip_smoke as cs; d, smi = cs.phase_probe(); \
+print(cs.phase_train_moe_mla(d, smi))"
+
 Phases, each of which raises on failure (exit code != 0):
   1. probe     card name, power limit and capability; TF32 off for fp32 checks
   2. build     nvcc builds the three libraries from csrc/, one process per
@@ -56,8 +62,10 @@ Phases, each of which raises on failure (exit code != 0):
  11. k2-bwd-timing  K2 bwd at train_4k as the train run calls it (q
                [1,4096,32,128], k/v [1,4096,4,128] bf16, causal), and at
                phi-3-vision's (d = 96, MHA), h2o-danube's (d = 120, group
-               4, window 4096) and hymba's (d = 64, group 5, 4096 tokens
-               after 128 meta keys, window 1024) train_4k shapes, beside its
+               4, window 4096), hymba's (d = 64, group 5, 4096 tokens
+               after 128 meta keys, window 1024) and gemma3-27b's local
+               (q [1,4096,32,128], k/v [1,4096,16,128], window 1024) and
+               global (no window) train_4k shapes, beside its
                plain version, SDPA's backward (under the boolean mask, kv
                heads expanded, where a window masks) and the bound on the
                real d over the live pairs; dq, dk and dv also held by the
@@ -75,7 +83,9 @@ Phases, each of which raises on failure (exit code != 0):
                h2o-danube's (d = 120, group 4, window cut to 512 so that it
                masks), hymba's (2 hybrid layers, d = 64, group 5, 128 meta
                tokens, layer 1's window cut to 256; the meta tokens'
-               gradient too) and musicgen's (d = 64, 4 codebooks), each
+               gradient too), musicgen's (d = 64, 4 codebooks) and
+               gemma3-27b's (d = 128, group 2, a local layer with its
+               window cut to 256 so that it masks, then a global one), each
                with its K2 bwd launches counted
  13. train-launcher  ``python -m repro_torch train --preset small
                --use-flash`` through its ``main``, on a mesh planned by
@@ -302,6 +312,22 @@ Phases, each of which raises on failure (exit code != 0):
                4 codebooks) whole, 8 microbatches each: the same readings
                and gates (K2 1536, 2048 and 3072 launches, K2 bwd 768, 1024
                and 1536), each model freed before the next is drawn
+ 36. train-moe-mla  the same step at seq 4096, each config's own 16
+               microbatches of one sequence (global batch 16): mixtral-8x7b
+               at 2 of its 32 layers (top-2 of 8 experts, capacity drops,
+               the Switch aux loss; K2 256, K2 bwd 128), gemma3-27b at 2 of
+               its 62 layers, a local (window 1024) and a global one (K2 256,
+               K2 bwd 128), and deepseek-v3-671b's 3 dense MLA layers and
+               its MTP module under its own Adafactor with bf16 state and
+               bf16 gradient accumulation (K2 0: MLA attends in plain
+               torch); then the MoE's backward on the card against the
+               host's (mixtral widths, 1 layer, fp32, 2 x 512 tokens,
+               capacity factor 1.25: loss, aux loss, every gradient leaf and
+               each expert's slice of the expert leaves, routed slots
+               compared, planted faults in one expert's gradient rejected)
+               and MLA's and MTP's (deepseek-v3 widths, 1 dense layer and
+               the MTP module, fp32, 2 x 512 tokens: loss, ce, mtp, every
+               gradient leaf, planted faults rejected)
 serve_model counts one K2 launch per attention-bearing layer of a GQA
 model, and none for MLA.
 The whole shapes (phases 4, 11, 14, 17, 19-21) are held against the plain
@@ -361,6 +387,7 @@ from repro_torch.kernels import matmul_blocked as mm  # noqa: E402
 from repro_torch.eval.autorun import AutoTunedRun, EnvChange, closed_loop_demo  # noqa: E402
 from repro_torch.launch import evaluate as evaluate_launch  # noqa: E402
 from repro_torch.launch import serve, serve_estimator, train, tune  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.launch import mesh as mesh_launch  # noqa: E402
 from repro_torch.runtime import compress  # noqa: E402
@@ -1043,12 +1070,16 @@ def phase_k2_bwd(device):
 # phi-3-vision's (d = 96, MHA) and h2o-danube's (d = 120, group 4, its
 # window of 4096, which at T = 4096 masks nothing) train_4k flash shapes,
 # and at hymba-1.5b's (d = 64, group 5, 4096 tokens after 128 meta tokens,
-# window 1024, as its windowed layers take it in phase 34):
+# window 1024, as its windowed layers take it in phase 34), and at
+# gemma3-27b's local (window 1024: the first d = 128 shape where the window
+# masks) and global layers (d = 128, group 2) as phase 36 trains them:
 # (key, B, T, H, KV, d, window, meta keys)
 BWD_TIMING = [("train_4k", 1, 4096, 32, 4, 128, 0, 0),
               ("phi3_train_4k", 1, 4096, 32, 32, 96, 0, 0),
               ("h2o_train_4k", 1, 4096, 32, 8, 120, 4096, 0),
-              ("hymba_train_4k", 1, 4224, 25, 5, 64, 1024, 128)]
+              ("hymba_train_4k", 1, 4224, 25, 5, 64, 1024, 128),
+              ("gemma3_local_train_4k", 1, 4096, 32, 16, 128, 1024, 0),
+              ("gemma3_global_train_4k", 1, 4096, 32, 16, 128, 0, 0)]
 
 
 def time_k2_bwd(name, b, t, h, kvh, d, window, n_meta, device, seed):
@@ -1133,11 +1164,15 @@ TRAIN_CHECK = dict(layers=2, seq=1024, batch=8, micro=8)
 # h2o-danube's (d = 120, GQA group 4, the window cut from 4096 to 512 so
 # that it masks at seq 1024), hymba-1.5b's (d = 64, group 5, the 128 meta
 # tokens kept; layer 0 global and layer 1 windowed, its window cut from
-# 1024 to 256 so that it masks at seq 1024 + 128) and musicgen-large's
-# (d = 64, MHA, 4 codebooks): (arch, config replacements)
+# 1024 to 256 so that it masks at seq 1024 + 128), musicgen-large's
+# (d = 64, MHA, 4 codebooks) and gemma3-27b's (d = 128, group 2, GeGLU,
+# scaled embeddings, a 262,144-token vocabulary; a local layer, its window
+# cut from 1024 to 256 so that it masks at seq 1024, then a global one):
+# (arch, config replacements)
 TRAIN_CHECKS = [("yi-6b", {}), ("phi-3-vision-4.2b", {}),
                 ("h2o-danube-3-4b", dict(windows=(512, 512))),
-                ("hymba-1.5b", dict(windows=(0, 256))), ("musicgen-large", {})]
+                ("hymba-1.5b", dict(windows=(0, 256))), ("musicgen-large", {}),
+                ("gemma3-27b", dict(windows=(256, 0)))]
 # flash vs plain attention, one step from the same bf16 weights, relative
 # differences: the loss (an fp32 mean over 8K tokens) and the gnorm (over
 # every parameter) read at most 2.43e-05 and 1.79e-04 over Yi-6B's,
@@ -1149,7 +1184,10 @@ TRAIN_CHECKS = [("yi-6b", {}), ("phi-3-vision-4.2b", {}),
 # gone wrong would show whole.  hymba's and musicgen's widths read loss
 # 6.74e-06 and 6.01e-06, gnorm 5.98e-05 and 9.93e-06, gradients by norm at
 # most 5.07e-04 (hymba's windowed wk) and by largest entry 8.52e-03
-# (hymba's meta tokens), on the same card: the limits stand
+# (hymba's meta tokens), on the same card: the limits stand.  gemma3's
+# widths (window 256, then a global layer) read loss 2.51e-06, gnorm
+# 1.34e-04, gradients by norm at most 4.39e-04 and by largest entry 1.88e-02
+# (the global layer's wk; the same in two calls), on the same card
 TRAIN_CHECK_TOL = dict(loss=1e-4, gnorm=1e-3, attn_norm=2e-3, attn_max=2e-2)
 
 
@@ -1188,28 +1226,64 @@ def _attention_grads(cfg, params, batch, use_flash):
     return {path: g.float() for (path, _), g in zip(named, grads)}
 
 
+def param_count(cfg) -> int:
+    """Parameters as the model draws them (``param_specs``): ``n_params``'s
+    analytic MTP term counts a GQA block where deepseek-v3's is MLA."""
+    return sum(math.prod(s.shape) for s in leaves(tfm.param_specs(cfg)))
+
+
+def mtp_params(cfg) -> int:
+    """The multi-token prediction module's parameters (``params["mtp"]``)."""
+    if not cfg.mtp_depth:
+        return 0
+    return sum(math.prod(s.shape) for s in leaves(tfm.param_specs(cfg)["mtp"]))
+
+
 def matmul_params(cfg) -> int:
-    """Parameters that enter a matrix product: all but the embedding tables
-    (one a codebook; a tied table enters the head's product) and the meta
-    tokens."""
+    """Parameters that enter a matrix product at each position: all but the
+    embedding tables (one a codebook; a tied table enters the head's
+    product), the meta tokens and the MTP module (``model_flops`` counts it
+    apart); an MoE layer's routed experts count at ``top_k / n_experts``,
+    its router and shared experts whole."""
     tables = 0 if cfg.tie_embeddings else cfg.n_codebooks * cfg.vocab * cfg.d_model
-    return cfg.n_params() - tables - cfg.meta_tokens * cfg.d_model
+    total = cfg.replace(mtp_depth=0).n_params() - tables - cfg.meta_tokens * cfg.d_model
+    if cfg.moe is not None:
+        mo = cfg.moe
+        idle = (mo.n_experts - mo.top_k) * 3 * cfg.d_model * mo.d_ff
+        total -= idle * sum(cfg.layer_moe[:cfg.n_layers])
+    return total
+
+
+def attention_flops(cfg, batch, t, window=0, n_meta=0) -> float:
+    """The forward's attention products over the live (query, key) pairs of
+    ``batch`` causal sequences of ``t`` positions: a qk-wide dot product
+    and a v-wide update a pair and head, 2 flops a multiply-add (MLA: qk
+    ``qk_nope_dim + qk_rope_dim``, v ``v_head_dim``; else both the head
+    dim, as ``flash_work`` counts)."""
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk, v = m.qk_nope_dim + m.qk_rope_dim, m.v_head_dim
+    else:
+        qk = v = cfg.head_dim
+    live = fa.live_pairs(t, t, window=window, n_meta=n_meta, causal=True)
+    return 2 * batch * cfg.n_heads * live * (qk + v)
 
 
 def model_flops(cfg, seq, batch) -> float:
     """A train step's model FLOPs at ``batch`` sequences of ``seq``
     positions (image positions included): 6 x the matmul parameters a
-    position, 3 x the forward's attention products over each attention
-    layer's live pairs (its window and the meta keys), and 3 x the SSD's
-    chunk products (C B^T, its product with dt x, the chunk end-states and
-    C against the carried state; every [cl x cl] block whole)."""
+    position (an MoE layer's active experts only), 3 x the forward's
+    attention products over each attention layer's live pairs (its window
+    and the meta keys), 3 x the SSD's chunk products (C B^T, its product
+    with dt x, the chunk end-states and C against the carried state; every
+    [cl x cl] block whole) and, with MTP, 6 x its module's parameters and
+    the head's a position over ``seq - 1`` positions and 3 x its block's
+    attention."""
     t = seq + cfg.meta_tokens
     flops = 6 * matmul_params(cfg) * seq * batch
     for kind, window in zip(cfg.kinds, cfg.layer_windows):
         if kind != "ssm":
-            attn, _ = flash_work(batch, t, t, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                                 window=window, n_meta=cfg.meta_tokens)
-            flops += 3 * attn
+            flops += 3 * attention_flops(cfg, batch, t, window, cfg.meta_tokens)
         if kind != "attn":
             s = cfg.ssm
             nh = s.expand * cfg.d_model // s.head_dim
@@ -1218,12 +1292,18 @@ def model_flops(cfg, seq, batch) -> float:
             flops += 3 * batch * 2 * nc * cl * (s.n_groups * cl * s.d_state
                                                  + nh * cl * s.head_dim
                                                  + 2 * nh * s.head_dim * s.d_state)
+    if cfg.mtp_depth:
+        head = cfg.vocab * cfg.d_model
+        flops += 6 * (mtp_params(cfg) + head) * (seq - 1) * batch
+        flops += 3 * attention_flops(cfg, batch, seq - 1)
     return flops
 
 
-def _timed_steps(tag, cfg, device, *, mesh=None, after=0, **step_kw):
-    """Phase 12's step (``TRAIN``'s shape, flash, seed 0) from fresh weights,
-    with ``mesh`` the sharded one and ``step_kw`` for ``make_train_step``:
+def _timed_steps(tag, cfg, device, *, batch=TRAIN["batch"], mesh=None, after=0,
+                 **step_kw):
+    """Phase 12's step (``TRAIN``'s seq, flash, seed 0) from fresh weights at
+    a global ``batch``, with ``mesh`` the sharded one and ``step_kw`` for
+    ``make_train_step``:
     1 warm-up and 3 timed steps, then ``after`` untimed ones (for checks
     that would slow a timed step), peak memory from before the weights are
     drawn, K2 and K2 bwd launches over the run's ``n_steps`` steps (the
@@ -1232,7 +1312,7 @@ def _timed_steps(tag, cfg, device, *, mesh=None, after=0, **step_kw):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    step_fn, params, opt, pipe = _train_setup(cfg, c["seq"], c["batch"], True, device,
+    step_fn, params, opt, pipe = _train_setup(cfg, c["seq"], batch, True, device,
                                               mesh=mesh, **step_kw)
     state_bytes = torch.cuda.memory_allocated() - base    # weights, moments, batches
     n_steps = c["warmup_steps"] + c["timed_steps"] + after
@@ -1258,7 +1338,7 @@ def _timed_steps(tag, cfg, device, *, mesh=None, after=0, **step_kw):
     step_s = sum(seconds[c["warmup_steps"]:][:c["timed_steps"]]) / c["timed_steps"]
     peak = torch.cuda.max_memory_allocated()
     return dict(step_ms=step_s * 1e3, warmup_ms=seconds[0] * 1e3,
-                tokens_per_s=c["seq"] * c["batch"] / step_s,
+                tokens_per_s=c["seq"] * batch / step_s,
                 peak_mem_gb=peak / 1e9, losses=losses,
                 gnorms=gnorms, n_steps=n_steps, state_bytes=state_bytes,
                 peak_over_base_bytes=peak - base,
@@ -1292,14 +1372,22 @@ def phase_train(device, smi):
     return report
 
 
-def _train_run(tag, cfg, device, smi, what):
-    """``_timed_steps`` on ``cfg`` at ``TRAIN``'s shape with its own
-    microbatches: K2 and K2 bwd launches equal to ``train_launches``, the
-    peak under ``MEMORY_GB``; step ms, tokens/s (positions: an image
-    position counts, a frame of codebooks counts once) and the model-FLOP
-    share printed."""
+def _optimizer_desc(cfg) -> str:
+    """The optimizer, its state's and the accumulator's dtypes, as printed."""
+    short = {"bfloat16": "bf16", "float32": "fp32"}
+    state = "moments" if cfg.optimizer == "adamw" else "state"
+    return (f"{cfg.optimizer} with {short[cfg.opt_dtype]} {state}, "
+            f"{short[cfg.grad_accum_dtype]} accumulation")
+
+
+def _train_run(tag, cfg, device, smi, what, batch=TRAIN["batch"]):
+    """``_timed_steps`` on ``cfg`` at ``TRAIN``'s seq and a global ``batch``
+    with its own microbatches: K2 and K2 bwd launches equal to
+    ``train_launches``, the peak under ``MEMORY_GB``; step ms, tokens/s
+    (positions: an image position counts, a frame of codebooks counts once)
+    and the model-FLOP share printed."""
     c = TRAIN
-    r = _timed_steps(tag, cfg, device)
+    r = _timed_steps(tag, cfg, device, batch=batch)
     n_steps, launches, micro = r["n_steps"], r["launches"], cfg.train_microbatches
     want = train_launches(cfg, n_steps)
     if launches != want:
@@ -1310,27 +1398,32 @@ def _train_run(tag, cfg, device, smi, what):
         raise SystemExit(f"[{tag}] {cfg.name}: peak memory {peak / 1e9:.3f} GB, over "
                          f"{MEMORY_GB}")
     step_s = r["step_ms"] / 1e3
-    tokens = c["seq"] * c["batch"]
-    flops = model_flops(cfg, c["seq"], c["batch"])
+    tokens = c["seq"] * batch
+    flops = model_flops(cfg, c["seq"], batch)
     mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    n_params = param_count(cfg)
     report = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s, mfu=mfu,
                   peak_mem_gb=peak / 1e9, losses=losses, gnorms=gnorms,
-                  launches=launches, params=cfg.n_params(), card=smi)
+                  launches=launches, params=n_params, card=smi)
     n_attn = attention_layers(cfg)
     extra = (f", {cfg.image_tokens} of them image positions" if cfg.frontend == "vision"
              else f", {cfg.n_codebooks} codebooks a position" if cfg.n_codebooks > 1
              else f" after {cfg.meta_tokens} meta tokens" if cfg.meta_tokens else "")
-    print(f"[{tag}] {what} ({cfg.n_params() / 1e9:.3f} B params), bf16 params, fp32 "
-          f"moments and accumulation, {micro} microbatches x {c['batch'] // micro} x "
+    active = (f" ({cfg.moe.top_k} of {cfg.moe.n_experts} experts active)"
+              if cfg.moe is not None and any(cfg.layer_moe[:cfg.n_layers]) else "")
+    print(f"[{tag}] {what} ({n_params / 1e9:.3f} B params), bf16 params, "
+          f"{_optimizer_desc(cfg)}, {micro} microbatches x {batch // micro} x "
           f"{c['seq']} positions{extra}, remat, flash: "
           f"step_ms={step_s * 1e3:.1f} (mean of {c['timed_steps']} after "
           f"{c['warmup_steps']} warm-up; warm-up {r['warmup_ms']:.1f}) "
           f"tokens_per_s={tokens / step_s:.1f} model_flop_share={mfu:.4f} "
           f"({flops / 1e12:.1f} TFLOP a step: 6 x {matmul_params(cfg) / 1e9:.3f} B "
-          f"matmul params x {tokens} positions + attention"
-          f"{' + SSD chunks' if cfg.ssm is not None else ''}) "
+          f"matmul params{active} x {tokens} positions + attention"
+          f"{' (MLA)' if cfg.mla is not None else ''}"
+          f"{' + SSD chunks' if cfg.ssm is not None else ''}"
+          f"{' + the MTP module and its head pass' if cfg.mtp_depth else ''}) "
           f"peak_mem_gb={peak / 1e9:.3f} "
-          f"k2_launches={launches['fwd']} (= {n_attn} attention layers x {micro} micro x "
+          f"k2_launches={launches['fwd']} (= {n_attn} GQA attention layers x {micro} micro x "
           f"{n_steps} steps x 2) k2_bwd_launches={launches['bwd']} (= {n_attn} x "
           f"{micro} x {n_steps}); loss {losses[0]:.4f} -> {losses[-1]:.4f}, gnorm "
           f"{gnorms[0]:.4f} -> {gnorms[-1]:.4f}", flush=True)
@@ -2751,6 +2844,36 @@ SSD_CHECK = dict(layers=2, seq=1024, batch=2, seed=22)
 # limits leave TRAIN_CHECK_TOL's 5x
 SSD_CHECK_TOL = dict(loss=5e-7, norm=1e-4, max=1.25e-4)
 SSD_FAULT_LEAF = "stages/0/u0/ssm/in_proj"
+# phase 36: three configs trained at TRAIN's seq with their own 16
+# microbatches of one sequence (a global batch of 16), each cut in depth to
+# fit 80 GB: mixtral-8x7b at 2 of 32 layers (~747 GB whole at ~16 B a
+# parameter), gemma3-27b at a local and a global layer (as phase 15 cuts
+# it), deepseek-v3-671b at its 3 dense MLA layers and the MTP module:
+# {record key: (arch, layers, config replacements)}
+TRAIN_MOE_MLA = {"mixtral": ("mixtral-8x7b", 2, {}),
+                 "gemma3": ("gemma3-27b", 2, dict(windows=(1024, 0))),
+                 "deepseek_v3": ("deepseek-v3-671b", 3, {})}
+TRAIN_MOE_MLA_BATCH = 16
+# phase 36: the MoE's backward on the card against the host's, mixtral-8x7b's
+# widths cut to 1 layer, fp32 (TF32 off), 2 x 512 tokens at the config's
+# capacity factor 1.25 (320 slots an expert for 2048 picks: drops happen)
+MOE_CHECK = dict(layers=1, seq=512, batch=2, seed=24)
+# card vs host, relative, over two weight draws: the loss, ce and aux loss
+# read at most 1.116e-07, the worst leaf (the router) 6.666e-06 by its norm
+# and 7.696e-06 by its largest entry, every expert slice less, 0 routed
+# slots apart (NVIDIA H100 80GB HBM3, 700.00 W); the limits leave >= 4.5x
+MOE_CHECK_TOL = dict(loss=5e-7, norm=3e-5, max=3.5e-5)
+MOE_FAULT_LEAF, MOE_FAULT_EXPERT = "stages/0/u0/ffn/w_in", 3
+# phase 36: MLA's and MTP's backward on the card against the host's,
+# deepseek-v3-671b's widths cut to its first (dense) layer and the MTP
+# module, fp32 (TF32 off), 2 x 512 tokens
+MLA_CHECK = dict(layers=1, seq=512, batch=2, seed=25)
+# card vs host, relative, over two weight draws: the loss, ce and mtp read
+# at most 7.771e-08, the worst leaf (the MTP block's q_norm) 5.358e-06 by
+# its norm and 7.246e-06 by its largest entry (NVIDIA H100 80GB HBM3,
+# 700.00 W); the limits leave >= 5.5x
+MLA_CHECK_TOL = dict(loss=5e-7, norm=3e-5, max=4e-5)
+MLA_FAULT_LEAF = "mtp/block/attn/wkv_b"
 MEMORY_GB = 80
 
 
@@ -2965,9 +3088,9 @@ def phase_serve_deepseek(device):
     c = DEEPSEEK_SERVE
     whole = get_config("deepseek-v3-671b")
     cfg = whole.replace(n_layers=c["layers"])
-    moe = sum(cfg.layer_moe[:c["layers"]])
+    n_moe = sum(cfg.layer_moe[:c["layers"]])
     print(f"[serve-deepseek] depth cut: {c['layers']} of {whole.n_layers} layers "
-          f"({c['layers'] - moe} dense, {moe} MoE), {cfg.n_params() * 2 / 1e9:.1f} of "
+          f"({c['layers'] - n_moe} dense, {n_moe} MoE), {cfg.n_params() * 2 / 1e9:.1f} of "
           f"{whole.n_params() * 2 / 1e9:.1f} GB in bf16", flush=True)
     report = serve_model("serve-deepseek", cfg, c["batch"], c["prompt"], c["gen"], device,
                          seed=21)
@@ -3020,13 +3143,93 @@ def _leaf_errors(got, want) -> tuple[float, float]:
 
 
 def _loss_and_grads(cfg, params, tokens):
-    """train_loss (per-layer remat, the config's default) and every
-    gradient leaf, on the host."""
+    """train_loss (per-layer remat, the config's default): its metrics as
+    floats and every gradient leaf, on the tokens' device."""
     named = flatten(params)
     xs = [x.detach().requires_grad_(True) for _, x in named]
-    loss, _ = tfm.train_loss(cfg, tree_unflatten(params, xs), {"tokens": tokens})
+    loss, metrics = tfm.train_loss(cfg, tree_unflatten(params, xs), {"tokens": tokens})
     grads = torch.autograd.grad(loss, xs)
-    return float(loss.detach()), {path: g.detach().cpu() for (path, _), g in zip(named, grads)}
+    return ({k: float(torch.as_tensor(v).detach()) for k, v in metrics.items()},
+            {path: g.detach() for (path, _), g in zip(named, grads)})
+
+
+def _card_vs_host(cfg, c, device, record=lambda run: (run(), None), draw=None) -> dict:
+    """``_loss_and_grads`` from the same fp32 weights (drawn from
+    ``c["seed"]`` on ``draw``, the card (``device``, by default) or the
+    host, and copied to the other) and tokens (``c["batch"]`` x ``c["seq"]``) on the host, then on
+    the card, the host's weights freed before the card's run (the host
+    keeps its gradients only), each side run through ``record`` (which
+    returns the run's result and what it recorded): {"got_m", "want_m"
+    (card and host metrics), "got" (card gradients), "want" (host
+    gradients, on the host), "got_x", "want_x" (what ``record`` kept),
+    "host_s", "card_s"}."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    draw = device if draw is None else draw
+    drawn = init_params(cfg, torch.Generator(device=draw).manual_seed(c["seed"]), draw)
+    on_card = tree_unflatten(drawn, [x.to(device) for x in leaves(drawn)])
+    params = tree_unflatten(drawn, [x.cpu() for x in leaves(drawn)])
+    del drawn
+    tokens = torch.from_numpy(np.random.default_rng(c["seed"]).integers(
+        0, cfg.vocab, (c["batch"], c["seq"])).astype(np.int32))
+    t0 = time.perf_counter()
+    (want_m, want), want_x = record(lambda: _loss_and_grads(cfg, params, tokens))
+    host_s = time.perf_counter() - t0
+    del params
+    t0 = time.perf_counter()
+    (got_m, got), got_x = record(lambda: _loss_and_grads(cfg, on_card, tokens.to(device)))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    del on_card
+    return dict(got_m=got_m, want_m=want_m, got=got, want=want, got_x=got_x, want_x=want_x,
+                host_s=host_s, card_s=card_s)
+
+
+def _hold_leaves(tag, name, got, want, tol, split=lambda path: False):
+    """Every host gradient leaf of ``want`` against the card's ``got`` within
+    ``tol["norm"]`` by its norm and ``tol["max"]`` by its largest entry
+    (``_leaf_errors``, on the card), one line a leaf; where ``split(path)``
+    holds, each slice along the leaf's dim 1 (a stacked expert leaf's
+    experts) as a leaf of its own too.  Returns the worst (norm, largest
+    entry) errors."""
+    worst = [0.0, 0.0]
+    for path, host in want.items():
+        g = got[path]
+        w = host.to(g.device)
+        parts = [(path, g, w)]
+        if split(path):
+            parts += [(f"{path}[:, {e}]", g[:, e], w[:, e]) for e in range(w.shape[1])]
+        for where, x, y in parts:
+            norm, top = _leaf_errors(x, y)
+            worst = [max(worst[0], norm), max(worst[1], top)]
+            print(f"[{tag}]   {name} d {where:<32} {tuple(y.shape)} norm "
+                  f"{y.norm().item():.4e} rel err {norm:.3e} (tol {tol['norm']}), max abs err "
+                  f"{top:.3e} of max |grad| (tol {tol['max']})", flush=True)
+            if not (norm <= tol["norm"] and top <= tol["max"]):
+                raise SystemExit(f"[{tag}] {name}: the gradient of {where} on the card differs "
+                                 "from the host's")
+    return worst
+
+
+def _hold_metrics(tag, name, got, want, keys, tol) -> dict:
+    """The loss and its parts (``keys``), card against host, relative, each
+    within ``tol``."""
+    errs = {k: abs(got[k] - want[k]) / abs(want[k]) for k in keys}
+    for k in keys:
+        if not errs[k] <= tol:
+            raise SystemExit(f"[{tag}] {name}: {k} on the card {got[k]} vs the host's "
+                             f"{want[k]}: relative {errs[k]:.3e} over {tol}")
+    return errs
+
+
+def _reject(tag, what, check, tol, faults):
+    """Each of ``faults`` ({name: a faulty gradient}) must fail ``check`` (an
+    error to hold under ``tol``)."""
+    for fault, out in faults.items():
+        err = check(out)
+        if not err > tol:
+            raise SystemExit(f"[{tag}] planted fault ({fault}) passed the check: {err:.3e}")
+        print(f"[{tag}] planted fault ({fault}): error {err:.3e} of {what}, rejected "
+              f"(tol {tol})", flush=True)
 
 
 def ssd_grad_check(device):
@@ -3038,33 +3241,15 @@ def ssd_grad_check(device):
     whole = get_config("mamba2-370m")
     cfg = whole.replace(n_layers=c["layers"], layer_kinds=whole.kinds[:c["layers"]],
                         param_dtype="float32", compute_dtype="float32")
-    assert cfg.remat and not torch.backends.cuda.matmul.allow_tf32
-    params = init_params(cfg, torch.Generator().manual_seed(c["seed"]), "cpu")
-    tokens = torch.from_numpy(np.random.default_rng(c["seed"]).integers(
-        0, cfg.vocab, (c["batch"], c["seq"])).astype(np.int32))
-    t0 = time.perf_counter()
-    want_loss, want = _loss_and_grads(cfg, params, tokens)
-    host_s = time.perf_counter() - t0
-    on_card = tree_unflatten(params, [x.to(device) for x in leaves(params)])
-    t0 = time.perf_counter()
-    got_loss, got = _loss_and_grads(cfg, on_card, tokens.to(device))
-    card_s = time.perf_counter() - t0
-    loss_err = abs(got_loss - want_loss) / abs(want_loss)
-    worst = [0.0, 0.0]
-    for path, w in want.items():
-        norm, top = _leaf_errors(got[path], w)
-        worst = [max(worst[0], norm), max(worst[1], top)]
-        print(f"[train-ssm]   ssd d {path:<24} {tuple(w.shape)} norm {w.norm().item():.4e} "
-              f"rel err {norm:.3e} (tol {SSD_CHECK_TOL['norm']}), max abs err {top:.3e} of "
-              f"max |grad| (tol {SSD_CHECK_TOL['max']})", flush=True)
-        if not (norm <= SSD_CHECK_TOL["norm"] and top <= SSD_CHECK_TOL["max"]):
-            raise SystemExit(f"[train-ssm] the SSD's gradient of {path} on the card differs "
-                             "from the host's")
-    if not loss_err <= SSD_CHECK_TOL["loss"]:
-        raise SystemExit(f"[train-ssm] the SSD's loss on the card {got_loss} vs the host's "
-                         f"{want_loss}: relative {loss_err:.3e}")
+    assert cfg.remat
+    r = _card_vs_host(cfg, c, device, draw="cpu")
+    got_m, want_m, got, want = r["got_m"], r["want_m"], r["got"], r["want"]
+    worst = _hold_leaves("train-ssm", "ssd", got, want, SSD_CHECK_TOL)
+    loss_err = _hold_metrics("train-ssm", "the SSD", got_m, want_m, ("loss",),
+                             SSD_CHECK_TOL["loss"])["loss"]
     # the check must see one leaf's gradient gone wrong
-    g, w = got[SSD_FAULT_LEAF], want[SSD_FAULT_LEAF]
+    g = got[SSD_FAULT_LEAF]
+    w = want[SSD_FAULT_LEAF].to(device)
     view = (1, g.shape[0] * g.shape[1], 1, g.shape[2])
     planted_faults("train-ssm", g.reshape(view), w.reshape(view), SSD_CHECK_TOL["norm"],
                    check=lambda out: _leaf_errors(out.reshape(w.shape), w)[0],
@@ -3073,12 +3258,13 @@ def ssd_grad_check(device):
     print(f"[train-ssm] the SSD's backward, mamba2-370m widths ({c['layers']} layers, "
           f"d_state {cfg.ssm.d_state}, {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} "
           f"heads, chunk {cfg.ssm.chunk}), fp32, {c['batch']} x {c['seq']} tokens, remat: "
-          f"card vs host loss {got_loss:.6f} vs {want_loss:.6f} (rel {loss_err:.3e}, tol "
-          f"{SSD_CHECK_TOL['loss']}); over {len(want)} gradient leaves max rel err "
-          f"{worst[0]:.3e} by norm (tol {SSD_CHECK_TOL['norm']}), {worst[1]:.3e} by largest "
-          f"entry (tol {SSD_CHECK_TOL['max']}); {SSD_FAULT_LEAF}'s planted faults rejected; "
-          f"host {host_s:.1f} s, card {card_s:.1f} s", flush=True)
-    del params, on_card, got, want
+          f"card vs host loss {got_m['loss']:.6f} vs {want_m['loss']:.6f} (rel "
+          f"{loss_err:.3e}, tol {SSD_CHECK_TOL['loss']}); over {len(want)} gradient leaves "
+          f"max rel err {worst[0]:.3e} by norm (tol {SSD_CHECK_TOL['norm']}), "
+          f"{worst[1]:.3e} by largest entry (tol {SSD_CHECK_TOL['max']}); "
+          f"{SSD_FAULT_LEAF}'s planted faults rejected; host {r['host_s']:.1f} s, card "
+          f"{r['card_s']:.1f} s", flush=True)
+    del got, want, g, w
     torch.cuda.empty_cache()
     return dict(loss_err=loss_err, norm_err=worst[0], max_err=worst[1])
 
@@ -3095,6 +3281,183 @@ def phase_train_whole(tag, archs, device, smi):
                                   f"{arch} whole, {cfg.n_layers} layers")
         torch.cuda.empty_cache()
     return reports
+
+
+def depth_cut(arch, layers, **replace):
+    """(the published config, its first ``layers`` layers with their kinds,
+    windows and MoE flags), ``replace`` applied to the cut."""
+    whole = get_config(arch)
+    cut = dict(n_layers=layers, layer_kinds=whole.layer_kinds[:layers],
+               windows=whole.windows[:layers], moe_layers=whole.moe_layers[:layers])
+    return whole, whole.replace(**{**cut, **replace})
+
+
+def _routed_slots(run):
+    """``run()`` with ``moe._topk`` recording its picks: (its result, the
+    (expert, token) slots that the first MoE dispatch's per-expert top-C
+    pick kept, an affinity over 0).  Remat runs the layer again in the
+    backward; the first forward's picks are the ones kept."""
+    picks, topk = [], moe._topk
+
+    def recording(k):
+        pick = topk(k)
+
+        def run_pick(x):
+            out = pick(x)
+            picks.append(out)
+            return out
+        return run_pick
+    moe._topk = recording
+    try:
+        result = run()
+    finally:
+        moe._topk = topk
+    gval, gidx = (x.cpu() for x in picks[1])      # the tokens' top-k, then the experts'
+    kept = gval > 0
+    experts = torch.arange(gidx.shape[0])[:, None].expand_as(gidx)
+    return result, set(zip(experts[kept].tolist(), gidx[kept].tolist()))
+
+
+def moe_grad_check(device):
+    """The MoE's backward (softmax top-2 routing, the per-expert top-C picks
+    at capacity factor 1.25, the ``index_add`` combine, the Switch aux
+    loss) on the card against the host: mixtral-8x7b's widths at
+    ``MOE_CHECK``'s cut, fp32.  Loss, ce and aux loss within
+    ``MOE_CHECK_TOL["loss"]``; every gradient leaf, and each expert's slice
+    of the expert leaves, by its norm and largest entry; the routed slots
+    that differ printed; planted faults in one expert's gradient rejected."""
+    c, tag = MOE_CHECK, "train-moe-mla"
+    _, cfg = depth_cut("mixtral-8x7b", c["layers"], param_dtype="float32",
+                       compute_dtype="float32")
+    assert cfg.remat and cfg.moe.capacity_factor == 1.25
+    r = _card_vs_host(cfg, c, device, record=_routed_slots)
+    got, want = r["got"], r["want"]
+    n_slots = len(r["want_x"])
+    differ = len(r["got_x"] ^ r["want_x"])
+    errs = _hold_metrics(tag, "the MoE", r["got_m"], r["want_m"], ("loss", "ce", "aux"),
+                         MOE_CHECK_TOL["loss"])
+    experts = ("w_in", "w_gate", "w_out")
+    worst = _hold_leaves(tag, "moe", got, want, MOE_CHECK_TOL,
+                         split=lambda path: path.rsplit("/", 1)[-1] in experts)
+    # one expert's gradient gone wrong must show: the check holds each
+    # expert's slice by its norm
+    e, leaf = MOE_FAULT_EXPERT, MOE_FAULT_LEAF
+    g, w = got[leaf], want[leaf].to(device)
+    zeroed, scaled, bumped = g.clone(), g.clone(), g.clone()
+    rows = w.shape[2] // 2
+    zeroed[:, e] = 0
+    scaled[:, e, rows:] *= 0.9
+    bumped[:, e] *= 1.001
+    _reject(tag, f"{leaf}'s worst expert's norm",
+            lambda out: max(_leaf_errors(out[:, i], w[:, i])[0] for i in range(w.shape[1])),
+            MOE_CHECK_TOL["norm"],
+            {f"expert {e} zeroed": zeroed, f"expert {e}'s rows past {rows} scaled by 0.9":
+             scaled, f"expert {e} scaled by 1.001": bumped})
+    n_tokens = c["batch"] * c["seq"]
+    print(f"[{tag}] the MoE's backward, mixtral-8x7b widths ({c['layers']} layer, "
+          f"{cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, d_ff {cfg.moe.d_ff}), fp32, "
+          f"{c['batch']} x {c['seq']} tokens, capacity factor {cfg.moe.capacity_factor} "
+          f"({moe.capacity(n_tokens, cfg.moe)} slots an expert; {n_slots} of "
+          f"{n_tokens * cfg.moe.top_k} routed picks kept), remat: card vs host loss "
+          f"{r['got_m']['loss']:.6f} vs {r['want_m']['loss']:.6f} (rel {errs['loss']:.3e}), "
+          f"ce rel {errs['ce']:.3e}, aux {r['got_m']['aux']:.6f} vs {r['want_m']['aux']:.6f} "
+          f"(rel {errs['aux']:.3e}; tol {MOE_CHECK_TOL['loss']}); routed slots that differ: "
+          f"{differ}; over {len(want)} gradient leaves and each expert's slice max rel err "
+          f"{worst[0]:.3e} by norm (tol {MOE_CHECK_TOL['norm']}), {worst[1]:.3e} by largest "
+          f"entry (tol {MOE_CHECK_TOL['max']}); {leaf}'s planted faults rejected; host "
+          f"{r['host_s']:.1f} s, card {r['card_s']:.1f} s", flush=True)
+    del got, want, r, g, w, zeroed, scaled, bumped
+    torch.cuda.empty_cache()
+    return dict(loss_err=max(errs.values()), norm_err=worst[0], max_err=worst[1],
+                slots_differ=differ)
+
+
+def mla_mtp_grad_check(device):
+    """MLA's backward (its plain attention over 128 heads, the latent
+    projections) and MTP's (its block and second pass through the head) on
+    the card against the host: deepseek-v3-671b's widths at
+    ``MLA_CHECK``'s cut (dense layers and the MTP module), fp32.  The loss
+    and its ce and mtp parts within ``MLA_CHECK_TOL["loss"]``; every
+    gradient leaf by its norm and largest entry; planted faults in one of
+    the MTP block's leaves rejected."""
+    c, tag = MLA_CHECK, "train-moe-mla"
+    _, cfg = depth_cut("deepseek-v3-671b", c["layers"], param_dtype="float32",
+                       compute_dtype="float32")
+    assert cfg.remat and cfg.mtp_depth == 1 and not any(cfg.layer_moe)
+    r = _card_vs_host(cfg, c, device)
+    got, want = r["got"], r["want"]
+    errs = _hold_metrics(tag, "MLA and MTP", r["got_m"], r["want_m"], ("loss", "ce", "mtp"),
+                         MLA_CHECK_TOL["loss"])
+    worst = _hold_leaves(tag, "mla", got, want, MLA_CHECK_TOL)
+    leaf = MLA_FAULT_LEAF
+    g, w = got[leaf], want[leaf].to(device)
+    zeroed, scaled = g.clone(), g.clone()
+    rows = w.shape[0] // 2
+    zeroed[:, 0] = 0                                  # [rank, heads, nope + v]
+    scaled[rows:] *= 0.9
+    _reject(tag, f"{leaf}'s norm", lambda out: _leaf_errors(out, w)[0], MLA_CHECK_TOL["norm"],
+            {"head 0 zeroed": zeroed, f"rows past {rows} scaled by 0.9": scaled,
+             "scaled by 1.001": g * 1.001})
+    m = cfg.mla
+    print(f"[{tag}] MLA's and MTP's backward, deepseek-v3-671b widths ({c['layers']} dense "
+          f"layer + the MTP module; {cfg.n_heads} heads, qk {m.qk_nope_dim + m.qk_rope_dim}, "
+          f"v {m.v_head_dim}, kv rank {m.kv_lora_rank}), fp32, {c['batch']} x {c['seq']} "
+          f"tokens, remat: card vs host loss {r['got_m']['loss']:.6f} vs "
+          f"{r['want_m']['loss']:.6f} (rel {errs['loss']:.3e}), ce rel {errs['ce']:.3e}, "
+          f"mtp {r['got_m']['mtp']:.6f} vs {r['want_m']['mtp']:.6f} (rel {errs['mtp']:.3e}; "
+          f"tol {MLA_CHECK_TOL['loss']}); over {len(want)} gradient leaves max rel err "
+          f"{worst[0]:.3e} by norm (tol {MLA_CHECK_TOL['norm']}), {worst[1]:.3e} by largest "
+          f"entry (tol {MLA_CHECK_TOL['max']}); {leaf}'s planted faults rejected; host "
+          f"{r['host_s']:.1f} s, card {r['card_s']:.1f} s", flush=True)
+    del got, want, r, g, w, zeroed, scaled
+    torch.cuda.empty_cache()
+    return dict(loss_err=max(errs.values()), norm_err=worst[0], max_err=worst[1])
+
+
+def _moe_layer_gb(whole) -> tuple[float, float, float]:
+    """(parameters of the published config's first MoE layer in billions,
+    GB that its bf16 parameters, bf16 accumulator and one microbatch's bf16
+    gradient take, GB of one fp32 temporary over one of its routed expert
+    leaves)."""
+    first = whole.layer_moe.index(True)
+    before, after = (param_count(depth_cut(whole.name, n, mtp_depth=0)[1])
+                     for n in (first, first + 1))
+    mo = whole.moe
+    return ((after - before) / 1e9, 6 * (after - before) / 1e9,
+            4 * mo.n_experts * whole.d_model * mo.d_ff / 1e9)
+
+
+def phase_train_moe_mla(device, smi):
+    """``TRAIN_MOE_MLA``'s runs (``_train_run`` at a global batch of
+    ``TRAIN_MOE_MLA_BATCH``, each config's own 16 microbatches), each
+    asserting its own optimizer and dtypes and freed before the next is
+    drawn; then ``moe_grad_check`` and ``mla_mtp_grad_check``.  Returns
+    ({key: report}, {check: errors})."""
+    tag, reports = "train-moe-mla", {}
+    for key, (arch, layers, replace) in TRAIN_MOE_MLA.items():
+        whole, cfg = depth_cut(arch, layers, **replace)
+        assert cfg.train_microbatches == TRAIN_MOE_MLA_BATCH, cfg
+        want = (("bfloat16", "bfloat16", "bfloat16", True) if cfg.optimizer == "adafactor"
+                else ("bfloat16", "float32", "float32", True))
+        assert (cfg.param_dtype, cfg.opt_dtype, cfg.grad_accum_dtype, cfg.remat) == want, cfg
+        n_moe = sum(cfg.layer_moe)
+        kinds = (f"{n_moe} MoE" if n_moe == layers else f"{layers - n_moe} dense"
+                 if cfg.moe is not None else "dense")
+        what = (f"{arch}, {layers} of {whole.n_layers} layers ({kinds}; windows "
+                f"{cfg.layer_windows}; {attention_desc(cfg)}"
+                f"{', the MTP module' if cfg.mtp_depth else ''})")
+        if cfg.mla is not None and not n_moe:
+            params, gb, temp = _moe_layer_gb(whole)
+            print(f"[{tag}] {arch}: no MoE layer in the cut: one holds {params:.2f} B "
+                  f"parameters, {gb:.1f} GB as bf16 parameters, bf16 accumulator and one "
+                  f"microbatch's bf16 gradient before anything else, and Adafactor's fp32 "
+                  f"temporaries over each of its [{whole.moe.n_experts}, {whole.d_model}, "
+                  f"{whole.moe.d_ff}] expert leaves take {temp:.1f} GB each: its "
+                  f"{whole.moe.n_experts}-expert backward waits for a memory plan", flush=True)
+        reports[key] = _train_run(tag, cfg, device, smi, what, batch=TRAIN_MOE_MLA_BATCH)
+        torch.cuda.empty_cache()
+    checks = {"moe": moe_grad_check(device), "mla_mtp": mla_mtp_grad_check(device)}
+    return reports, checks
 
 
 def main() -> int:
@@ -3144,7 +3507,9 @@ def main() -> int:
     trained = phase_train_whole("train-ssm", TRAIN_SSM, device, smi)
     ssd_grad_check(device)
     trained.update(phase_train_whole("train-whole", TRAIN_WHOLE, device, smi))
-    # {key}_train_launches: phases 34-35 over their 4 steps
+    cut, _ = phase_train_moe_mla(device, smi)
+    trained.update(cut)
+    # {key}_train_launches: phases 34-36 over their 4 steps
     whole_launches = {d: {f"{key}_train_launches": r["launches"][d]
                           for key, r in trained.items()} for d in ("fwd", "bwd")}
     # ds_launches: phases 26 and 27 (the ds-array and mesh paths launch none)
@@ -3169,7 +3534,8 @@ def main() -> int:
         # fleet_launches: phase 31 (0: the fleet runs on the host);
         # dryrun_launches: phase 32's pricing (0: meta tensors, shape rules);
         # hymba_, mamba2_, h2o_, phi3_ and musicgen_train_launches: phases
-        # 34-35, each model trained whole over 4 steps
+        # 34-35, each model trained whole over 4 steps; mixtral_, gemma3_ and
+        # deepseek_v3_train_launches: phase 36, each depth cut over 4 steps
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3190,11 +3556,13 @@ def main() -> int:
              **phi3_local, **musicgen_local, **deepseek7b_local),
         # the times are the bf16 kernels' at train_4k (phase 11), and at
         # phi-3-vision's, h2o-danube's and hymba's train_4k shapes as
-        # phi3_train_4k_*, h2o_train_4k_* and hymba_train_4k_*; the fp32
+        # phi3_train_4k_*, h2o_train_4k_* and hymba_train_4k_*, and at
+        # gemma3-27b's local and global layers' as gemma3_local_train_4k_*
+        # and gemma3_global_train_4k_*; the fp32
         # kernels and the C entry point that picks between them are in
         # flash_attention_bwd.cu (phase 10).  launches: the full-width train
         # run's (phase 12); sharded_ and dots_launches: phases 23 and 25;
-        # {model}_train_launches: phases 34-35
+        # {model}_train_launches: phases 34-36
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_bwd_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec, map_specs
-from repro_torch.runtime.shardctx import placed_like
+from repro_torch.runtime.shardctx import is_dtensor, placed_like
 from repro_torch.runtime.tree import leaves, tree_map
 
 
@@ -93,28 +93,52 @@ def adamw_state_specs(pspecs, opt_dtype: str):
             "count": ParamSpec((), (), "int32", init="zeros")}
 
 
+# AdamW walks each leaf in slices along its first axis of at most this many
+# entries, so that each fp32 temporary of its update is at most 512 MB
+# (gemma3-27b's 262,144 x 5376 embedding made 5.6 GB ones whole)
+ADAMW_SLICE = 1 << 27
+
+
+def _first_axis_slices(*xs):
+    """Views of ``xs`` (tensors of one shape) in slices along their first
+    axis of at most ``ADAMW_SLICE`` entries each, at least one row; the
+    tensors whole where they are small or DTensors (whose first axis a mesh
+    may split)."""
+    x = xs[0]
+    if x.numel() <= ADAMW_SLICE or any(map(is_dtensor, xs)):
+        yield xs
+        return
+    rows = max(1, ADAMW_SLICE // (x.numel() // x.shape[0]))
+    for i in range(0, x.shape[0], rows):
+        yield tuple(t[i:i + rows] for t in xs)
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads, state, params, lr):
     """One AdamW step with global-norm clipping.  Updates ``params``,
-    ``state`` and ``grads`` in place; returns (params, state, gnorm)."""
+    ``state`` and ``grads`` in place, each leaf slice by slice
+    (``_first_axis_slices``: the update is elementwise, so the slices give
+    the whole leaf's update bit for bit); returns (params, state, gnorm)."""
     gnorm = _clip_(grads, cfg.clip)
     state["count"].add_(1)
     c = state["count"].float()
     bc1 = 1 - cfg.b1 ** c
     bc2 = 1 - cfg.b2 ** c
-    for g, mu, nu, p in zip(leaves(grads), leaves(state["mu"]),
-                            leaves(state["nu"]), leaves(params)):
-        g32 = g.float()
-        mu2 = mu.float().mul_(cfg.b1).add_((1 - cfg.b1) * g32)
-        nu2 = nu.float().mul_(cfg.b2).add_((1 - cfg.b2) * g32.square())
-        step = (mu2 / bc1).div_(torch.sqrt(nu2 / bc2).add_(cfg.eps))
-        if p.ndim >= 2:                                 # decoupled weight decay
-            step.add_(cfg.weight_decay * p.float())
-        step.mul_(lr)
-        _store(p, p.float().sub_(step) if p.dtype == torch.float32
-               else p.float() - step)
-        _store(mu, mu2)
-        _store(nu, nu2)
+    for leaf in zip(leaves(grads), leaves(state["mu"]), leaves(state["nu"]),
+                    leaves(params)):
+        decay = leaf[3].ndim >= 2                       # decoupled weight decay
+        for g, mu, nu, p in _first_axis_slices(*leaf):
+            g32 = g.float()
+            mu2 = mu.float().mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+            nu2 = nu.float().mul_(cfg.b2).add_((1 - cfg.b2) * g32.square())
+            step = (mu2 / bc1).div_(torch.sqrt(nu2 / bc2).add_(cfg.eps))
+            if decay:
+                step.add_(cfg.weight_decay * p.float())
+            step.mul_(lr)
+            _store(p, p.float().sub_(step) if p.dtype == torch.float32
+                   else p.float() - step)
+            _store(mu, mu2)
+            _store(nu, nu2)
     return params, state, gnorm
 
 

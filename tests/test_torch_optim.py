@@ -1,7 +1,8 @@
 """The port's optimizers against the JAX package's (``repro.runtime.optim``)
 on the same numpy trees: the schedule, global-norm clipping, and one and
-three AdamW and Adafactor updates.  fp32 throughout; tolerance 1e-6
-relative (1 ulp of the fp32 steps, plus sum order in the norms)."""
+three AdamW and Adafactor updates (Adafactor also with its slots in
+bf16).  fp32 arithmetic throughout; tolerance 1e-6 relative (1 ulp of the
+fp32 steps, plus sum order in the norms)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,8 +69,9 @@ def test_clip_by_global_norm_matches_jax(max_norm):
     _close(_jax(grads), tgrads, rtol=0)          # the input is left as it was
 
 
-def _run(name, n_steps):
-    """``n_steps`` updates of both packages from the same params and grads."""
+def _run(name, n_steps, opt_dtype="float32"):
+    """``n_steps`` updates of both packages from the same params and grads,
+    the state in ``opt_dtype``."""
     rng = np.random.default_rng(1)
     params = _tree(rng)
     shapes = SHAPES
@@ -85,8 +87,8 @@ def _run(name, n_steps):
 
     jcfg = {"adamw": jopt.AdamWConfig(), "adafactor": jopt.AdafactorConfig()}[name]
     tcfg = {"adamw": topt.AdamWConfig(), "adafactor": topt.AdafactorConfig()}[name]
-    jspecs = getattr(jopt, f"{name}_state_specs")(spec_tree("j"), "float32")
-    tspecs = getattr(topt, f"{name}_state_specs")(spec_tree("t"), "float32")
+    jspecs = getattr(jopt, f"{name}_state_specs")(spec_tree("j"), opt_dtype)
+    tspecs = getattr(topt, f"{name}_state_specs")(spec_tree("t"), opt_dtype)
     jstate = jinit(jspecs, jax.random.PRNGKey(0))
     tstate = init_param_tree(tspecs, torch.Generator(), torch.device("cpu"))
     jp, tp = _jax(params), _torch(params)
@@ -118,6 +120,63 @@ def test_adafactor_matches_jax(n_steps):
     _close(jp, tp)
     _close(js["slots"], ts["slots"])
     assert int(ts["count"]) == int(js["count"]) == n_steps
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_adafactor_with_bf16_state_matches_jax(n_steps):
+    """Adafactor with its slots in bf16 (deepseek-v3-671b's ``opt_dtype``):
+    each update reads the slots up to fp32 and stores them back rounded,
+    in both packages; the slots stay bf16 and agree bit for bit, the fp32
+    parameters within the fp32 tolerance."""
+    jp, js, tp, ts = _run("adafactor", n_steps, opt_dtype="bfloat16")
+    _close(jp, tp)
+    jflat = jax.tree_util.tree_flatten_with_path(js["slots"])[0]
+    tflat = flatten(ts["slots"])
+    assert len(jflat) == len(tflat)
+    for (_, a), (path, b) in zip(jflat, tflat):
+        assert b.dtype == torch.bfloat16, path
+        np.testing.assert_array_equal(b.view(torch.int16).numpy(),
+                                      np.asarray(a).view(np.int16), err_msg=path)
+    assert int(ts["count"]) == int(js["count"]) == n_steps
+
+
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 40, 24), (500, 16)], ids=["stacked", "embedding"])
+def test_adamw_in_slices_is_the_whole_leaf_update_bit_for_bit(monkeypatch, shape,
+                                                               param_dtype):
+    """AdamW walks each leaf in slices along its first axis: with
+    ``ADAMW_SLICE`` at 1000 entries a stacked [3, 40, 24] leaf goes a layer
+    at a time and an embedding-shaped [500, 16] one 62 rows at a time (9
+    slices), and three updates (fp32 moments, ``param_dtype`` parameters,
+    the gradient clipped) leave the parameters, both moments and the
+    clipped gradients bit-identical to the whole-leaf update's; a 1-D leaf
+    and a small one go whole."""
+    rng = np.random.default_rng(4)
+    shapes = {"w": shape, "norm": (shape[-1],), "small": (4, 5)}
+    rng_params = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    steps = [{k: (rng.normal(size=s) * (i + 1)).astype(np.float32) for k, s in shapes.items()}
+             for i in range(3)]
+
+    def run(slice_entries):
+        monkeypatch.setattr(topt, "ADAMW_SLICE", slice_entries)
+        params = {k: torch.tensor(rng_params[k]).to(param_dtype) for k in shapes}
+        specs = {k: ParamSpec(s, (None,) * len(s), "float32") for k, s in shapes.items()}
+        state = init_param_tree(topt.adamw_state_specs(specs, "float32"), torch.Generator(),
+                                torch.device("cpu"))
+        for i, grads in enumerate(steps):
+            grads = {k: torch.tensor(v) for k, v in grads.items()}
+            params, state, _ = topt.adamw_update(
+                topt.AdamWConfig(), grads, state, params,
+                topt.cosine_schedule(i + 5, peak_lr=1e-2, warmup=4, total=20))
+        return params, state, grads
+
+    assert len(list(topt._first_axis_slices(torch.empty(shape)))) == 1
+    monkeypatch.setattr(topt, "ADAMW_SLICE", 1000)
+    assert len(list(topt._first_axis_slices(torch.empty(shape)))) == \
+        {(3, 40, 24): 3, (500, 16): 9}[shape]
+    whole, sliced = run(1 << 27), run(1000)
+    for (path, a), (_, b) in zip(flatten(whole), flatten(sliced)):
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)), path
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])

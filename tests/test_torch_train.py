@@ -12,10 +12,13 @@ dim 32, the smallest that the port's flash-attention kernel takes (it
 refuses 16, which d_model 64 would give).  Mixtral's loss carries the MoE
 load-balance term, whose gradient has to survive per-layer remat.  The
 three steps also run hymba-1.5b's, mamba2-370m's, h2o-danube-3-4b's,
-phi-3-vision-4.2b's (image embeddings) and musicgen-large's (four
-codebooks) reduced configs at the same scale, and one flash step of three
+phi-3-vision-4.2b's (image embeddings), musicgen-large's (four
+codebooks) and gemma3-27b's (a local and a global layer) reduced configs
+at the same scale, and deepseek-v3-671b's at 3 layers (MLA, an MoE layer,
+MTP) under its own Adafactor with fp32 or bf16 accumulation and state; the
+bf16 accumulation is held bit for bit on its own; one flash step of five
 of them counts K2's and K2 bwd's calls against ``chip_smoke.py``'s launch
-formula."""
+formula, and ``chip_smoke.model_flops`` is held to a hand count."""
 import contextlib
 import importlib.util
 import os
@@ -51,9 +54,9 @@ HP = dict(peak_lr=1e-3, warmup=2, total_steps=6)
 ARCHS = ("yi-6b", "mixtral-8x7b")
 
 
-def _configs(arch="yi-6b", **replace):
-    return (jscale_config(jreduced_config(arch), **SCALE).replace(**replace),
-            scale_config(reduced_config(arch), **SCALE).replace(**replace))
+def _configs(arch="yi-6b", scale=SCALE, **replace):
+    return (jscale_config(jreduced_config(arch), **scale).replace(**replace),
+            scale_config(reduced_config(arch), **scale).replace(**replace))
 
 
 def _np(tree):
@@ -483,9 +486,13 @@ def test_remat_recompute_on_another_thread_keeps_the_mesh_scope():
 
 
 # the step on every family: GQA, MoE, hybrid (meta tokens, a window), SSM,
-# a window alone, the image prefix and the four codebooks
+# a window alone, the image prefix, the four codebooks, and gemma3's GeGLU,
+# scaled embeddings and two rope thetas over a local and a global layer
 STEP_ARCHS = ARCHS + ("hymba-1.5b", "mamba2-370m", "h2o-danube-3-4b", "phi-3-vision-4.2b",
-                      "musicgen-large")
+                      "musicgen-large", "gemma3-27b")
+# the reduced config cycles its local layers into both of SCALE's 2 layers
+# and sets one rope theta: give it back a global layer and its own theta
+STEP_REPLACE = {"gemma3-27b": dict(windows=(32, 0), rope_theta=1e6)}
 
 
 def _step_batch(cfg, rng, m=2, b=2, t=64):
@@ -505,7 +512,14 @@ def _step_batch(cfg, rng, m=2, b=2, t=64):
 def three_steps(request):
     """Three steps of the JAX package's jitted no-mesh step and of the
     port's, from the same weights, on the same batches, two microbatches."""
-    jcfg, tcfg = _configs(request.param, train_microbatches=2)
+    jcfg, tcfg = _configs(request.param, train_microbatches=2,
+                          **STEP_REPLACE.get(request.param, {}))
+    return request.param, _three_steps(jcfg, tcfg)
+
+
+def _three_steps(jcfg, tcfg):
+    """[(JAX params, JAX state, JAX metrics, port metrics, (port params, port
+    state))] after each of three steps from the same weights and batches."""
     jstep = jax.jit(jsteps.make_train_step(jcfg, jsteps.TrainHParams(**HP)))
     tstep = tsteps.make_train_step(tcfg, tsteps.TrainHParams(**HP))
     jp = init_param_tree(jtf.param_specs(jcfg), jax.random.PRNGKey(1))
@@ -523,13 +537,14 @@ def three_steps(request):
         out.append((_np(jp), _np(jo), {k: float(v) for k, v in jm.items()},
                     {k: float(v) for k, v in tm.items()},
                     jax.tree.map(lambda x: x.clone(), (tp, to))))
-    return request.param, out
+    return out
 
 
 @pytest.mark.parametrize("step", [0, 1, 2])
 def test_train_steps_match_jax(three_steps, step):
-    """loss, gnorm and lr within 1e-6; every moment leaf, and for Yi-6B and
-    mixtral every parameter leaf, within 2e-5 of the leaf's largest entry.
+    """loss, gnorm and lr within 1e-6; every moment leaf, and for Yi-6B,
+    mixtral and gemma3 (moments 1.14e-6, parameters 5.33e-6 at most) every
+    parameter leaf, within 2e-5 of the leaf's largest entry.
     The gradients agree to ~1e-6 (sum order); AdamW's early updates are ~lr
     * sign(g), so an entry whose gradient is near eps can move by a
     different fraction of lr (measured: 6.1e-6 at a norm scale, 1.2e-6 in
@@ -545,11 +560,87 @@ def test_train_steps_match_jax(three_steps, step):
     for key in ("loss", "gnorm", "lr"):
         np.testing.assert_allclose(tm[key], jm[key], rtol=1e-6, err_msg=key)
     assert tm["step"] == jm["step"] == step + 1
-    if arch in ARCHS:
+    if arch in ARCHS + ("gemma3-27b",):
         _assert_tree_close(jp, tp, 2e-5)
     _assert_tree_close(jo["mu"], to["mu"], 2e-5)
     _assert_tree_close(jo["nu"], to["nu"], 2e-5)
     assert int(to["count"]) == int(jo["count"]) == step + 1
+
+
+# deepseek-v3-671b's reduced config at SCALE's widths with its MoE layer (two
+# dense MLA layers, then a sigmoid-routed MoE layer with a shared expert;
+# MTP) under its own Adafactor: {case: (grad_accum_dtype, opt_dtype, slot
+# tolerance, parameter tolerance)}, each relative to the leaf's largest entry
+ADAFACTOR_CASES = {"fp32 accumulation": ("float32", "float32", 2e-5, 2e-5),
+                   "bf16 accumulation": ("bfloat16", "float32", 4e-3, 4e-3),
+                   "bf16 accumulation and slots": ("bfloat16", "bfloat16", 8e-3, 4e-3)}
+
+
+@pytest.fixture(scope="module", params=list(ADAFACTOR_CASES))
+def adafactor_steps(request):
+    """``_three_steps`` of deepseek-v3-671b at 3 layers, two microbatches, in
+    one of ``ADAFACTOR_CASES``' dtypes."""
+    accum, state = ADAFACTOR_CASES[request.param][:2]
+    jcfg, tcfg = _configs("deepseek-v3-671b", dict(SCALE, n_layers=3), train_microbatches=2,
+                          grad_accum_dtype=accum, opt_dtype=state)
+    assert tcfg.optimizer == "adafactor" and tcfg.mla is not None and tcfg.mtp_depth == 1
+    assert tcfg.layer_moe == (False, False, True) and tcfg.layer_windows == (0, 0, 0)
+    return request.param, _three_steps(jcfg, tcfg)
+
+
+@pytest.mark.parametrize("step", [0, 1, 2])
+def test_adafactor_steps_match_jax(adafactor_steps, step):
+    """loss and gnorm within 1e-5, lr within 1e-6; every Adafactor slot and
+    every parameter leaf within the case's tolerance of the leaf's largest
+    entry.  With fp32 accumulation slots read up to 2.70e-6 and parameters
+    8.36e-6 (sum order), so 2e-5.  The config's bf16 accumulator rounds
+    each microbatch's sum to bf16 in both packages, and an fp32 gradient
+    ~1e-6 apart can round to the neighbouring bf16 value: slots read
+    1.06e-3 and parameters 1.79e-3, held to one bf16 ulp (2^-8 ~ 3.9e-3).
+    bf16 slots round once more on the way out: slots 4.37e-3, held to two
+    ulps, parameters 2.51e-3.  Loss and gnorm read at most 1.6e-7 and
+    1.4e-6."""
+    case, steps = adafactor_steps
+    _, _, slot_tol, param_tol = ADAFACTOR_CASES[case]
+    jp, jo, jm, tm, (tp, to) = steps[step]
+    for key in ("loss", "gnorm"):
+        np.testing.assert_allclose(tm[key], jm[key], rtol=1e-5, err_msg=key)
+    np.testing.assert_allclose(tm["lr"], jm["lr"], rtol=1e-6)
+    assert tm["step"] == jm["step"] == step + 1
+    _assert_tree_close(jp, tp, param_tol)
+    _assert_tree_close(jo["slots"], to["slots"], slot_tol)
+    assert int(to["count"]) == int(jo["count"]) == step + 1
+
+
+@pytest.mark.parametrize("n_micro", [2, 16])
+def test_bf16_accumulation_is_the_jax_packages_bit_for_bit(n_micro):
+    """``steps._accumulate`` in bf16 over ``n_micro`` microbatches' fp32
+    gradients, then the mean's division, as the port's ``make_train_step``
+    runs them, against the JAX package's accumulation (its scan body ``a +
+    b.astype(acc_dt)`` from bf16 zeros, then ``g / n_micro``, jitted) on
+    the same gradients, spread over four decades: every bf16 accumulator
+    entry is bit-identical."""
+    rng = np.random.default_rng(n_micro)
+    shapes = [(64, 48), (3, 40, 24), (129,)]
+    grads = [[(rng.normal(size=s) * 10.0 ** rng.uniform(-3, 1, size=s)).astype(np.float32)
+              for s in shapes] for _ in range(n_micro)]
+
+    def jaccumulate(zeros, stacked):
+        def body(gacc, g):
+            return jax.tree.map(lambda a, b: a + b.astype(jnp.bfloat16), gacc, g), ()
+        acc, _ = jax.lax.scan(body, zeros, stacked)
+        return jax.tree.map(lambda g: g / n_micro, acc)
+    want = jax.jit(jaccumulate)([jnp.zeros(s, jnp.bfloat16) for s in shapes],
+                                [jnp.stack([g[i] for g in grads]) for i in range(len(shapes))])
+    acc = None
+    for g in grads:
+        acc = tsteps._accumulate(acc, [torch.from_numpy(x) for x in g], torch.bfloat16)
+    for a in acc:
+        a.div_(n_micro)
+    for a, w in zip(acc, want):
+        assert a.dtype == torch.bfloat16
+        np.testing.assert_array_equal(a.view(torch.int16).numpy(),
+                                      np.asarray(w).view(np.int16))
 
 
 def _chip_smoke():
@@ -559,7 +650,8 @@ def _chip_smoke():
     return module
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "musicgen-large", "phi-3-vision-4.2b"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "musicgen-large", "phi-3-vision-4.2b",
+                                  "gemma3-27b", "mixtral-8x7b"])
 def test_a_flash_step_calls_k2_as_chip_smoke_counts_its_launches(monkeypatch, arch):
     """One flash train step of the reduced config (2 microbatches, per-layer
     remat) calls K2 (``ops.flash_attention``) ``attention_layers x micro x
@@ -579,7 +671,7 @@ def test_a_flash_step_calls_k2_as_chip_smoke_counts_its_launches(monkeypatch, ar
     monkeypatch.setattr(ops, "flash_attention", counted("fwd", ops.flash_attention))
     monkeypatch.setattr(fa, "flash_attention_bwd_plain",
                         counted("bwd", fa.flash_attention_bwd_plain))
-    _, cfg = _configs(arch, train_microbatches=2)
+    _, cfg = _configs(arch, train_microbatches=2, **STEP_REPLACE.get(arch, {}))
     assert cfg.remat and cs.attention_layers(cfg) == cfg.n_layers == 2
     step = tsteps.make_train_step(cfg, tsteps.TrainHParams(**HP), use_flash=True)
     pspecs = ttf.param_specs(cfg)
@@ -587,6 +679,47 @@ def test_a_flash_step_calls_k2_as_chip_smoke_counts_its_launches(monkeypatch, ar
     batch = _step_batch(cfg, np.random.default_rng(0))
     step(params, opt, {k: torch.from_numpy(v) for k, v in batch.items()}, 0)
     assert counts == cs.train_launches(cfg, 1) == {"fwd": 2 * 2 * 2, "bwd": 2 * 2}
+
+
+def test_model_flops_counts_active_experts_mla_and_mtp():
+    """``chip_smoke.model_flops`` of the reduced mixtral-8x7b and
+    deepseek-v3-671b configs (d_model 128, 4 heads, vocab 512) at 2 x 64
+    positions, against a hand count: 6 x the matmul parameters a position
+    (an MoE layer's routed experts at top_k / n_experts, its router and
+    shared expert whole; norm scales ride along as ``n_params`` counts
+    them: ln1, ln2 and the final norm, not MLA's two latent norms), 3 x the
+    forward's attention over the live pairs (2 flops a multiply-add, a
+    qk-wide dot product and a v-wide update a pair and head), and for MTP
+    6 x its module's parameters and the head's over the 63 positions it
+    predicts from, plus 3 x its block's attention."""
+    cs = _chip_smoke()
+    b, t, d, h, vocab = 2, 64, 128, 4, 512
+    head = vocab * d
+    # mixtral: 2 layers, GQA (2 kv heads, head dim 32), window 32, top-2 of
+    # 4 experts (d_ff 64)
+    cfg = reduced_config("mixtral-8x7b")
+    assert (cfg.n_layers, cfg.layer_windows, cfg.moe.n_experts, cfg.moe.top_k) == \
+        (2, (32, 32), 4, 2)
+    gqa = d * h * 32 + 2 * d * 2 * 32 + h * 32 * d
+    layer = gqa + d * 4 + 2 * 3 * d * 64 + 2 * d
+    live = sum(min(i + 1, 32) for i in range(t))
+    want = 6 * (2 * layer + d + head) * t * b + 2 * 3 * 2 * b * h * live * (32 + 32)
+    assert cs.model_flops(cfg, t, b) == want == 212_140_032
+    # deepseek-v3: 2 dense MLA layers (d_ff 256) and an MoE one (top-2 of 4,
+    # d_ff 64, one shared expert); MLA q rank 64, kv rank 32, qk 16 + 16, v 32
+    cfg = reduced_config("deepseek-v3-671b")
+    assert (cfg.n_layers, cfg.layer_moe, cfg.mtp_depth) == (3, (False, False, True), 1)
+    mla = d * 64 + 64 * h * 32 + d * (32 + 16) + 32 * h * (16 + 32) + h * 32 * d
+    dense = mla + 3 * d * 256 + 2 * d
+    routed = mla + d * 4 + 2 * 3 * d * 64 + 3 * d * 64 + 2 * d
+    mtp = 2 * d * d + 3 * d + (mla + 64 + 32) + 3 * d * 256 + 2 * d
+    causal = t * (t + 1) // 2
+    want = (6 * (2 * dense + routed + d + head) * t * b
+            + 3 * 3 * 2 * b * h * causal * (32 + 32)
+            + 6 * (mtp + head) * (t - 1) * b
+            + 3 * 2 * b * h * ((t - 1) * t // 2) * (32 + 32))
+    assert cs.mtp_params(cfg) == mtp
+    assert cs.model_flops(cfg, t, b) == want == 571_456_896
 
 
 # ------------------------------------------------------------- the launcher
