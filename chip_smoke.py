@@ -86,7 +86,9 @@ Phases, each of which raises on failure (exit code != 0):
                gradient too), musicgen's (d = 64, 4 codebooks) and
                gemma3-27b's (d = 128, group 2, a local layer with its
                window cut to 256 so that it masks, then a global one), each
-               with its K2 bwd launches counted
+               with its K2 bwd launches counted; at gemma3's widths both
+               sides' attention gradients are also read against a plain
+               step in fp32 on the same weights (upcast) and batch, by leaf
  13. train-launcher  ``python -m repro_torch train --preset small
                --use-flash`` through its ``main``, on a mesh planned by
                ``plan_mesh`` for one NCCL rank (1x1; a one-rank mesh places
@@ -317,17 +319,23 @@ Phases, each of which raises on failure (exit code != 0):
                at 2 of its 32 layers (top-2 of 8 experts, capacity drops,
                the Switch aux loss; K2 256, K2 bwd 128), gemma3-27b at 2 of
                its 62 layers, a local (window 1024) and a global one (K2 256,
-               K2 bwd 128), and deepseek-v3-671b's 3 dense MLA layers and
-               its MTP module under its own Adafactor with bf16 state and
-               bf16 gradient accumulation (K2 0: MLA attends in plain
-               torch); then the MoE's backward on the card against the
-               host's (mixtral widths, 1 layer, fp32, 2 x 512 tokens,
-               capacity factor 1.25: loss, aux loss, every gradient leaf and
-               each expert's slice of the expert leaves, routed slots
-               compared, planted faults in one expert's gradient rejected)
-               and MLA's and MTP's (deepseek-v3 widths, 1 dense layer and
-               the MTP module, fp32, 2 x 512 tokens: loss, ce, mtp, every
-               gradient leaf, planted faults rejected)
+               K2 bwd 128), and deepseek-v3-671b's first MoE layer (MLA,
+               sigmoid top-8 of 256 experts and a shared one; 14.05 B
+               parameters with the embeddings, the head and the MTP module,
+               whose block is a dense MLA layer) under its own Adafactor
+               with bf16 state and bf16 gradient accumulation, its memory
+               reckoning printed first (K2 0: MLA attends in plain torch);
+               then the MoE's backward on the card against the host's at
+               mixtral's routing (1 layer, fp32, 2 x 512 tokens, capacity
+               factor 1.25) and at deepseek-v3's (sigmoid, 256 experts, top-8,
+               a shared expert, the expert d_ff cut from 2048 to 256, the
+               same tokens: 40 slots an expert): loss, aux loss, every
+               gradient leaf and each expert's slice of the expert leaves,
+               routed slots compared (deepseek-v3's: 0 apart), planted faults
+               in one expert's gradient rejected; and MLA's and MTP's
+               (deepseek-v3 widths, 1 dense layer and the MTP module, fp32,
+               2 x 512 tokens: loss, ce, mtp, every gradient leaf, planted
+               faults rejected)
 serve_model counts one K2 launch per attention-bearing layer of a GQA
 model, and none for MLA.
 The whole shapes (phases 4, 11, 14, 17, 19-21) are held against the plain
@@ -387,10 +395,10 @@ from repro_torch.kernels import matmul_blocked as mm  # noqa: E402
 from repro_torch.eval.autorun import AutoTunedRun, EnvChange, closed_loop_demo  # noqa: E402
 from repro_torch.launch import evaluate as evaluate_launch  # noqa: E402
 from repro_torch.launch import serve, serve_estimator, train, tune  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import attention, moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.launch import mesh as mesh_launch  # noqa: E402
-from repro_torch.runtime import compress  # noqa: E402
+from repro_torch.runtime import compress, optim  # noqa: E402
 from repro_torch.runtime.elastic import make_plan_mesh, plan_mesh  # noqa: E402
 from repro_torch.runtime.fault import FaultPlan, WorkerLoss  # noqa: E402
 from repro_torch.runtime.pipeline import DataPipeline, PipelineConfig  # noqa: E402
@@ -1189,6 +1197,10 @@ TRAIN_CHECKS = [("yi-6b", {}), ("phi-3-vision-4.2b", {}),
 # 1.34e-04, gradients by norm at most 4.39e-04 and by largest entry 1.88e-02
 # (the global layer's wk; the same in two calls), on the same card
 TRAIN_CHECK_TOL = dict(loss=1e-4, gnorm=1e-3, attn_norm=2e-3, attn_max=2e-2)
+# the arch whose flash and plain bf16 attention gradients are also each read
+# against a plain fp32 step's on the same weights (upcast) and batch, to
+# learn which side carries its largest-entry error
+TRAIN_CHECK_FP32 = "gemma3-27b"
 
 
 def _train_setup(cfg, seq, batch, use_flash, device, seed=0, mesh=None, **step_kw):
@@ -1444,6 +1456,10 @@ def train_check(arch, replace, device):
                                                   device, seed=7)
         batch = next(pipe)
         grads[use_flash] = _attention_grads(cfg, params, batch, use_flash)
+        if not use_flash and arch == TRAIN_CHECK_FP32:
+            grads["fp32"] = _attention_grads(
+                cfg.replace(param_dtype="float32", compute_dtype="float32"),
+                tree_unflatten(params, [x.float() for x in leaves(params)]), batch, False)
         params, opt, metrics, _ = train.run_step(step_fn, params, opt, batch, 2, device)
         out[use_flash] = {k: float(metrics[k]) for k in ("loss", "gnorm")}
         del params, opt
@@ -1467,6 +1483,8 @@ def train_check(arch, replace, device):
               f"max |grad| (tol {TRAIN_CHECK_TOL['attn_max']})", flush=True)
         if not (norm <= TRAIN_CHECK_TOL["attn_norm"] and top <= TRAIN_CHECK_TOL["attn_max"]):
             raise SystemExit(f"[train] {arch} flash vs plain: the gradient of {path} differs")
+    if "fp32" in grads:
+        _sides_against_fp32(arch, grads)
     del grads
     print(f"[train] {arch} widths (d = {cfg.head_dim}, windows {cfg.layer_windows}, "
           f"{cfg.image_tokens if cfg.frontend == 'vision' else 0} image positions, "
@@ -1477,6 +1495,32 @@ def train_check(arch, replace, device):
           f"{out[False]['gnorm']:.5f} (rel {errs['gnorm']:.2e}, tol "
           f"{TRAIN_CHECK_TOL['gnorm']}); K2 bwd launches {want_bwd}", flush=True)
     torch.cuda.empty_cache()
+
+
+def _sides_against_fp32(arch, grads):
+    """Each attention leaf's flash and plain bf16 gradients (``grads[True]``,
+    ``grads[False]``) against the plain fp32 step's (``grads["fp32"]``),
+    by norm and by largest entry as ``train_check`` reads them; then which
+    side carries the error on the leaf where flash and plain differ most."""
+    def errs(got, want):
+        return ((got - want).norm().item() / want.norm().item(),
+                (got - want).abs().max().item() / want.abs().max().item())
+    worst, apart = None, -1.0
+    for path, ref in grads["fp32"].items():
+        flash, plain = errs(grads[True][path], ref), errs(grads[False][path], ref)
+        top = ((grads[True][path] - grads[False][path]).abs().max()
+               / grads[False][path].abs().max()).item()
+        if top > apart:
+            worst, apart = (path, flash, plain), top
+        print(f"[train]   {arch} d {path:<20} against fp32: flash rel err {flash[0]:.2e}, "
+              f"max abs err {flash[1]:.2e} of max |grad|; plain bf16 {plain[0]:.2e}, "
+              f"{plain[1]:.2e}", flush=True)
+    path, flash, plain = worst
+    side = "flash" if flash[1] > plain[1] else "plain bf16"
+    print(f"[train] {arch}: the leaf where flash and plain differ most, {path} ({apart:.2e} "
+          f"of max |grad|), against the fp32 step: flash {flash[1]:.2e}, plain bf16 "
+          f"{plain[1]:.2e} by largest entry ({flash[0]:.2e}, {plain[0]:.2e} by norm): "
+          f"the {side} side carries more of it", flush=True)
 
 
 def phase_train_launcher():
@@ -2848,21 +2892,40 @@ SSD_FAULT_LEAF = "stages/0/u0/ssm/in_proj"
 # microbatches of one sequence (a global batch of 16), each cut in depth to
 # fit 80 GB: mixtral-8x7b at 2 of 32 layers (~747 GB whole at ~16 B a
 # parameter), gemma3-27b at a local and a global layer (as phase 15 cuts
-# it), deepseek-v3-671b at its 3 dense MLA layers and the MTP module:
-# {record key: (arch, layers, config replacements)}
+# it), deepseek-v3-671b at its first MoE layer (the kind of its layers 3-60;
+# the MTP module's block is a dense layer, the kind of its layers 0-2) and
+# the MTP module: {record key: (arch, layers, config replacements)}
 TRAIN_MOE_MLA = {"mixtral": ("mixtral-8x7b", 2, {}),
                  "gemma3": ("gemma3-27b", 2, dict(windows=(1024, 0))),
-                 "deepseek_v3": ("deepseek-v3-671b", 3, {})}
+                 "deepseek_v3": ("deepseek-v3-671b", 1, dict(moe_layers=(True,)))}
 TRAIN_MOE_MLA_BATCH = 16
-# phase 36: the MoE's backward on the card against the host's, mixtral-8x7b's
-# widths cut to 1 layer, fp32 (TF32 off), 2 x 512 tokens at the config's
-# capacity factor 1.25 (320 slots an expert for 2048 picks: drops happen)
-MOE_CHECK = dict(layers=1, seq=512, batch=2, seed=24)
-# card vs host, relative, over two weight draws: the loss, ce and aux loss
-# read at most 1.116e-07, the worst leaf (the router) 6.666e-06 by its norm
-# and 7.696e-06 by its largest entry, every expert slice less, 0 routed
-# slots apart (NVIDIA H100 80GB HBM3, 700.00 W); the limits leave >= 4.5x
-MOE_CHECK_TOL = dict(loss=5e-7, norm=3e-5, max=3.5e-5)
+# the peak that the memory plan reckons for deepseek-v3's cut, GB: its bf16
+# parameters and bf16 accumulator (56.2), one expert leaf's gradient in
+# flight (7.5), the rest activations and temporaries
+DEEPSEEK_MOE_RECKONED_GB = (66, 76)
+# phase 36: the MoE's backward on the card against the host's, fp32 (TF32
+# off), 2 x 512 tokens at the configs' capacity factor 1.25, at two routings
+# (drops happen at both):
+# - mixtral-8x7b's widths cut to 1 layer: softmax top-2 of 8 experts, 320
+#   slots an expert for 2048 picks;
+# - deepseek-v3-671b's first MoE layer without the MTP module: sigmoid top-8
+#   of 256 experts and a shared one, d_model 7168, 40 slots an expert for
+#   8192 picks, the expert d_ff (and so the shared expert's) cut from 2048
+#   to 256 so that the fp32 experts (1.41 B parameters, 5.6 GB) and their
+#   gradients fit the host and the card beside the fp32 embeddings.
+# {arch: (weights' seed, the expert d_ff or None for the config's)}
+MOE_CHECKS = {"mixtral-8x7b": (24, None), "deepseek-v3-671b": (26, 256)}
+MOE_CHECK = dict(layers=1, seq=512, batch=2)
+# card vs host, relative, over two weight draws (NVIDIA H100 80GB HBM3,
+# 700.00 W): mixtral's loss, ce and aux loss read at most 1.116e-07, the
+# worst leaf (the router) 6.666e-06 by its norm and 7.696e-06 by its largest
+# entry, every expert slice less, 0 routed slots apart; deepseek-v3's (seeds
+# 26 and 27: 4188 and 3807 of 8192 picks kept, 28 and 48 experts reached by
+# no token, whose slices are zeros on both sides) at most 9.870e-08, the
+# worst expert slice 5.536e-06 by its norm (w_in's expert 216) and 8.404e-06
+# by its largest entry, 0 routed slots apart.  The limits leave >= 4.5x
+MOE_CHECK_TOL = {"mixtral-8x7b": dict(loss=5e-7, norm=3e-5, max=3.5e-5),
+                 "deepseek-v3-671b": dict(loss=5e-7, norm=3e-5, max=4e-5)}
 MOE_FAULT_LEAF, MOE_FAULT_EXPERT = "stages/0/u0/ffn/w_in", 3
 # phase 36: MLA's and MTP's backward on the card against the host's,
 # deepseek-v3-671b's widths cut to its first (dense) layer and the MTP
@@ -3136,10 +3199,14 @@ def phase_serve_deepseek7b(device):
 
 def _leaf_errors(got, want) -> tuple[float, float]:
     """A gradient leaf's ||got - want|| / ||want|| and its largest entry
-    error over its largest entry."""
+    error over its largest entry; for a ``want`` of zeros (an expert no
+    token reached) 0 where ``got`` is zeros too, else infinite."""
     diff = (got - want).double()
-    return ((diff.norm() / want.double().norm()).item(),
-            (diff.abs().max() / want.double().abs().max()).item())
+    norm, top = diff.norm().item(), diff.abs().max().item()
+    scale, peak = want.double().norm().item(), want.double().abs().max().item()
+    if scale == 0:
+        return (0.0, 0.0) if top == 0 else (math.inf, math.inf)
+    return norm / scale, top / peak
 
 
 def _loss_and_grads(cfg, params, tokens):
@@ -3189,24 +3256,36 @@ def _hold_leaves(tag, name, got, want, tol, split=lambda path: False):
     ``tol["norm"]`` by its norm and ``tol["max"]`` by its largest entry
     (``_leaf_errors``, on the card), one line a leaf; where ``split(path)``
     holds, each slice along the leaf's dim 1 (a stacked expert leaf's
-    experts) as a leaf of its own too.  Returns the worst (norm, largest
-    entry) errors."""
+    experts) as a leaf of its own too, one line a slice up to 8 slices and
+    else one line for the worst.  Returns the worst (norm, largest entry)
+    errors."""
     worst = [0.0, 0.0]
+
+    def line(where, y, norm, top):
+        print(f"[{tag}]   {name} d {where:<32} {tuple(y.shape)} norm "
+              f"{y.norm().item():.4e} rel err {norm:.3e} (tol {tol['norm']}), max abs err "
+              f"{top:.3e} of max |grad| (tol {tol['max']})", flush=True)
     for path, host in want.items():
         g = got[path]
         w = host.to(g.device)
         parts = [(path, g, w)]
         if split(path):
             parts += [(f"{path}[:, {e}]", g[:, e], w[:, e]) for e in range(w.shape[1])]
+        rows = []
         for where, x, y in parts:
             norm, top = _leaf_errors(x, y)
             worst = [max(worst[0], norm), max(worst[1], top)]
-            print(f"[{tag}]   {name} d {where:<32} {tuple(y.shape)} norm "
-                  f"{y.norm().item():.4e} rel err {norm:.3e} (tol {tol['norm']}), max abs err "
-                  f"{top:.3e} of max |grad| (tol {tol['max']})", flush=True)
+            rows.append((where, y, norm, top))
             if not (norm <= tol["norm"] and top <= tol["max"]):
+                line(where, y, norm, top)
                 raise SystemExit(f"[{tag}] {name}: the gradient of {where} on the card differs "
                                  "from the host's")
+        if len(rows) > 9:
+            print(f"[{tag}]   {name} d {path}: {len(rows) - 1} slices along dim 1 held, the "
+                  "worst by norm:", flush=True)
+            rows = rows[:1] + [max(rows[1:], key=lambda r: r[2])]
+        for r in rows:
+            line(*r)
     return worst
 
 
@@ -3318,27 +3397,43 @@ def _routed_slots(run):
     return result, set(zip(experts[kept].tolist(), gidx[kept].tolist()))
 
 
-def moe_grad_check(device):
-    """The MoE's backward (softmax top-2 routing, the per-expert top-C picks
-    at capacity factor 1.25, the ``index_add`` combine, the Switch aux
-    loss) on the card against the host: mixtral-8x7b's widths at
-    ``MOE_CHECK``'s cut, fp32.  Loss, ce and aux loss within
-    ``MOE_CHECK_TOL["loss"]``; every gradient leaf, and each expert's slice
-    of the expert leaves, by its norm and largest entry; the routed slots
-    that differ printed; planted faults in one expert's gradient rejected."""
-    c, tag = MOE_CHECK, "train-moe-mla"
-    _, cfg = depth_cut("mixtral-8x7b", c["layers"], param_dtype="float32",
-                       compute_dtype="float32")
-    assert cfg.remat and cfg.moe.capacity_factor == 1.25
+def moe_check_cfg(arch):
+    """``MOE_CHECKS``' cut of ``arch``: ``depth_cut``'s first layers, each an
+    MoE layer (deepseek-v3's first is dense), no MTP module, fp32, the
+    expert d_ff as the entry says."""
+    _, d_ff = MOE_CHECKS[arch]
+    whole = get_config(arch)
+    mo = whole.moe if d_ff is None else dataclasses.replace(whole.moe, d_ff=d_ff)
+    return depth_cut(arch, MOE_CHECK["layers"], moe_layers=(True,) * MOE_CHECK["layers"],
+                     mtp_depth=0, moe=mo, param_dtype="float32", compute_dtype="float32")[1]
+
+
+def moe_grad_check(device, arch):
+    """The MoE's backward (top-k routing, softmax or sigmoid, the per-expert
+    top-C picks at capacity factor 1.25, the ``index_add`` combine, the
+    shared expert, the Switch aux loss) on the card against the host at
+    ``arch``'s routing (``moe_check_cfg``), fp32.  Loss, ce and aux loss
+    within ``MOE_CHECK_TOL[arch]["loss"]``; every gradient leaf, and each
+    expert's slice of the expert leaves, by its norm and largest entry; the
+    routed slots that differ printed (deepseek-v3's must be 0); planted
+    faults in one expert's gradient rejected."""
+    c, tag, tol = dict(MOE_CHECK, seed=MOE_CHECKS[arch][0]), "train-moe-mla", \
+        MOE_CHECK_TOL[arch]
+    cfg = moe_check_cfg(arch)
+    assert cfg.remat and cfg.moe.capacity_factor == 1.25 and all(cfg.layer_moe)
     r = _card_vs_host(cfg, c, device, record=_routed_slots)
     got, want = r["got"], r["want"]
     n_slots = len(r["want_x"])
+    idle = cfg.moe.n_experts - len({e for e, _ in r["want_x"]})
     differ = len(r["got_x"] ^ r["want_x"])
-    errs = _hold_metrics(tag, "the MoE", r["got_m"], r["want_m"], ("loss", "ce", "aux"),
-                         MOE_CHECK_TOL["loss"])
+    errs = _hold_metrics(tag, f"the MoE at {arch}'s routing", r["got_m"], r["want_m"],
+                         ("loss", "ce", "aux"), tol["loss"])
     experts = ("w_in", "w_gate", "w_out")
-    worst = _hold_leaves(tag, "moe", got, want, MOE_CHECK_TOL,
+    worst = _hold_leaves(tag, "moe", got, want, tol,
                          split=lambda path: path.rsplit("/", 1)[-1] in experts)
+    if differ and arch == "deepseek-v3-671b":
+        raise SystemExit(f"[{tag}] {arch}: {differ} routed slots differ between the card "
+                         "and the host")
     # one expert's gradient gone wrong must show: the check holds each
     # expert's slice by its norm
     e, leaf = MOE_FAULT_EXPERT, MOE_FAULT_LEAF
@@ -3350,21 +3445,26 @@ def moe_grad_check(device):
     bumped[:, e] *= 1.001
     _reject(tag, f"{leaf}'s worst expert's norm",
             lambda out: max(_leaf_errors(out[:, i], w[:, i])[0] for i in range(w.shape[1])),
-            MOE_CHECK_TOL["norm"],
+            tol["norm"],
             {f"expert {e} zeroed": zeroed, f"expert {e}'s rows past {rows} scaled by 0.9":
              scaled, f"expert {e} scaled by 1.001": bumped})
     n_tokens = c["batch"] * c["seq"]
-    print(f"[{tag}] the MoE's backward, mixtral-8x7b widths ({c['layers']} layer, "
-          f"{cfg.moe.n_experts} experts, top-{cfg.moe.top_k}, d_ff {cfg.moe.d_ff}), fp32, "
-          f"{c['batch']} x {c['seq']} tokens, capacity factor {cfg.moe.capacity_factor} "
-          f"({moe.capacity(n_tokens, cfg.moe)} slots an expert; {n_slots} of "
-          f"{n_tokens * cfg.moe.top_k} routed picks kept), remat: card vs host loss "
+    mo, published = cfg.moe, get_config(arch).moe
+    cut = "" if mo.d_ff == published.d_ff else f", cut from {published.d_ff}"
+    print(f"[{tag}] the MoE's backward at {arch}'s routing ({c['layers']} layer, "
+          f"d_model {cfg.d_model}, {mo.router} top-{mo.top_k} of {mo.n_experts} experts"
+          f"{f' + {mo.n_shared} shared' if mo.n_shared else ''}, expert d_ff {mo.d_ff}{cut}; "
+          f"{param_count(cfg) / 1e9:.3f} B parameters), fp32, seed {c['seed']}, "
+          f"{c['batch']} x {c['seq']} tokens, capacity factor {mo.capacity_factor} "
+          f"({moe.capacity(n_tokens, mo)} slots an expert; {n_slots} of "
+          f"{n_tokens * mo.top_k} routed picks kept, {idle} experts with none), remat: "
+          f"card vs host loss "
           f"{r['got_m']['loss']:.6f} vs {r['want_m']['loss']:.6f} (rel {errs['loss']:.3e}), "
           f"ce rel {errs['ce']:.3e}, aux {r['got_m']['aux']:.6f} vs {r['want_m']['aux']:.6f} "
-          f"(rel {errs['aux']:.3e}; tol {MOE_CHECK_TOL['loss']}); routed slots that differ: "
+          f"(rel {errs['aux']:.3e}; tol {tol['loss']}); routed slots that differ: "
           f"{differ}; over {len(want)} gradient leaves and each expert's slice max rel err "
-          f"{worst[0]:.3e} by norm (tol {MOE_CHECK_TOL['norm']}), {worst[1]:.3e} by largest "
-          f"entry (tol {MOE_CHECK_TOL['max']}); {leaf}'s planted faults rejected; host "
+          f"{worst[0]:.3e} by norm (tol {tol['norm']}), {worst[1]:.3e} by largest "
+          f"entry (tol {tol['max']}); {leaf}'s planted faults rejected; host "
           f"{r['host_s']:.1f} s, card {r['card_s']:.1f} s", flush=True)
     del got, want, r, g, w, zeroed, scaled, bumped
     torch.cuda.empty_cache()
@@ -3414,25 +3514,42 @@ def mla_mtp_grad_check(device):
     return dict(loss_err=max(errs.values()), norm_err=worst[0], max_err=worst[1])
 
 
-def _moe_layer_gb(whole) -> tuple[float, float, float]:
-    """(parameters of the published config's first MoE layer in billions,
-    GB that its bf16 parameters, bf16 accumulator and one microbatch's bf16
-    gradient take, GB of one fp32 temporary over one of its routed expert
-    leaves)."""
-    first = whole.layer_moe.index(True)
-    before, after = (param_count(depth_cut(whole.name, n, mtp_depth=0)[1])
-                     for n in (first, first + 1))
-    mo = whole.moe
-    return ((after - before) / 1e9, 6 * (after - before) / 1e9,
-            4 * mo.n_experts * whole.d_model * mo.d_ff / 1e9)
+def _moe_cut_reckoning(tag, cfg, seq):
+    """Print what deepseek-v3's MoE cut holds in its step, as the memory plan
+    reckons it: parameters, bf16 parameters and accumulator, the largest
+    leaf's gradient (one in flight: ``runtime/steps.py`` takes each leaf's
+    gradient into its accumulator as it is made), Adafactor's fp32
+    temporaries (``ADAFACTOR_SLICE`` entries a slice; the head's 2-D leaf
+    whole), one query chunk's fp32 scores in MLA's training attention
+    (``attention._CHUNK_Q`` queries, recomputed in the backward), and
+    ``DEEPSEEK_MOE_RECKONED_GB``."""
+    specs = leaves(tfm.param_specs(cfg))
+    n = sum(math.prod(x.shape) for x in specs)
+    largest = max(specs, key=lambda x: math.prod(x.shape))
+    nbytes = {"bfloat16": 2, "float32": 4}
+    head = max((x for x in specs if len(x.shape) == 2), key=lambda x: math.prod(x.shape))
+    chunk = 4 * cfg.n_heads * attention._CHUNK_Q * seq
+    lo, hi = DEEPSEEK_MOE_RECKONED_GB
+    print(f"[{tag}] {cfg.name} cut, the memory plan: {n / 1e9:.2f} B parameters; "
+          f"{nbytes[cfg.param_dtype] * n / 1e9:.1f} GB of {cfg.param_dtype} parameters; "
+          f"{nbytes[cfg.grad_accum_dtype] * n / 1e9:.1f} GB of {cfg.grad_accum_dtype} "
+          f"accumulator; at most one leaf's gradient in flight, the largest "
+          f"{list(largest.shape)} {nbytes[cfg.param_dtype] * math.prod(largest.shape) / 1e9:.1f} "
+          f"GB; Adafactor's fp32 temporaries <= {4 * optim.ADAFACTOR_SLICE / 1e9:.2f} GB each "
+          f"in slices, the head's {list(head.shape)} leaf whole "
+          f"{4 * math.prod(head.shape) / 1e9:.2f} GB each; MLA's training attention in "
+          f"chunks of {attention._CHUNK_Q} queries, {chunk / 1e9:.2f} GB of fp32 scores a "
+          f"chunk, recomputed in the backward; reckoned peak {lo}-{hi} GB, gate "
+          f"{MEMORY_GB} GB", flush=True)
 
 
 def phase_train_moe_mla(device, smi):
     """``TRAIN_MOE_MLA``'s runs (``_train_run`` at a global batch of
     ``TRAIN_MOE_MLA_BATCH``, each config's own 16 microbatches), each
     asserting its own optimizer and dtypes and freed before the next is
-    drawn; then ``moe_grad_check`` and ``mla_mtp_grad_check``.  Returns
-    ({key: report}, {check: errors})."""
+    drawn, deepseek-v3's after its memory reckoning; then ``moe_grad_check``
+    at each of ``MOE_CHECKS``' routings and ``mla_mtp_grad_check``.
+    Returns ({key: report}, {check: errors})."""
     tag, reports = "train-moe-mla", {}
     for key, (arch, layers, replace) in TRAIN_MOE_MLA.items():
         whole, cfg = depth_cut(arch, layers, **replace)
@@ -3446,17 +3563,16 @@ def phase_train_moe_mla(device, smi):
         what = (f"{arch}, {layers} of {whole.n_layers} layers ({kinds}; windows "
                 f"{cfg.layer_windows}; {attention_desc(cfg)}"
                 f"{', the MTP module' if cfg.mtp_depth else ''})")
-        if cfg.mla is not None and not n_moe:
-            params, gb, temp = _moe_layer_gb(whole)
-            print(f"[{tag}] {arch}: no MoE layer in the cut: one holds {params:.2f} B "
-                  f"parameters, {gb:.1f} GB as bf16 parameters, bf16 accumulator and one "
-                  f"microbatch's bf16 gradient before anything else, and Adafactor's fp32 "
-                  f"temporaries over each of its [{whole.moe.n_experts}, {whole.d_model}, "
-                  f"{whole.moe.d_ff}] expert leaves take {temp:.1f} GB each: its "
-                  f"{whole.moe.n_experts}-expert backward waits for a memory plan", flush=True)
+        if cfg.mla is not None:
+            _moe_cut_reckoning(tag, cfg, TRAIN["seq"])
         reports[key] = _train_run(tag, cfg, device, smi, what, batch=TRAIN_MOE_MLA_BATCH)
+        if cfg.mla is not None:
+            lo, hi = DEEPSEEK_MOE_RECKONED_GB
+            print(f"[{tag}] {arch}: peak {reports[key]['peak_mem_gb']:.3f} GB against the "
+                  f"reckoned {lo}-{hi} GB ({smi})", flush=True)
         torch.cuda.empty_cache()
-    checks = {"moe": moe_grad_check(device), "mla_mtp": mla_mtp_grad_check(device)}
+    checks = {f"moe {arch}": moe_grad_check(device, arch) for arch in MOE_CHECKS}
+    checks["mla_mtp"] = mla_mtp_grad_check(device)
     return reports, checks
 
 

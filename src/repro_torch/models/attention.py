@@ -18,6 +18,7 @@ per head afterwards.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -70,6 +71,12 @@ def mla_spec(cfg: ModelConfig, lead: tuple = ()):
 # walks the queries in chunks so [T,S] probabilities are never whole
 _CHUNK_THRESHOLD = 32 * 1024 * 1024
 _CHUNK_Q = 1024
+# while autograd records, full-sequence attention also walks its queries in
+# chunks above this many score elements in all [B,H,T,S] (a 2 GiB fp32
+# tensor), each chunk recomputed in the backward: deepseek-v3's MLA at T = S
+# = 4096 makes [1, 128, 4096, 4096] fp32 scores, 8.6 GB a tensor, and its
+# softmax's backward held three of them with the probabilities saved
+_TRAIN_CHUNK_SCORES = 1 << 29
 
 
 _HEADS = ("batch", None, "heads", None)
@@ -103,14 +110,31 @@ def _attend(q, k, v, positions, window, n_meta, scale):
         if by_keys:
             return _sdpa_over_keys(q, k, v, mask, scale, "attn_kv")
         return _sdpa(q, k, v, mask, scale, by_rank)
-    if t * s < _CHUNK_THRESHOLD:
+    recompute = torch.is_grad_enabled() and b * h * t * s > _TRAIN_CHUNK_SCORES
+    if t * s < _CHUNK_THRESHOLD and not recompute:
         return sdpa(q, causal_window_mask(positions, positions, window, n_meta)[None])
+    if recompute:
+        sdpa = _recomputed(sdpa)
     outs = []
     for c in range(0, t, _CHUNK_Q):
         mask = causal_window_mask(positions[c:c + _CHUNK_Q], positions,
                                   window, n_meta)
         outs.append(sdpa(q[:, c:c + _CHUNK_Q], mask[None]))
     return torch.cat(outs, dim=1)
+
+
+def _recomputed(sdpa):
+    """``sdpa`` saving only its inputs for the backward, which runs it again
+    (on autograd's device thread: it takes up the forward's mesh scope), so
+    a query chunk's scores and probabilities live only while the chunk
+    runs, forward or backward.  Each row's arithmetic is the same."""
+    scope = shardctx.current()
+
+    def again(q, mask):
+        with shardctx.reenter(scope):
+            return sdpa(q, mask)
+    return lambda q, mask: checkpoint(again, q, mask, use_reentrant=False,
+                                      preserve_rng_state=False)
 
 
 def _repeat_kv(k, v, g: int):

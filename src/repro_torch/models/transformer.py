@@ -294,6 +294,24 @@ def _layers(tree, n: int):
     return out
 
 
+class _ReadLate(dict):
+    """A stage of one layer as that layer: each read of a leaf gives its
+    view without the stacked dim (``squeeze``, whose backward is a view,
+    through ``shardctx.grad_placed``), made at the read.  The backward runs
+    the nodes made later first, so a view made before the layer (``_layers``'
+    ``unbind``) holds each leaf's gradient until the layer's whole backward
+    is done; made where the layer reads the leaf, it hands the gradient on
+    as soon as it is made, to the train step's accumulator
+    (``runtime/steps.py``): deepseek-v3's three [256, 7168, 2048] expert
+    gradients are never live together."""
+
+    def __getitem__(self, key):
+        v = super().__getitem__(key)
+        if isinstance(v, dict):
+            return _ReadLate(v)
+        return shardctx.grad_placed(v.squeeze(0))
+
+
 def _placed(tree):
     """A layer's dict of views, each through ``shardctx.grad_placed``."""
     return {k: _placed(v) if isinstance(v, dict) else shardctx.grad_placed(v)
@@ -346,7 +364,9 @@ def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
         with shardctx.reenter(mesh_scope):
             return layer_forward(cfg, d, lp, h, positions, n_meta,
                                  use_flash=use_flash)[::2]
-    layers = [_layers(sp[f"u{j}"], stage.repeat) for j in range(len(stage.unit))]
+    late = stage.repeat == 1 and torch.is_grad_enabled()
+    layers = [[_ReadLate(sp[f"u{j}"])] if late else _layers(sp[f"u{j}"], stage.repeat)
+              for j in range(len(stage.unit))]
     for r in range(stage.repeat):
         for j, desc in enumerate(stage.unit):
             # under a mesh each layer's gradient takes its leaf's placements
@@ -354,7 +374,7 @@ def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
             # global shape); placed here, next to the layer, the backward
             # places it as soon as the layer's backward has made it, where
             # a placement made before the loop would wait for every layer's
-            p = _placed(layers[j][r])
+            p = layers[j][r] if late else _placed(layers[j][r])
             if remat is not None:
                 # the layer has no randomness: no RNG state to keep; the
                 # aux loss comes out with x, as in the JAX package's carry

@@ -170,46 +170,125 @@ def adafactor_state_specs(pspecs, opt_dtype: str):
             "count": ParamSpec((), (), "int32", init="zeros")}
 
 
+# Adafactor walks a factored leaf in slices along its axes before the last
+# two (a stacked leaf's layers, an expert leaf's experts) of at most this
+# many entries: each slice's vr, vc and denominator are its own rows', so
+# its fp32 temporaries are at most 512 MB (deepseek-v3's [1, 256, 7168,
+# 2048] expert leaves made 15 GB ones whole)
+ADAFACTOR_SLICE = 1 << 27
+
+
+def _factors(cfg: AdafactorConfig, beta2, g32, vr, vc):
+    """The new fp32 factors (vr, vc) of a factored leaf, or of a slice of its
+    lead rows, from its fp32 gradient and its old factors."""
+    g2 = g32.square().add_(cfg.eps1)
+    # each factor in its slot's placements before the outer product, so
+    # that vhat is made at g's shard shape: a factor's mean over a split
+    # dim is a pending sum, and DTensor would resolve it after the
+    # product, on the leaf's whole shape
+    return (placed_like(beta2 * vr.float() + (1 - beta2) * g2.mean(dim=-1), vr),
+            placed_like(beta2 * vc.float() + (1 - beta2) * g2.mean(dim=-2), vc))
+
+
+def _factored_update(cfg: AdafactorConfig, g32, vr, vc):
+    """The unscaled update ``g32 * rsqrt(vhat)``, vhat made from the factors
+    and consumed in place (the head's whole [7168, 129280] leaf makes 3.7 GB
+    fp32 temporaries)."""
+    denom = vr.mean(dim=-1, keepdim=True)
+    vhat = (vr[..., None] / torch.clamp(denom[..., None], min=cfg.eps1)) \
+        * vc[..., None, :]
+    return vhat.clamp_(min=cfg.eps1).rsqrt_().mul_(g32)
+
+
+def _apply(cfg: AdafactorConfig, p, upd, rms, pscale, lr):
+    """``p`` less its step: the unscaled update ``upd`` (consumed) RMS-clipped
+    and scaled by the parameter scale (the Adafactor rule)."""
+    upd.div_(torch.clamp(rms / cfg.clip_rms, min=1.0))
+    p32 = p.float()
+    step = upd.mul_(lr * pscale)
+    if cfg.weight_decay and p.ndim >= 2:
+        step = step + lr * cfg.weight_decay * p32
+    _store(p, p32.sub_(step))
+
+
+def _lead_rows(x, keep: int, rows: int):
+    """Views of ``x`` in slices of at most ``rows`` of its lead rows, the
+    axes before its last ``keep`` flattened."""
+    x = x.view((-1,) + tuple(x.shape[x.ndim - keep:]))
+    return [x[i:i + rows] for i in range(0, x.shape[0], rows)]
+
+
+def _slice_rows(g) -> int:
+    """Lead rows a slice of a factored leaf takes, or 0 to keep it whole: a
+    DTensor, a leaf of at most ``ADAFACTOR_SLICE`` entries, one with too few
+    lead rows to split, or one whose rows are not a view."""
+    if g.ndim < 3 or g.numel() <= ADAFACTOR_SLICE or is_dtensor(g) or not g.is_contiguous():
+        return 0
+    rows = max(1, ADAFACTOR_SLICE // (g.shape[-2] * g.shape[-1]))
+    return rows if rows < g.numel() // (g.shape[-2] * g.shape[-1]) else 0
+
+
 @torch.no_grad()
 def adafactor_update(cfg: AdafactorConfig, grads, state, params, lr):
     """One Adafactor step.  Updates ``params`` and ``state`` in place;
-    returns (params, state, gnorm)."""
+    returns (params, state, gnorm).  A factored leaf that ``_slice_rows``
+    splits goes slice by slice (``_adafactor_slices``)."""
     state["count"].add_(1)
     c = state["count"].float()
     beta2 = 1.0 - c ** (-cfg.decay)
+    total = None                      # the gnorm's sum, leaf by leaf
     for g, slot, p in zip(leaves(grads), _slot_list(state["slots"], params),
                           leaves(params)):
-        g32 = g.float()
-        g2 = g32.square() + cfg.eps1
-        if g.ndim >= 2:
-            # each factor in its slot's placements before the outer product,
-            # so that vhat is made at g's shard shape: a factor's mean over a
-            # split dim is a pending sum, and DTensor would resolve it after
-            # the product, on the leaf's whole shape
-            vr = placed_like(beta2 * slot["vr"].float() + (1 - beta2) * g2.mean(dim=-1),
-                             slot["vr"])
-            vc = placed_like(beta2 * slot["vc"].float() + (1 - beta2) * g2.mean(dim=-2),
-                             slot["vc"])
-            denom = vr.mean(dim=-1, keepdim=True)
-            vhat = (vr[..., None] / torch.clamp(denom[..., None], min=cfg.eps1)) \
-                * vc[..., None, :]
-            upd = g32 * torch.rsqrt(torch.clamp(vhat, min=cfg.eps1))
-            _store(slot["vr"], vr)
-            _store(slot["vc"], vc)
+        rows = _slice_rows(g)
+        if rows:
+            sq = _adafactor_slices(cfg, beta2, g, slot, p, lr, rows)
         else:
-            v = beta2 * slot["v"].float() + (1 - beta2) * g2
-            upd = g32 * torch.rsqrt(torch.clamp(v, min=cfg.eps1))
-            _store(slot["v"], v)
-        # RMS-clip the update, scale by parameter scale (Adafactor rule)
-        rms = torch.sqrt(upd.square().mean() + 1e-12)
-        upd = upd / torch.clamp(rms / cfg.clip_rms, min=1.0)
-        p32 = p.float()
-        pscale = torch.clamp(torch.sqrt(p32.square().mean()), min=cfg.eps2)
-        step = lr * pscale * upd
-        if cfg.weight_decay and p.ndim >= 2:
-            step = step + lr * cfg.weight_decay * p32
-        _store(p, p32 - step)
-    return params, state, global_norm(grads)
+            g32 = g.float()
+            sq = g32.square().sum()
+            if g.ndim >= 2:
+                vr, vc = _factors(cfg, beta2, g32, slot["vr"], slot["vc"])
+                upd = _factored_update(cfg, g32, vr, vc)
+                _store(slot["vr"], vr)
+                _store(slot["vc"], vc)
+            else:
+                v = beta2 * slot["v"].float() + (1 - beta2) * (g32.square() + cfg.eps1)
+                upd = g32 * torch.rsqrt(torch.clamp(v, min=cfg.eps1))
+                _store(slot["v"], v)
+            del g32
+            rms = torch.sqrt(upd.square().mean() + 1e-12)
+            pscale = torch.clamp(torch.sqrt(p.float().square().mean()), min=cfg.eps2)
+            _apply(cfg, p, upd, rms, pscale, lr)
+        total = sq if total is None else total + sq
+    return params, state, torch.sqrt(total)
+
+
+def _adafactor_slices(cfg, beta2, g, slot, p, lr, rows):
+    """``adafactor_update`` on one factored leaf in slices of ``rows`` lead
+    rows, in two passes: first each slice's factors (the whole leaf's bit
+    for bit: each row's means are its own) and the fp32 sums of squares of
+    the gradient, the unscaled update and the parameter; then each slice's
+    update again, RMS-clipped and scaled by the whole leaf's RMS and
+    parameter scale (each sum over the slices, divided once by ``numel``,
+    so they may differ from the whole leaf's means in the last bits), and
+    applied.  Returns the gradient's sum of squares."""
+    parts = list(zip(_lead_rows(g, 2, rows), _lead_rows(p, 2, rows),
+                     _lead_rows(slot["vr"], 1, rows), _lead_rows(slot["vc"], 1, rows)))
+    sums, factors = torch.zeros(3, device=g.device), []
+    for gs, ps, vr, vc in parts:
+        g32 = gs.float()
+        vr, vc = _factors(cfg, beta2, g32, vr, vc)
+        factors.append((vr, vc))
+        upd = _factored_update(cfg, g32, vr, vc)
+        sums += torch.stack([g32.square().sum(), upd.square().sum(),
+                             ps.float().square().sum()])
+        del g32, upd
+    rms = torch.sqrt(sums[1] / g.numel() + 1e-12)
+    pscale = torch.clamp(torch.sqrt(sums[2] / g.numel()), min=cfg.eps2)
+    for (gs, ps, vr_slot, vc_slot), (vr, vc) in zip(parts, factors):
+        _apply(cfg, ps, _factored_update(cfg, gs.float(), vr, vc), rms, pscale, lr)
+        _store(vr_slot, vr)
+        _store(vc_slot, vc)
+    return sums[0]
 
 
 def _slot_list(slots, params):

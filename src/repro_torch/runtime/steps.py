@@ -6,12 +6,15 @@ one (arch x shape) cell, with no allocation: the dry-run
 (``launch/dryrun.py``) makes its inputs from it.
 
 Where JAX scans over the microbatch axis, the port runs a Python loop: each
-microbatch's gradient comes from ``torch.autograd.grad`` and is added into
-an accumulator in ``cfg.grad_accum_dtype``, so only one microbatch's
-activations and one bf16 gradient tree live at a time.  Under a mesh each
-gradient reaches its accumulator in its leaf's placements, so accumulators
-are made and added at the shard shape, as the reference's scan carries a
-parameter-shaped accumulator that XLA shards.
+microbatch's backward hands every leaf's gradient, as soon as autograd has
+made it, to a hook that adds it into that leaf's accumulator in
+``cfg.grad_accum_dtype`` and drops it, so only one microbatch's activations
+and the gradients still being made live at a time, never a whole gradient
+tree beside the accumulator (deepseek-v3's MoE layer: 23 GB of bf16
+gradients).  Under a mesh each gradient reaches its accumulator in its
+leaf's placements, so accumulators are made and added at the shard shape,
+as the reference's scan carries a parameter-shaped accumulator that XLA
+shards.
 
 With ``shard_ctx=(mesh, rules)`` the step runs under ``shardctx.scope``:
 params, optimizer state and batch are DTensors laid out by
@@ -129,18 +132,36 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
     n_micro = cfg.train_microbatches
     acc_dt = getattr(torch, cfg.grad_accum_dtype)
 
-    def micro_grads(params, flat, mb):
+    def accumulate_as_made(flat, acc, added):
+        """A hook on each leaf that takes the leaf's gradient as autograd
+        has made it (``p.grad``) into ``acc[i]``: with one microbatch the
+        gradient itself; else the first microbatch's copy in ``acc_dt``,
+        the later ones added into it (``_accumulate``).  ``added[0]``
+        counts the leaves taken."""
+        def hook_for(i):
+            def take(p):
+                g, p.grad = p.grad, None
+                if shard_ctx is not None and tuple(g.placements) != tuple(p.placements):
+                    # a stacked leaf's gradient comes placed from the layers'
+                    # backward (``transformer.stage_forward``), the others
+                    # (tok_emb, head, norms) may come as pending sums
+                    g = g.redistribute(p.device_mesh, p.placements)
+                if n_micro == 1:
+                    acc[i] = g
+                else:
+                    acc[i] = _accumulate(None if acc[i] is None else [acc[i]], [g], acc_dt)[0]
+                added[0] += 1
+            return take
+        return [p.register_post_accumulate_grad_hook(hook_for(i)) for i, p in enumerate(flat)]
+
+    def micro_backward(params, flat, mb, added):
         loss, _ = tf.train_loss(cfg, params, mb, use_flash=use_flash)
-        grads = list(torch.autograd.grad(loss, flat))
-        if shard_ctx is not None:
-            # each gradient in its leaf's placements before it is added, one
-            # leaf at a time: a stacked leaf's come placed from the layers'
-            # backward (``transformer.stage_forward``), the others (tok_emb,
-            # head, norms) may come as pending sums
-            for i, p in enumerate(flat):
-                if tuple(grads[i].placements) != tuple(p.placements):
-                    grads[i] = grads[i].redistribute(p.device_mesh, p.placements)
-        return loss.detach(), grads
+        added[0] = 0
+        torch.autograd.backward(loss, inputs=flat)
+        if added[0] != len(flat):
+            raise RuntimeError(f"{len(flat) - added[0]} of {len(flat)} parameter leaves "
+                               "got no gradient")
+        return loss.detach()
 
     def train_step(params, opt_state, batch, step):
         with _maybe_scope(shard_ctx):
@@ -150,22 +171,26 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
         lr = cosine_schedule(step, peak_lr=hp.peak_lr, warmup=hp.warmup,
                              total=hp.total_steps)
         flat = leaves(params)
+        grads, added = [None] * len(flat), [0]
         for x in flat:
+            x.grad = None
             x.requires_grad_(True)
+        hooks = accumulate_as_made(flat, grads, added)
         try:
             if n_micro == 1:
-                loss, grads = micro_grads(params, flat, {k: v[0] for k, v in batch.items()})
+                loss = micro_backward(params, flat, {k: v[0] for k, v in batch.items()}, added)
             else:
-                grads, lsum = None, None
+                lsum = None
                 for m in range(n_micro):
-                    loss, g = micro_grads(params, flat, {k: v[m] for k, v in batch.items()})
-                    grads = _accumulate(grads, g, acc_dt)
+                    loss = micro_backward(params, flat, {k: v[m] for k, v in batch.items()},
+                                          added)
                     lsum = loss.float() if lsum is None else lsum + loss
-                    del g
                 loss = lsum / n_micro
                 for a in grads:
                     a.div_(n_micro)
         finally:
+            for h in hooks:
+                h.remove()
             for x in flat:
                 x.requires_grad_(False)
         grads = unflatten(params, grads)

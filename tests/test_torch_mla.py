@@ -6,6 +6,7 @@ MLA's refusal of the flash kernel, as the reference's MLA never calls it.
 
 The widths are deepseek-v3-671b's reduced config (d_model 128, 4 heads,
 q rank 64, kv rank 32, nope 16, rope 16, v head dim 32)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -139,6 +140,67 @@ def test_attend_takes_a_v_head_dim_of_its_own(monkeypatch, dense):
                         torch.from_numpy(pos), 0, 0, 24 ** -0.5)
     assert got.shape == (1, 48, 2, 10)
     _close(got, want, "float32")
+
+
+def test_mla_training_attention_in_recomputed_query_chunks(cfg, monkeypatch):
+    """While autograd records, ``_attend`` walks its queries in chunks once
+    the whole [B, H, T, S] scores pass ``_TRAIN_CHUNK_SCORES``, each chunk
+    recomputed in the backward.  With that limit under the [2, 4, 40, 40]
+    scores and chunks of 16 queries (the last of 8), ``mla_forward``'s
+    output, the loss sum(y * w) and its gradient for every MLA weight and
+    for x: against the whole scores' within 1e-6 (fp32), and against the
+    JAX package's (``jax.grad``) at this file's fp32 tolerance, the
+    gradients' relative to each leaf's largest entry (sums over 80
+    positions, in another order).  The chunks'
+    attention runs three times in the forward and three again in the
+    backward; without autograd the scores stay whole."""
+    jp, tp = _inputs(cfg, "float32")
+    jx, tx = jp.pop("x"), tp.pop("x")
+    t = tx.shape[1]
+    w = np.random.default_rng(3).normal(size=tx.shape).astype(np.float32)
+    calls = []
+    sdpa = tattn._sdpa
+
+    def counted(q, *a, **k):
+        calls.append(q.shape[1])
+        return sdpa(q, *a, **k)
+    monkeypatch.setattr(tattn, "_sdpa", counted)
+
+    def run():
+        xs = {k: v.clone().requires_grad_(True) for k, v in dict(tp, x=tx).items()}
+        x = xs.pop("x")
+        y = tattn.mla_forward(cfg, xs, x, torch.arange(t))
+        loss = (y * torch.from_numpy(w)).sum()
+        names = sorted(xs)
+        grads = torch.autograd.grad(loss, [xs[k] for k in names] + [x])
+        return y.detach(), loss.detach(), dict(zip(names + ["x"], grads))
+
+    whole = run()
+    assert calls == [t]
+    calls.clear()
+    monkeypatch.setattr(tattn, "_TRAIN_CHUNK_SCORES", 2 * 4 * t * t - 1)
+    monkeypatch.setattr(tattn, "_CHUNK_Q", 16)
+    chunked = run()
+    assert calls[:3] == [16, 16, 8] and sorted(calls[3:]) == [8, 16, 16]
+    calls.clear()
+    with torch.no_grad():
+        tattn.mla_forward(cfg, tp, tx, torch.arange(t))
+    assert calls == [t]
+    for a, b in ((chunked[0], whole[0]), (chunked[1], whole[1])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6)
+    for k, g in whole[2].items():
+        np.testing.assert_allclose(chunked[2][k].numpy(), g.numpy(), rtol=1e-6,
+                                   atol=1e-6 * g.abs().max().item(), err_msg=k)
+
+    def jloss(p, x):
+        return jnp.sum(jattn.mla_forward(cfg, p, x, jnp.arange(t)) * w)
+    jy = jattn.mla_forward(cfg, jp, jx, jnp.arange(t))
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jp, jx)
+    _close(chunked[0], jy, "float32")
+    for k, g in dict(jgp, x=jgx).items():
+        g = np.asarray(g)
+        np.testing.assert_allclose(chunked[2][k].numpy(), g, rtol=TOL["float32"],
+                                   atol=TOL["float32"] * np.abs(g).max(), err_msg=k)
 
 
 def test_mla_never_calls_flash(cfg, monkeypatch):

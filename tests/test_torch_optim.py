@@ -179,6 +179,59 @@ def test_adamw_in_slices_is_the_whole_leaf_update_bit_for_bit(monkeypatch, shape
         assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)), path
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adafactor_in_slices_matches_the_whole_leaf_update(monkeypatch, dtype):
+    """Adafactor walks a factored leaf in slices of its axes before the last
+    two: with ``ADAFACTOR_SLICE`` at 1000 entries a [3, 4, 40, 24] leaf goes
+    one [40, 24] block at a time (12 slices), a [64, 48] 2-D leaf and a
+    1-D one whole.  Three updates against the whole-leaf update's
+    (``ADAFACTOR_SLICE`` at its default): every vr and vc slot bit-identical
+    (each row's means are its own), the 2-D and 1-D leaves and their slots
+    bit-identical, the sliced leaf's parameters within 1e-6 of its largest
+    entry with fp32 parameters and state, and within one bf16 ulp with bf16
+    parameters and state (its RMS and scale are sums over the slices,
+    divided once), and the gnorm within 1e-6."""
+    rng = np.random.default_rng(7)
+    shapes = {"experts": (3, 4, 40, 24), "head": (64, 48), "norm": (24,)}
+    init = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    steps = [{k: (rng.normal(size=s) * 10.0 ** rng.uniform(-2, 1, size=s)).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(3)]
+    dt = getattr(torch, dtype)
+
+    def run(slice_entries):
+        monkeypatch.setattr(topt, "ADAFACTOR_SLICE", slice_entries)
+        params = {k: torch.tensor(v).to(dt) for k, v in init.items()}
+        specs = {k: ParamSpec(s, (None,) * len(s), dtype) for k, s in shapes.items()}
+        state = init_param_tree(topt.adafactor_state_specs(specs, dtype), torch.Generator(),
+                                torch.device("cpu"))
+        norms = []
+        for i, grads in enumerate(steps):
+            params, state, gnorm = topt.adafactor_update(
+                topt.AdafactorConfig(), {k: torch.tensor(v) for k, v in grads.items()},
+                state, params, topt.cosine_schedule(i + 5, peak_lr=1e-2, warmup=4, total=20))
+            norms.append(float(gnorm))
+        return params, state, norms
+
+    assert topt._slice_rows(torch.empty(shapes["experts"])) == 0
+    monkeypatch.setattr(topt, "ADAFACTOR_SLICE", 1000)
+    assert topt._slice_rows(torch.empty(shapes["experts"])) == 1
+    assert topt._slice_rows(torch.empty(shapes["head"])) == 0
+    (wp, ws, wn), (sp, ss, sn) = run(1 << 27), run(1000)
+    def bits(x):
+        return x.reshape(-1).view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+    for (path, a), (_, b) in zip(flatten(ws["slots"]), flatten(ss["slots"])):
+        assert torch.equal(bits(a), bits(b)), path
+    for k in ("head", "norm"):
+        assert torch.equal(bits(wp[k]), bits(sp[k])), k
+    a, b = wp["experts"], sp["experts"]
+    if dtype == "float32":
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0,
+                                   atol=1e-6 * a.abs().max().item())
+    else:
+        assert (bits(a).int() - bits(b).int()).abs().max() <= 1
+    np.testing.assert_allclose(sn, wn, rtol=1e-6)
+
+
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
 def test_opt_state_specs_match_jax(optimizer):
     jcfg = jreduced_config("yi-6b").replace(optimizer=optimizer, opt_dtype="bfloat16")

@@ -43,8 +43,11 @@ from repro_torch.configs import reduced_config
 from repro_torch.launch import train
 from repro_torch.launch.serve import scale_config
 from repro_torch.models import transformer as ttf
+from repro_torch.runtime import optim as topt
 from repro_torch.runtime import steps as tsteps
+from repro_torch.runtime.optim import cosine_schedule as tcosine_schedule
 from repro_torch.runtime.optim import opt_state_specs as topt_state_specs
+from repro_torch.runtime.optim import opt_update as topt_update
 from repro_torch.runtime.tree import flatten, leaves, tree_map, unflatten
 from repro_torch.weights import opt_state_from_jax, params_from_jax
 
@@ -641,6 +644,157 @@ def test_bf16_accumulation_is_the_jax_packages_bit_for_bit(n_micro):
         assert a.dtype == torch.bfloat16
         np.testing.assert_array_equal(a.view(torch.int16).numpy(),
                                       np.asarray(w).view(np.int16))
+
+
+def _two_pass_step(cfg, hp):
+    """The train step as the port ran it before each leaf's gradient was
+    taken into its accumulator as made, kept here to hold the hooked step
+    to: each microbatch's whole gradient tree from ``torch.autograd.grad``,
+    then added by ``steps._accumulate``, the mean's division, the
+    optimizer."""
+    n_micro, acc_dt = cfg.train_microbatches, getattr(torch, cfg.grad_accum_dtype)
+
+    def micro_grads(params, flat, mb):
+        loss, _ = ttf.train_loss(cfg, params, mb)
+        return loss.detach(), list(torch.autograd.grad(loss, flat))
+
+    def step_fn(params, opt_state, batch, step):
+        lr = tcosine_schedule(step, peak_lr=hp.peak_lr, warmup=hp.warmup,
+                              total=hp.total_steps)
+        flat = leaves(params)
+        for x in flat:
+            x.requires_grad_(True)
+        try:
+            if n_micro == 1:
+                loss, grads = micro_grads(params, flat, {k: v[0] for k, v in batch.items()})
+            else:
+                grads, lsum = None, None
+                for m in range(n_micro):
+                    loss, g = micro_grads(params, flat, {k: v[m] for k, v in batch.items()})
+                    grads = tsteps._accumulate(grads, g, acc_dt)
+                    lsum = loss.float() if lsum is None else lsum + loss
+                loss = lsum / n_micro
+                for a in grads:
+                    a.div_(n_micro)
+        finally:
+            for x in flat:
+                x.requires_grad_(False)
+        params, opt_state, gnorm = topt_update(cfg, unflatten(params, grads), opt_state,
+                                               params, lr)
+        return params, opt_state, {"loss": loss, "gnorm": gnorm}
+    return step_fn
+
+
+@pytest.mark.parametrize("n_micro", [1, 2, 16])
+@pytest.mark.parametrize("accum", ["float32", "bfloat16"])
+def test_gradients_taken_as_made_are_the_two_pass_accumulation_bit_for_bit(monkeypatch,
+                                                                          accum, n_micro):
+    """``make_train_step`` takes each leaf's gradient into its accumulator
+    from a hook as autograd makes it; two steps of deepseek-v3-671b's
+    reduced config at 3 layers (a stacked stage of 2 dense MLA layers, a
+    one-layer MoE stage, MTP; Adafactor with bf16 state) over ``n_micro``
+    microbatches leave the parameters, the state, the loss and the gnorm
+    bit-identical to the two-pass step's (``_two_pass_step``), with fp32 or
+    bf16 accumulators; ``_accumulate`` is called once a leaf a microbatch
+    (none with one microbatch), and no leaf keeps a ``.grad``."""
+    _, cfg = _configs("deepseek-v3-671b", dict(SCALE, n_layers=3), train_microbatches=n_micro,
+                      grad_accum_dtype=accum, opt_dtype="bfloat16")
+    assert cfg.layer_moe == (False, False, True) and cfg.mtp_depth == 1
+    pspecs = ttf.param_specs(cfg)
+    state = train.init_state((pspecs, topt_state_specs(cfg, pspecs)), torch.device("cpu"), 3)
+    assert any(x.shape[0] == 2 for x in leaves(state[0]["stages"]))
+    rng = np.random.default_rng(5)
+    batches = [{k: torch.from_numpy(v) for k, v in _step_batch(cfg, rng, m=n_micro, b=1,
+                                                                t=24).items()}
+               for _ in range(2)]
+    calls = []
+    accumulate = tsteps._accumulate
+
+    def counted(acc, grads, dtype):
+        calls.append(len(grads))
+        return accumulate(acc, grads, dtype)
+    runs = []
+    for make in (tsteps.make_train_step, _two_pass_step):
+        p, o = tree_map(torch.clone, state)
+        step = make(cfg, tsteps.TrainHParams(**HP))
+        if make is tsteps.make_train_step:
+            monkeypatch.setattr(tsteps, "_accumulate", counted)
+        metrics = []
+        for i, batch in enumerate(batches):
+            p, o, m = step(p, o, batch, i)
+            metrics.append((m["loss"].clone(), m["gnorm"].clone()))
+        monkeypatch.setattr(tsteps, "_accumulate", accumulate)
+        runs.append((p, o, metrics))
+    n_leaves = len(leaves(state[0]))
+    assert calls == ([] if n_micro == 1 else [1] * (2 * n_micro * n_leaves))
+    (p_a, o_a, m_a), (p_b, o_b, m_b) = runs
+    assert all(x.grad is None for x in leaves(p_a))
+    for (la, ga), (lb, gb) in zip(m_a, m_b):
+        assert torch.equal(la, lb) and torch.equal(ga, gb)
+    for (path, a), b in zip(flatten((p_a, o_a)), leaves((p_b, o_b))):
+        assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)), path
+
+
+ADAFACTOR_CUT_SLICE = 1000
+
+
+@pytest.fixture(scope="module", params=list(ADAFACTOR_CASES))
+def adafactor_moe_cut_steps(request):
+    """``_three_steps`` of chip_smoke's deepseek-v3-671b cut at ``SCALE``
+    widths: one MoE layer (``moe_layers=(True,)``) and the MTP module, two
+    microbatches, in one of ``ADAFACTOR_CASES``' dtypes, Adafactor walking
+    each factored leaf with lead axes past ``ADAFACTOR_CUT_SLICE`` entries
+    in slices (the stacked [1, 4, 128, 64] expert leaves, an expert a
+    slice)."""
+    accum, state = ADAFACTOR_CASES[request.param][:2]
+    jcfg, tcfg = _configs("deepseek-v3-671b", dict(SCALE, n_layers=1), train_microbatches=2,
+                          grad_accum_dtype=accum, opt_dtype=state, moe_layers=(True,))
+    assert tcfg.optimizer == "adafactor" and tcfg.mla is not None and tcfg.mtp_depth == 1
+    assert tcfg.layer_moe == (True,) and jcfg.layer_moe == (True,)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(topt, "ADAFACTOR_SLICE", ADAFACTOR_CUT_SLICE)
+        w_in = ttf.param_specs(tcfg)["stages"][0]["u0"]["ffn"]["w_in"]
+        assert topt._slice_rows(torch.empty(w_in.shape)) == 1
+        return request.param, _three_steps(jcfg, tcfg)
+
+
+@pytest.mark.parametrize("step", [0, 1, 2])
+def test_adafactor_steps_of_the_moe_cut_match_jax(adafactor_moe_cut_steps, step):
+    """The cut that phase 36 trains (its first MoE layer with MTP) against
+    the JAX package, with the expert leaves' Adafactor in slices, at
+    ``test_adafactor_steps_match_jax``'s tolerances: loss and gnorm within
+    1e-5, lr within 1e-6, slots and parameters within the case's."""
+    case, steps = adafactor_moe_cut_steps
+    _, _, slot_tol, param_tol = ADAFACTOR_CASES[case]
+    jp, jo, jm, tm, (tp, to) = steps[step]
+    for key in ("loss", "gnorm"):
+        np.testing.assert_allclose(tm[key], jm[key], rtol=1e-5, err_msg=key)
+    np.testing.assert_allclose(tm["lr"], jm["lr"], rtol=1e-6)
+    _assert_tree_close(jp, tp, param_tol)
+    _assert_tree_close(jo["slots"], to["slots"], slot_tol)
+    assert int(to["count"]) == int(jo["count"]) == step + 1
+
+
+def test_deepseek_v3_moe_cut_has_14_05_b_parameters():
+    """chip_smoke's deepseek-v3-671b cut (``depth_cut(..., 1,
+    moe_layers=(True,))``) counted from its ``ParamSpec``s, nothing drawn,
+    against a hand count: the embedding and the untied head, the final
+    norm, one MoE layer (MLA: q rank 1536, kv rank 512, qk 128 + 64, v 128
+    over 128 heads; a router over 256 experts, 256 gated experts of d_ff
+    2048 and one shared; two norms) and the MTP module (its projection of
+    2 x 7168, three norms, and a dense MLA layer of d_ff 18432)."""
+    cs = _chip_smoke()
+    whole, cut = cs.depth_cut("deepseek-v3-671b", 1, moe_layers=(True,))
+    assert whole.layer_moe[3] and not whole.layer_moe[2] and cut.layer_moe == (True,)
+    d, v, h, e, f = 7168, 129280, 128, 256, 2048
+    mla = (d * 1536 + 1536 + 1536 * h * 192 + d * (512 + 64) + 512 + 512 * h * (128 + 128)
+           + h * 128 * d)
+    moe_layer = mla + 2 * d + d * e + 3 * e * d * f + 3 * d * f
+    mtp = 2 * d * d + 3 * d + mla + 2 * d + 3 * d * 18432
+    want = 2 * v * d + d + moe_layer + mtp
+    assert (moe_layer, mtp) == (11_507_286_016, 686_265_344)
+    assert cs.param_count(cut) == want == 14_046_916_608
+    assert round(want / 1e9, 2) == 14.05
 
 
 def _chip_smoke():
