@@ -85,7 +85,8 @@ Phases, each of which raises on failure (exit code != 0):
                tokens, layer 1's window cut to 256; the meta tokens'
                gradient too), musicgen's (d = 64, 4 codebooks) and
                gemma3-27b's (d = 128, group 2, a local layer with its
-               window cut to 256 so that it masks, then a global one), each
+               window cut to 256 so that it masks, then a global one) and
+               deepseek-7b's (d = 128, MHA, a 102,400-token vocabulary), each
                with its K2 bwd launches counted; at gemma3's widths both
                sides' attention gradients are also read against a plain
                step in fp32 on the same weights (upcast) and batch, by leaf
@@ -336,6 +337,26 @@ Phases, each of which raises on failure (exit code != 0):
                (deepseek-v3 widths, 1 dense layer and the MTP module, fp32,
                2 x 512 tokens: loss, ce, mtp, every gradient leaf, planted
                faults rejected)
+ 37. train-dense-whole  the same step at TRAIN's shape (seq 4096, global
+               batch 8, each config's own 8 microbatches of one sequence) on
+               Yi-6B whole (32 layers, 6.061 B parameters) and deepseek-7b
+               whole (30 layers, MHA, 6.910 B) under the reference's
+               Adafactor (``get_config(arch).replace(optimizer="adafactor")``;
+               fp32 state and fp32 accumulation as published, asserted),
+               each after its memory reckoning from its ``ParamSpec``s (the
+               gate: under 80 GB; K2 2048 and 1920, K2 bwd 1024 and 960);
+               then Yi-6B's whole training state through a checkpoint and
+               back, as the train launcher drives it: an async
+               ``CheckpointManager`` save (keep 1) with the pipeline's
+               cursor in a fresh directory under the checkout (on a disk,
+               with room, else the phase fails), one more step while the
+               write runs (its loss, gnorm and a host copy of every leaf
+               kept), the state dropped, ``train._restore`` onto the card
+               (checksums verified), and the step rerun from the restored
+               state and cursor: loss and gnorm bit-identical, every
+               parameter and Adafactor leaf ``torch.equal``; the snapshot's,
+               the write's, the overlapping step's and the restore's times
+               and the bytes on disk printed
 serve_model counts one K2 launch per attention-bearing layer of a GQA
 model, and none for MLA.
 The whole shapes (phases 4, 11, 14, 17, 19-21) are held against the plain
@@ -399,6 +420,7 @@ from repro_torch.models import attention, moe  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.launch import mesh as mesh_launch  # noqa: E402
 from repro_torch.runtime import compress, optim  # noqa: E402
+from repro_torch.runtime.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.runtime.elastic import make_plan_mesh, plan_mesh  # noqa: E402
 from repro_torch.runtime.fault import FaultPlan, WorkerLoss  # noqa: E402
 from repro_torch.runtime.pipeline import DataPipeline, PipelineConfig  # noqa: E402
@@ -1175,12 +1197,14 @@ TRAIN_CHECK = dict(layers=2, seq=1024, batch=8, micro=8)
 # 1024 to 256 so that it masks at seq 1024 + 128), musicgen-large's
 # (d = 64, MHA, 4 codebooks) and gemma3-27b's (d = 128, group 2, GeGLU,
 # scaled embeddings, a 262,144-token vocabulary; a local layer, its window
-# cut from 1024 to 256 so that it masks at seq 1024, then a global one):
+# cut from 1024 to 256 so that it masks at seq 1024, then a global one) and
+# deepseek-7b's (d = 128, MHA: 32 kv heads, a 102,400-token vocabulary; the
+# first MHA train shape at d = 128 held inside a model):
 # (arch, config replacements)
 TRAIN_CHECKS = [("yi-6b", {}), ("phi-3-vision-4.2b", {}),
                 ("h2o-danube-3-4b", dict(windows=(512, 512))),
                 ("hymba-1.5b", dict(windows=(0, 256))), ("musicgen-large", {}),
-                ("gemma3-27b", dict(windows=(256, 0)))]
+                ("gemma3-27b", dict(windows=(256, 0))), ("deepseek-7b", {})]
 # flash vs plain attention, one step from the same bf16 weights, relative
 # differences: the loss (an fp32 mean over 8K tokens) and the gnorm (over
 # every parameter) read at most 2.43e-05 and 1.79e-04 over Yi-6B's,
@@ -1195,7 +1219,10 @@ TRAIN_CHECKS = [("yi-6b", {}), ("phi-3-vision-4.2b", {}),
 # (hymba's meta tokens), on the same card: the limits stand.  gemma3's
 # widths (window 256, then a global layer) read loss 2.51e-06, gnorm
 # 1.34e-04, gradients by norm at most 4.39e-04 and by largest entry 1.88e-02
-# (the global layer's wk; the same in two calls), on the same card
+# (the global layer's wk; the same in two calls), on the same card.
+# deepseek-7b's widths (MHA) read loss 1.01e-05, gnorm 3.85e-05, gradients
+# by norm at most 3.50e-04 (wq) and by largest entry 6.67e-03 (wk), the
+# same in two calls on the same card: the limits stand
 TRAIN_CHECK_TOL = dict(loss=1e-4, gnorm=1e-3, attn_norm=2e-3, attn_max=2e-2)
 # the arch whose flash and plain bf16 attention gradients are also each read
 # against a plain fp32 step's on the same weights (upcast) and batch, to
@@ -1312,14 +1339,17 @@ def model_flops(cfg, seq, batch) -> float:
 
 
 def _timed_steps(tag, cfg, device, *, batch=TRAIN["batch"], mesh=None, after=0,
-                 **step_kw):
+                 then=None, **step_kw):
     """Phase 12's step (``TRAIN``'s seq, flash, seed 0) from fresh weights at
     a global ``batch``, with ``mesh`` the sharded one and ``step_kw`` for
     ``make_train_step``:
     1 warm-up and 3 timed steps, then ``after`` untimed ones (for checks
     that would slow a timed step), peak memory from before the weights are
     drawn, K2 and K2 bwd launches over the run's ``n_steps`` steps (the
-    counts as measured), finite loss and gnorm."""
+    counts as measured), finite loss and gnorm.  Then ``then(step_fn,
+    [params, opt], pipe, n_steps, step ms)`` if given, its result as
+    ``then`` (it takes the state over: the list is the last reference to
+    it here); the readings above are taken before it runs."""
     c = TRAIN
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1329,7 +1359,7 @@ def _timed_steps(tag, cfg, device, *, batch=TRAIN["batch"], mesh=None, after=0,
     state_bytes = torch.cuda.memory_allocated() - base    # weights, moments, batches
     n_steps = c["warmup_steps"] + c["timed_steps"] + after
     fa.launches = fa.bwd_launches = 0
-    seconds, losses, gnorms = [], [], []
+    seconds, losses, gnorms, then_report = [], [], [], None
     try:
         for step in range(n_steps):
             params, opt, metrics, dt = train.run_step(step_fn, params, opt, next(pipe),
@@ -1339,22 +1369,25 @@ def _timed_steps(tag, cfg, device, *, batch=TRAIN["batch"], mesh=None, after=0,
             gnorms.append(float(metrics["gnorm"]))
             print(f"[{tag}]   step {step} {dt * 1e3:.1f} ms loss {losses[-1]:.4f} "
                   f"gnorm {gnorms[-1]:.4f}", flush=True)
+        launches = {"fwd": fa.launches, "bwd": fa.bwd_launches}
+        peak = torch.cuda.max_memory_allocated()
+        if mesh is not None and not all(hasattr(x, "placements") for x in leaves(params)):
+            raise SystemExit(f"[{tag}] the step returned plain tensors: not the sharded step")
+        if not all(map(torch.isfinite, torch.tensor(losses + gnorms))):
+            raise SystemExit(f"[{tag}] non-finite loss or gnorm: {losses} {gnorms}")
+        step_s = sum(seconds[c["warmup_steps"]:][:c["timed_steps"]]) / c["timed_steps"]
+        if then is not None:
+            held, params, opt, metrics = [params, opt], None, None, None
+            then_report = then(step_fn, held, pipe, n_steps, step_s * 1e3)
     finally:
         pipe.stop()
-    if mesh is not None and not all(hasattr(x, "placements") for x in leaves(params)):
-        raise SystemExit(f"[{tag}] the step returned plain tensors: not the sharded step")
     del params, opt, step_fn
     torch.cuda.empty_cache()
-    if not all(map(torch.isfinite, torch.tensor(losses + gnorms))):
-        raise SystemExit(f"[{tag}] non-finite loss or gnorm: {losses} {gnorms}")
-    step_s = sum(seconds[c["warmup_steps"]:][:c["timed_steps"]]) / c["timed_steps"]
-    peak = torch.cuda.max_memory_allocated()
     return dict(step_ms=step_s * 1e3, warmup_ms=seconds[0] * 1e3,
                 tokens_per_s=c["seq"] * batch / step_s,
                 peak_mem_gb=peak / 1e9, losses=losses,
                 gnorms=gnorms, n_steps=n_steps, state_bytes=state_bytes,
-                peak_over_base_bytes=peak - base,
-                launches={"fwd": fa.launches, "bwd": fa.bwd_launches})
+                peak_over_base_bytes=peak - base, launches=launches, then=then_report)
 
 
 def train_launches(cfg, n_steps: int) -> dict:
@@ -1392,14 +1425,14 @@ def _optimizer_desc(cfg) -> str:
             f"{short[cfg.grad_accum_dtype]} accumulation")
 
 
-def _train_run(tag, cfg, device, smi, what, batch=TRAIN["batch"]):
+def _train_run(tag, cfg, device, smi, what, batch=TRAIN["batch"], then=None):
     """``_timed_steps`` on ``cfg`` at ``TRAIN``'s seq and a global ``batch``
-    with its own microbatches: K2 and K2 bwd launches equal to
-    ``train_launches``, the peak under ``MEMORY_GB``; step ms, tokens/s
+    with its own microbatches (and ``then``): K2 and K2 bwd launches equal
+    to ``train_launches``, the peak under ``MEMORY_GB``; step ms, tokens/s
     (positions: an image position counts, a frame of codebooks counts once)
     and the model-FLOP share printed."""
     c = TRAIN
-    r = _timed_steps(tag, cfg, device, batch=batch)
+    r = _timed_steps(tag, cfg, device, batch=batch, then=then)
     n_steps, launches, micro = r["n_steps"], r["launches"], cfg.train_microbatches
     want = train_launches(cfg, n_steps)
     if launches != want:
@@ -1416,7 +1449,7 @@ def _train_run(tag, cfg, device, smi, what, batch=TRAIN["batch"]):
     n_params = param_count(cfg)
     report = dict(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s, mfu=mfu,
                   peak_mem_gb=peak / 1e9, losses=losses, gnorms=gnorms,
-                  launches=launches, params=n_params, card=smi)
+                  launches=launches, params=n_params, card=smi, then=r["then"])
     n_attn = attention_layers(cfg)
     extra = (f", {cfg.image_tokens} of them image positions" if cfg.frontend == "vision"
              else f", {cfg.n_codebooks} codebooks a position" if cfg.n_codebooks > 1
@@ -2938,6 +2971,21 @@ MLA_CHECK = dict(layers=1, seq=512, batch=2, seed=25)
 MLA_CHECK_TOL = dict(loss=5e-7, norm=3e-5, max=4e-5)
 MLA_FAULT_LEAF = "mtp/block/attn/wkv_b"
 MEMORY_GB = 80
+# phase 37: Yi-6B and deepseek-7b trained whole at TRAIN's shape, each with
+# its own 8 microbatches, under the reference's Adafactor (its config's
+# ``optimizer`` field, as deepseek-v3-671b's config sets it): the only knob
+# changed, fp32 state and fp32 accumulation as published.  At their AdamW
+# (fp32 moments) they need ~16 B a parameter, ~97 and ~110 GB:
+# {record key: arch}
+TRAIN_DENSE_WHOLE = {"yi": "yi-6b", "deepseek7b": "deepseek-7b"}
+# the peak that the memory plan reckons (``_dense_whole_reckoning``), GB:
+# bf16 parameters, the fp32 accumulator, Adafactor's state, the stacked
+# layers' bf16 gradients that ``transformer._layers``' unbind holds until
+# the last layer's backward and the largest leaf's stack beside them, then
+# activations and logits
+DENSE_WHOLE_RECKONED_GB = {"yi-6b": (54, 60), "deepseek-7b": (61, 67)}
+# the run whose whole training state goes through a checkpoint and back
+ROUND_TRIP = "yi"
 
 
 def attention_layers(cfg) -> int:
@@ -3576,6 +3624,204 @@ def phase_train_moe_mla(device, smi):
     return reports, checks
 
 
+def _dense_whole_reckoning(tag, cfg, seq):
+    """Print what a dense model trained whole holds at its step's peak, as
+    the memory plan reckons it from its ``ParamSpec``s (one sequence a
+    microbatch): bf16 parameters, the fp32 accumulator, Adafactor's state,
+    the stacked layers' bf16 gradients (``transformer._layers`` takes a
+    stage's layers by one ``unbind`` a leaf, whose backward stacks them only
+    once the last layer's have come), the largest leaf's stack beside them
+    (``runtime/steps.py`` then adds it into its accumulator as it is, no
+    fp32 copy), and activations and logits: the layer inputs that remat
+    keeps, the fp32 logits and their gradient, one layer's recompute.
+    Returns {part: bytes}."""
+    specs = flatten(tfm.param_specs(cfg))
+    n = sum(math.prod(x.shape) for _, x in specs)
+    stacked = sum(math.prod(x.shape) for path, x in specs if path.startswith("stages/"))
+    path, largest = max(specs, key=lambda item: math.prod(item[1].shape))
+    state = sum(math.prod(x.shape) for x in leaves(optim.opt_state_specs(
+        cfg, tfm.param_specs(cfg))))
+    logits = 4 * seq * cfg.vocab
+    inputs = 2 * cfg.n_layers * seq * cfg.d_model
+    layer = 2 * seq * (3 * cfg.d_ff + 4 * cfg.d_model + 2 * cfg.n_heads * cfg.head_dim)
+    parts = {"parameters": 2 * n, "fp32 accumulator": 4 * n, "Adafactor state": 4 * state,
+             "stacked layers' bf16 gradients": 2 * stacked,
+             f"the largest leaf's stack ({path} {list(largest.shape)})":
+                 2 * math.prod(largest.shape),
+             "activations and logits": inputs + 2 * logits + layer}
+    lo, hi = DENSE_WHOLE_RECKONED_GB[cfg.name]
+    print(f"[{tag}] {cfg.name} whole, the memory plan: {n / 1e9:.3f} B parameters, "
+          f"{(state - 1) / 1e9:.4f} B Adafactor entries; "
+          + "; ".join(f"{k} {v / 1e9:.2f} GB" for k, v in parts.items())
+          + f" (remat's layer inputs {inputs / 1e9:.2f}, fp32 logits {logits / 1e9:.2f} and "
+          f"their gradient, one layer's recompute {layer / 1e9:.2f}); sum "
+          f"{sum(parts.values()) / 1e9:.2f} GB, reckoned peak {lo}-{hi} GB, gate "
+          f"{MEMORY_GB} GB", flush=True)
+    return parts
+
+
+class _TimedCheckpoints(CheckpointManager):
+    """The launcher's ``CheckpointManager``, recording how long its last
+    write took (the npz and each leaf's sha256 beside it, the manifest, the
+    commit) on its writer thread, and its last load (the npz read, each
+    leaf's sha256 checked)."""
+    write_s = load_s = None
+
+    def _write(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        super()._write(*args, **kwargs)
+        self.write_s = time.perf_counter() - t0
+
+    def _load(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = super()._load(*args, **kwargs)
+        self.load_s = time.perf_counter() - t0
+        return out
+
+
+def _disk_dir(need_bytes) -> Path:
+    """A fresh directory under the checkout for a checkpoint of
+    ``need_bytes``: not on a tmpfs (its file would take host memory beside
+    the snapshot and the load), with room for it, else the phase fails."""
+    root = Path(tempfile.mkdtemp(prefix=".chip_smoke_ckpt-", dir=ROOT))
+    mounts = [line.split()[1:3] for line in Path("/proc/mounts").read_text().splitlines()]
+    fs = max((m for m in mounts if str(root).startswith(m[0])), key=lambda m: len(m[0]))[1]
+    free = shutil.disk_usage(root).free
+    if fs in ("tmpfs", "ramfs") or free < 1.1 * need_bytes:
+        shutil.rmtree(root)
+        raise SystemExit(f"[train-dense-whole] {root} is on a {fs} with {free / 1e9:.1f} GB "
+                         f"free; the checkpoint needs {need_bytes / 1e9:.1f} GB on a disk")
+    return root
+
+
+def _snapshot_on_card_s(tree) -> float:
+    """Seconds to snapshot ``tree`` as the checkpoint took it before it
+    widened on the host: each bf16 leaf widened to fp32 on the card, then
+    copied to the host (the arrays dropped before the real snapshot)."""
+    t0 = time.perf_counter()
+    arrays = [x.detach().float().to("cpu", copy=True).numpy() for x in leaves(tree)]
+    seconds = time.perf_counter() - t0
+    del arrays
+    return seconds
+
+
+def _checkpoint_round_trip(tag, cfg, device, timed_ms, step_fn, state, pipe, step):
+    """The launcher's checkpoint path on a whole model's training state, as
+    ``launch/train.py::_rank_run`` drives it: an async save of params and
+    state after the timed steps with the pipeline's cursor (``keep=1``); one
+    more step while the write runs, its loss, gnorm and a host copy of every
+    leaf (in its dtype as held) kept; the write waited for, the state and
+    the step dropped, ``train._restore`` onto the card (checksums verified),
+    and that step again from the restored state and cursor.  The rerun's
+    loss and gnorm must be bit-identical and every parameter and state leaf
+    ``torch.equal`` to its host copy.  The snapshot is also timed as it was
+    taken before (``_snapshot_on_card_s``).  ``state`` is [params, opt], emptied
+    here, so nothing else holds the first run's state.  Returns the
+    readings."""
+    params, opt = state
+    state.clear()
+    tree = {"params": params, "opt": opt}
+    need = sum(4 * x.numel() if x.dtype == torch.bfloat16 else x.numel() * x.element_size()
+               for x in leaves(tree))
+    root, ckpt = _disk_dir(need), None
+    try:
+        ckpt = _TimedCheckpoints(root, keep=1)
+        on_card_s = _snapshot_on_card_s(tree)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save(step, tree, extra={"pipeline": pipe.state()})
+        snapshot_s = time.perf_counter() - t0
+        del tree
+        params, opt, metrics, dt = train.run_step(step_fn, params, opt, next(pipe), step,
+                                                  device)
+        want = {k: metrics[k].detach().cpu() for k in ("loss", "gnorm")}
+        cursor = pipe.state()
+        held = [(path, x.to("cpu", copy=True)) for path, x in
+                flatten({"params": params, "opt": opt})]
+        held_bytes = sum(x.numel() * x.element_size() for _, x in held)
+        t0 = time.perf_counter()
+        ckpt.wait()
+        waited_s = time.perf_counter() - t0
+        disk_bytes = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+        del params, opt, metrics
+        torch.cuda.empty_cache()
+        pspecs = tfm.param_specs(cfg)
+        t0 = time.perf_counter()
+        params, opt, restored = train._restore(
+            ckpt, (pspecs, optim.opt_state_specs(cfg, pspecs)), None, None, pipe, device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if restored != step:
+            raise SystemExit(f"[{tag}] restored step {restored}, saved {step}")
+        params, opt, metrics, rerun_s = train.run_step(step_fn, params, opt, next(pipe),
+                                                       step, device)
+        got = {k: metrics[k].detach().cpu() for k in ("loss", "gnorm")}
+        if pipe.state() != cursor:
+            raise SystemExit(f"[{tag}] the restored pipeline's cursor moved to "
+                             f"{pipe.state()}, the first run's to {cursor}")
+        rerun = flatten({"params": params, "opt": opt})
+        if [path for path, _ in rerun] != [path for path, _ in held]:
+            raise SystemExit(f"[{tag}] the restored tree's leaves are not the saved tree's")
+        differ = [path for (path, x), (_, h) in zip(rerun, held)
+                  if not (x.dtype == h.dtype and torch.equal(x, h.to(device)))]
+        apart = [k for k in want if not torch.equal(got[k], want[k])]
+        if differ or apart:
+            raise SystemExit(f"[{tag}] {cfg.name}: the step resumed from the checkpoint is "
+                             f"not the uninterrupted step: {apart} apart ({got} vs {want}); "
+                             f"{len(differ)} of {len(held)} leaves differ: {differ[:8]}")
+        del params, opt, metrics, held, rerun
+    finally:
+        if ckpt is not None:              # no write outlives its directory
+            with contextlib.suppress(Exception):
+                ckpt.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"[{tag}] {cfg.name} whole, its training state through a checkpoint and back: "
+          f"async save after step {step} (snapshot {snapshot_s:.2f} s synchronous, "
+          f"{on_card_s:.2f} s with each bf16 leaf widened on the card first as before; "
+          f"write {ckpt.write_s:.2f} s on its "
+          f"thread, {waited_s:.2f} s waited for after the overlapping step and its "
+          f"{held_bytes / 1e9:.2f} GB host copy), {disk_bytes / 1e9:.3f} GB on disk; the "
+          f"overlapping step {dt * 1e3:.1f} ms beside the timed mean {timed_ms:.1f} ms; "
+          f"restore {restore_s:.2f} s (the npz read and every leaf's sha256 checked "
+          f"{ckpt.load_s:.2f} s, then the upload); the step rerun "
+          f"from the restored state and cursor in {rerun_s * 1e3:.1f} ms: loss "
+          f"{float(got['loss']):.6f} and gnorm {float(got['gnorm']):.6f} bit-identical, "
+          f"every parameter and state leaf torch.equal", flush=True)
+    return dict(snapshot_s=snapshot_s, snapshot_on_card_s=on_card_s,
+                write_s=ckpt.write_s, waited_s=waited_s, overlap_step_ms=dt * 1e3,
+                restore_s=restore_s, load_s=ckpt.load_s, rerun_step_ms=rerun_s * 1e3,
+                disk_bytes=disk_bytes,
+                loss=float(got["loss"]), gnorm=float(got["gnorm"]))
+
+
+def phase_train_dense_whole(device, smi):
+    """``TRAIN_DENSE_WHOLE``'s runs (``_train_run`` at ``TRAIN``'s shape, each
+    config's own 8 microbatches), each asserting bf16 params, fp32 state,
+    fp32 accumulation and remat under Adafactor, its memory reckoning
+    printed first and its model freed before the next is drawn; the
+    ``ROUND_TRIP`` run then carries its training state through a checkpoint
+    and back (``_checkpoint_round_trip``).  Returns {key: report}."""
+    tag, reports = "train-dense-whole", {}
+    for key, arch in TRAIN_DENSE_WHOLE.items():
+        cfg = get_config(arch).replace(optimizer="adafactor")
+        assert (cfg.optimizer, cfg.param_dtype, cfg.opt_dtype, cfg.grad_accum_dtype,
+                cfg.remat) == ("adafactor", "bfloat16", "float32", "float32", True), cfg
+        _dense_whole_reckoning(tag, cfg, TRAIN["seq"])
+        then = None
+        if key == ROUND_TRIP:
+            def then(step_fn, state, pipe, step, timed_ms, cfg=cfg):
+                return _checkpoint_round_trip(tag, cfg, device, timed_ms, step_fn, state,
+                                              pipe, step)
+        reports[key] = _train_run(tag, cfg, device, smi,
+                                  f"{arch} whole, {cfg.n_layers} layers", then=then)
+        lo, hi = DENSE_WHOLE_RECKONED_GB[arch]
+        print(f"[{tag}] {arch}: peak {reports[key]['peak_mem_gb']:.3f} GB against the "
+              f"reckoned {lo}-{hi} GB ({smi})", flush=True)
+        torch.cuda.empty_cache()
+    return reports
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3625,7 +3871,8 @@ def main() -> int:
     trained.update(phase_train_whole("train-whole", TRAIN_WHOLE, device, smi))
     cut, _ = phase_train_moe_mla(device, smi)
     trained.update(cut)
-    # {key}_train_launches: phases 34-36 over their 4 steps
+    trained.update(phase_train_dense_whole(device, smi))
+    # {key}_train_launches: phases 34-37 over their 4 steps
     whole_launches = {d: {f"{key}_train_launches": r["launches"][d]
                           for key, r in trained.items()} for d in ("fwd", "bwd")}
     # ds_launches: phases 26 and 27 (the ds-array and mesh paths launch none)
@@ -3651,7 +3898,10 @@ def main() -> int:
         # dryrun_launches: phase 32's pricing (0: meta tensors, shape rules);
         # hymba_, mamba2_, h2o_, phi3_ and musicgen_train_launches: phases
         # 34-35, each model trained whole over 4 steps; mixtral_, gemma3_ and
-        # deepseek_v3_train_launches: phase 36, each depth cut over 4 steps
+        # deepseek_v3_train_launches: phase 36, each depth cut over 4 steps;
+        # yi_ and deepseek7b_train_launches: phase 37, Yi-6B and deepseek-7b
+        # trained whole under Adafactor over 4 steps (not the checkpoint
+        # round trip's two steps after them)
         dict(name="flash_attention_fwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3678,7 +3928,7 @@ def main() -> int:
         # kernels and the C entry point that picks between them are in
         # flash_attention_bwd.cu (phase 10).  launches: the full-width train
         # run's (phase 12); sharded_ and dots_launches: phases 23 and 25;
-        # {model}_train_launches: phases 34-36
+        # {model}_train_launches: phases 34-37
         dict(name="flash_attention_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_bwd_wgmma.cuh",
              fp32_source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",

@@ -110,11 +110,15 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
 
 def _accumulate(acc, grads, dtype):
     """``acc`` plus ``grads`` leaf by leaf in ``dtype``, in place; for
-    ``acc`` None a copy of ``grads`` in ``dtype``."""
+    ``acc`` None a copy of ``grads`` in ``dtype``.  A gradient that
+    ``dtype`` widens (bf16 into fp32) is added as it is: it widens exactly,
+    so the sum is the cast one's, without an fp32 copy of the gradient
+    (5.77 GB for Yi-6B's stacked ``ffn/wg``); one that ``dtype`` narrows is
+    rounded first, as the reference rounds it."""
     if acc is None:
         return [g.to(dtype, copy=True) for g in grads]
     for a, g in zip(acc, grads):
-        a.add_(g.to(dtype))
+        a.add_(g if torch.promote_types(g.dtype, dtype) == dtype else g.to(dtype))
     return acc
 
 

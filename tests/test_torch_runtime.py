@@ -1,8 +1,9 @@
 """The port's training runtime against the JAX package's: the data
 pipeline (bit-identical batches, also across state/restore), checkpoints
-(the port's own round trip, keep-last-k, torn and corrupt fallbacks, and
-checkpoints crossing between the packages both ways), the optimizer state
-carried from JAX, and the straggler detector."""
+(the port's own round trip, keep-last-k, torn and corrupt fallbacks,
+checkpoints crossing between the packages both ways, and a train step
+resumed from an async checkpoint bit for bit), the optimizer state carried
+from JAX, and the straggler detector."""
 import json
 import threading
 
@@ -22,7 +23,9 @@ from repro.runtime.checkpoint import CheckpointManager as JCheckpointManager
 from repro.runtime.pipeline import DataPipeline as JDataPipeline
 from repro.runtime.pipeline import PipelineConfig as JPipelineConfig
 from repro_torch.configs import ShapeConfig, reduced_config
+from repro_torch.launch import train
 from repro_torch.models import transformer as ttf
+from repro_torch.runtime import checkpoint as ckpt_module
 from repro_torch.runtime import fault as tfault
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.optim import opt_state_specs
@@ -151,6 +154,35 @@ def test_checkpoint_falls_back_past_torn_or_corrupt(tmp_path, fault):
     assert manifest["step"] == 1 and torch.equal(tree["x"], torch.ones(4))
 
 
+def test_npz_members_read_as_np_load_reads_them(tmp_path):
+    """``checkpoint._npz_arrays`` gives the keys, dtypes, shapes and values
+    ``np.load`` gives for what ``np.savez`` writes (members of several
+    dims, a 0-d and an empty one, keys with "/"), read straight from the
+    file; a compressed npz is refused, and ``restore_latest`` falls back
+    past it."""
+    rng = np.random.default_rng(7)
+    arrays = {"stages/0/u0/w": rng.normal(size=(3, 5, 7)).astype(np.float32),
+              "count": np.array(9, np.int32), "empty": np.zeros((0, 4), np.float32),
+              "head": rng.integers(0, 100, (64,)).astype(np.int64)}
+    np.savez(tmp_path / "a.npz", **arrays)
+    with np.load(tmp_path / "a.npz") as z:
+        want = {k: z[k] for k in z.files}
+    got = dict(ckpt_module._npz_arrays(tmp_path / "a.npz"))
+    assert list(got) == list(want) == list(arrays)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype and got[k].shape == w.shape, k
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+    ck = CheckpointManager(tmp_path / "ck", async_save=False)
+    ck.save(1, {"x": torch.ones(4)})
+    ck.save(2, {"x": torch.full((4,), 2.0)})
+    newest = tmp_path / "ck" / "step_00000002" / "arrays.npz"
+    np.savez_compressed(newest, x=np.full((4,), 2.0, np.float32))
+    with pytest.raises(ValueError, match="compressed"):
+        dict(ckpt_module._npz_arrays(newest))
+    tree, manifest = ck.restore_latest({"x": torch.zeros(4)})
+    assert manifest["step"] == 1 and torch.equal(tree["x"], torch.ones(4))
+
+
 def test_port_checkpoint_restores_in_jax_bit_for_bit(tmp_path):
     tcfg, jcfg, jparams, params = _tparams(seed=1)
     opt = opt_state_from_jax(tcfg, jax.tree.map(np.asarray, jinit(
@@ -183,6 +215,53 @@ def test_jax_checkpoint_restores_in_the_port(tmp_path):
     for (path, a), (_, b) in zip(flatten(restored["params"]), flatten(want)):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b), path
     assert int(restored["opt"]["count"]) == 0
+
+
+def test_step_resumed_from_an_async_checkpoint_is_the_uninterrupted_step(tmp_path):
+    """Yi-6B's reduced config under Adafactor with bf16 params (fp32 state
+    and accumulation, 2 microbatches), driven as ``launch/train.py`` drives
+    it: two steps, an async ``CheckpointManager`` save of params and state
+    with the pipeline's cursor, a third step while the write waits in the
+    queue (the snapshot must be the state at save time), then a restore
+    through ``train._restore`` (checksums verified) and the third step
+    again from the restored state and cursor: its loss and gnorm equal the
+    uninterrupted step's, and every parameter and Adafactor slot is
+    ``torch.equal`` to it."""
+    _, cfg = _cfgs(optimizer="adafactor", param_dtype="bfloat16",
+                   compute_dtype="bfloat16", train_microbatches=2)
+    assert (cfg.opt_dtype, cfg.grad_accum_dtype) == ("float32", "float32")
+    cpu = torch.device("cpu")
+    shape = ShapeConfig("t", "train", 64, 4)
+    step_fn, specs, placements = train.build(cfg, shape, None, train.TrainHParams(
+        peak_lr=1e-3, warmup=2, total_steps=6))
+    params, opt = train.init_state(specs, cpu, 4)
+    pipe = DataPipeline(cfg, shape, PipelineConfig(seed=6, mean_doc_len=40), device=cpu)
+    ckpt = CheckpointManager(tmp_path, keep=1)
+    gate = threading.Event()
+    try:
+        pipe.start()
+        for step in range(2):
+            params, opt, _, _ = train.run_step(step_fn, params, opt, next(pipe), step, cpu)
+        ckpt._pool.submit(gate.wait)              # the write queues behind this
+        ckpt.save(2, {"params": params, "opt": opt}, extra={"pipeline": pipe.state()})
+        params, opt, want, _ = train.run_step(step_fn, params, opt, next(pipe), 2, cpu)
+        held = [(path, x.clone()) for path, x in flatten({"params": params, "opt": opt})]
+        gate.set()
+        ckpt.wait()
+        del params, opt
+        params, opt, step = train._restore(ckpt, specs, placements, None, pipe, cpu)
+        assert step == 2 and ckpt.all_steps() == [2]
+        params, opt, got, _ = train.run_step(step_fn, params, opt, next(pipe), step, cpu)
+    finally:
+        gate.set()
+        pipe.stop()
+    assert torch.equal(got["loss"], want["loss"]) and torch.equal(got["gnorm"], want["gnorm"])
+    resumed = flatten({"params": params, "opt": opt})
+    assert [p for p, _ in resumed] == [p for p, _ in held]
+    assert any(p.startswith("opt/slots/") and p.endswith("/vr") for p, _ in held)
+    for (path, a), (_, b) in zip(resumed, held):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
+    assert params["head"].dtype == torch.bfloat16
 
 
 # ------------------------------------------------ optimizer state from JAX

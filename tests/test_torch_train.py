@@ -579,10 +579,23 @@ ADAFACTOR_CASES = {"fp32 accumulation": ("float32", "float32", 2e-5, 2e-5),
                    "bf16 accumulation and slots": ("bfloat16", "bfloat16", 8e-3, 4e-3)}
 
 
-@pytest.fixture(scope="module", params=list(ADAFACTOR_CASES))
+# Yi-6B's and deepseek-7b's reduced configs at SCALE's widths under the
+# reference's Adafactor (``optimizer="adafactor"``, the only knob changed:
+# fp32 state and fp32 accumulation as published), as chip_smoke's phase 37
+# trains them whole; held at ADAFACTOR_CASES["fp32 accumulation"]
+ADAFACTOR_DENSE = ("yi-6b", "deepseek-7b")
+
+
+@pytest.fixture(scope="module", params=list(ADAFACTOR_CASES) + list(ADAFACTOR_DENSE))
 def adafactor_steps(request):
     """``_three_steps`` of deepseek-v3-671b at 3 layers, two microbatches, in
-    one of ``ADAFACTOR_CASES``' dtypes."""
+    one of ``ADAFACTOR_CASES``' dtypes; or of one of ``ADAFACTOR_DENSE``
+    under Adafactor, two microbatches, its published dtypes."""
+    if request.param in ADAFACTOR_DENSE:
+        jcfg, tcfg = _configs(request.param, train_microbatches=2, optimizer="adafactor")
+        assert (tcfg.opt_dtype, tcfg.grad_accum_dtype) == ("float32", "float32")
+        assert tcfg.mla is None and tcfg.moe is None and jcfg.optimizer == "adafactor"
+        return "fp32 accumulation", _three_steps(jcfg, tcfg)
     accum, state = ADAFACTOR_CASES[request.param][:2]
     jcfg, tcfg = _configs("deepseek-v3-671b", dict(SCALE, n_layers=3), train_microbatches=2,
                           grad_accum_dtype=accum, opt_dtype=state)
@@ -602,7 +615,8 @@ def test_adafactor_steps_match_jax(adafactor_steps, step):
     1.06e-3 and parameters 1.79e-3, held to one bf16 ulp (2^-8 ~ 3.9e-3).
     bf16 slots round once more on the way out: slots 4.37e-3, held to two
     ulps, parameters 2.51e-3.  Loss and gnorm read at most 1.6e-7 and
-    1.4e-6."""
+    1.4e-6.  Yi-6B's and deepseek-7b's dense configs (``ADAFACTOR_DENSE``)
+    are held at the fp32 case's limits."""
     case, steps = adafactor_steps
     _, _, slot_tol, param_tol = ADAFACTOR_CASES[case]
     jp, jo, jm, tm, (tp, to) = steps[step]
@@ -644,6 +658,45 @@ def test_bf16_accumulation_is_the_jax_packages_bit_for_bit(n_micro):
         assert a.dtype == torch.bfloat16
         np.testing.assert_array_equal(a.view(torch.int16).numpy(),
                                       np.asarray(w).view(np.int16))
+
+
+class _Ops(TorchDispatchMode):
+    """Records the aten ops dispatched under it."""
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.overloadpacket)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("n_micro", [2, 8])
+def test_widening_accumulation_adds_bf16_gradients_as_they_are_bit_for_bit(n_micro):
+    """``steps._accumulate`` of ``n_micro`` microbatches' bf16 gradients into
+    fp32 accumulators, spread over four decades: every entry bit-identical
+    to adding each gradient's fp32 cast (bf16 widens to fp32 exactly, so
+    the sum is one fp32 rounding either way), and after the first
+    microbatch's copy no cast is made: the adds take the bf16 gradient as
+    it is (an ``aten.add_`` each, no ``_to_copy``)."""
+    rng = np.random.default_rng(30 + n_micro)
+    shapes = [(64, 48), (3, 40, 24), (129,)]
+    grads = [[torch.from_numpy((rng.normal(size=s) * 10.0 ** rng.uniform(-3, 1, size=s))
+                               .astype(np.float32)).bfloat16() for s in shapes]
+             for _ in range(n_micro)]
+    want = [g.float() for g in grads[0]]
+    for gs in grads[1:]:
+        for a, g in zip(want, gs):
+            a.add_(g.to(torch.float32))
+    acc = tsteps._accumulate(None, grads[0], torch.float32)
+    with _Ops() as seen:
+        for gs in grads[1:]:
+            acc = tsteps._accumulate(acc, gs, torch.float32)
+    assert torch.ops.aten._to_copy not in seen.ops
+    assert seen.ops.count(torch.ops.aten.add_) == len(shapes) * (n_micro - 1)
+    for a, w in zip(acc, want):
+        assert a.dtype == torch.float32
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
 
 
 def _two_pass_step(cfg, hp):
@@ -795,6 +848,54 @@ def test_deepseek_v3_moe_cut_has_14_05_b_parameters():
     assert (moe_layer, mtp) == (11_507_286_016, 686_265_344)
     assert cs.param_count(cut) == want == 14_046_916_608
     assert round(want / 1e9, 2) == 14.05
+
+
+def _adafactor_entries(shape) -> int:
+    """Adafactor's state entries for a leaf of ``shape``: its row and column
+    factors (the shape less its last dim; less its second to last) where it
+    has two dims or more, else a second moment of its own shape."""
+    if len(shape) < 2:
+        return int(np.prod(shape))
+    return int(np.prod(shape[:-1])) + int(np.prod(shape[:-2] + shape[-1:]))
+
+
+@pytest.mark.parametrize("arch, counts", [
+    ("yi-6b", (6_061_035_520, 61_498_433)), ("deepseek-7b", (6_910_365_696, 64_622_141))])
+def test_dense_models_trained_whole_have_their_published_counts(arch, counts):
+    """Yi-6B's and deepseek-7b's parameters and their Adafactor state
+    entries, counted from ``ParamSpec``s with nothing allocated, against a
+    hand count: the embedding and the untied head, the final norm, and
+    ``n_layers`` stacked layers of GQA (or MHA) attention, a SwiGLU MLP and
+    two norm scales; Adafactor keeps a row and a column factor for each
+    leaf of two dims or more (a stacked norm's [L, d] too) and a second
+    moment for the final norm, and one step count; and phase 37's memory
+    plan (``chip_smoke._dense_whole_reckoning``) from those specs."""
+    cs = _chip_smoke()
+    cfg = cs.get_config(arch).replace(optimizer="adafactor")
+    L, d, h, kv, dh, f, v = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             cfg.head_dim, cfg.d_ff, cfg.vocab)
+    layer = d * h * dh + 2 * d * kv * dh + h * dh * d + 3 * d * f + 2 * d
+    params = 2 * v * d + d + L * layer
+    attn = (d * h + d * dh) + 2 * (d * kv + d * dh) + (h * dh + h * d)
+    state = d + 2 * (v + d) + L * (attn + 3 * (d + f)) + 2 * (L + d) + 1
+    pspecs = ttf.param_specs(cfg)
+    ospecs = topt_state_specs(cfg, pspecs)
+    got_state = sum(int(np.prod(s.shape)) for s in leaves(ospecs))
+    assert got_state == sum(_adafactor_entries(s.shape) for s in leaves(pspecs)) + 1
+    assert (cs.param_count(cfg), got_state) == (params, state) == counts
+    assert cfg.n_params() == params
+    assert (round(params / 1e9, 3), round(state / 1e9, 4)) == \
+        {"yi-6b": (6.061, 0.0615), "deepseek-7b": (6.910, 0.0646)}[arch]
+    # phase 37's memory plan from the same specs: bf16 parameters, the fp32
+    # accumulator, Adafactor's fp32 state, the stacked layers' bf16
+    # gradients and the largest leaf's stack (``ffn/wg``), in GB; the sum
+    # with activations and logits at the low end of the reckoned peak
+    parts = cs._dense_whole_reckoning("test", cfg, 4096)
+    assert [round(b / 1e9, 2) for b in list(parts.values())[:5]] == {
+        "yi-6b": [12.12, 24.24, 0.25, 11.07, 2.89],
+        "deepseek-7b": [13.82, 27.64, 0.26, 12.14, 2.71]}[arch]
+    lo, hi = cs.DENSE_WHOLE_RECKONED_GB[arch]
+    assert lo - 1 < sum(parts.values()) / 1e9 < hi
 
 
 def _chip_smoke():
