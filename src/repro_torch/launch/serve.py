@@ -27,6 +27,7 @@ import torch
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import transformer as tfm
+from repro_torch.runtime import trace
 from repro_torch.weights import init_params
 
 
@@ -103,19 +104,23 @@ def generate(cfg, params, prompts, *, gen_len: int, temperature: float,
     capacity = prompts.shape[-1] + gen_len + cfg.meta_tokens + n_image + 1
 
     t0 = time.perf_counter()
-    last_logits, cache = tfm.prefill(cfg, params, prompts, image_embeds, use_flash=True)
-    cache = tfm.grow_cache(cfg, cache, capacity)
+    with trace.span("serve.prefill"):
+        last_logits, cache = tfm.prefill(cfg, params, prompts, image_embeds, use_flash=True)
+    with trace.span("serve.grow_cache"):
+        cache = tfm.grow_cache(cfg, cache, capacity)
     synchronize(device)
     t_prefill = time.perf_counter() - t0
 
     step_logits = [last_logits[:, -1]]
-    tok = sample(step_logits[-1], generator, temperature)
+    with trace.span("serve.sample", 0):
+        tok = sample(step_logits[-1], generator, temperature)
     generated = [tok]
     t0 = time.perf_counter()
-    for _ in range(gen_len - 1):
+    for i in range(1, gen_len):
         logits, cache = tfm.decode_step(cfg, params, cache, tok[..., None])
         step_logits.append(logits[:, -1])
-        tok = sample(step_logits[-1], generator, temperature)
+        with trace.span("serve.sample", i):
+            tok = sample(step_logits[-1], generator, temperature)
         generated.append(tok)
     synchronize(device)
     t_decode = time.perf_counter() - t0

@@ -23,8 +23,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamSpec, apply_rope, causal_window_mask, rms_norm
-from repro_torch.runtime import shardctx
+from repro_torch.runtime import shardctx, trace
 from repro_torch.runtime.shardctx import constrain, local, set_slot_
+
+# bytes of the k and v that ``_repeat_kv`` has made since the last reset (a
+# rank's local shards under a mesh); a run reads it by differencing, as
+# ``kernels/flash_attention.py``'s ``launches``
+kv_repeat_bytes = 0
 
 
 # ---------------------------------------------------------------------------
@@ -141,11 +146,19 @@ def _repeat_kv(k, v, g: int):
     """KV heads tiled up to the query heads ("repeat-kv"), so the [B,H,T,S]
     scores stay on the head axis the queries shard over even where the kv
     heads cannot split as the queries do."""
+    global kv_repeat_bytes
     if g == 1:
         return k, v
     k = constrain(k.repeat_interleave(g, dim=2), _HEADS)
     v = constrain(v.repeat_interleave(g, dim=2), _HEADS)
+    kv_repeat_bytes += _local_bytes(k) + _local_bytes(v)
     return k, v
+
+
+def _local_bytes(x) -> int:
+    if shardctx.is_dtensor(x):
+        x = x.to_local()
+    return x.numel() * x.element_size()
 
 
 def _sdpa(q, k, v, mask, scale, by_rank: bool = False):
@@ -307,21 +320,22 @@ def _einsum_out(y, wo):
 def gqa_forward(p, x, positions, *, window: int, theta: float, n_meta: int,
                 return_kv: bool = False, use_flash: bool = False):
     """x: [B,T,D]; positions: [T] absolute. Returns y (and optionally (k, v))."""
-    dh = p["wq"].shape[-1]
-    q = _project(x, p["wq"], "heads")
-    k = _project(x, p["wk"], "kv")
-    v = _project(x, p["wv"], "kv")
-    q = apply_rope(q, positions, theta)
-    k = apply_rope(k, positions, theta)
-    if use_flash:
-        y = ops.flash_attention(q, k, v, window=window, n_meta=n_meta,
-                                scale=dh ** -0.5)
-    else:
-        y = _attend(q, k, v, positions, window, n_meta, dh ** -0.5)
-    out = _out_project(y, p["wo"])
-    if return_kv:
-        return out, (k, v)
-    return out
+    with trace.span("attention.forward"):
+        dh = p["wq"].shape[-1]
+        q = _project(x, p["wq"], "heads")
+        k = _project(x, p["wk"], "kv")
+        v = _project(x, p["wv"], "kv")
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+        if use_flash:
+            y = ops.flash_attention(q, k, v, window=window, n_meta=n_meta,
+                                    scale=dh ** -0.5)
+        else:
+            y = _attend(q, k, v, positions, window, n_meta, dh ** -0.5)
+        out = _out_project(y, p["wo"])
+        if return_kv:
+            return out, (k, v)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -338,43 +352,44 @@ def gqa_decode(p, x, cache, pos: int, *, window: int, theta: float, n_meta: int)
     key and value into ``cache`` in place at the slot (no copy of the whole
     cache per step) and returns the same tensors.
     """
-    dh = p["wq"].shape[-1]
-    positions = torch.arange(pos, pos + 1, device=x.device)   # no host copy
-    q = apply_rope(_project(x, p["wq"], "heads"), positions, theta)
-    k_new = apply_rope(_project(x, p["wk"], "kv"), positions, theta)
-    v_new = _project(x, p["wv"], "kv")
+    with trace.span("attention.decode"):
+        dh = p["wq"].shape[-1]
+        positions = torch.arange(pos, pos + 1, device=x.device)   # no host copy
+        q = apply_rope(_project(x, p["wq"], "heads"), positions, theta)
+        k_new = apply_rope(_project(x, p["wk"], "kv"), positions, theta)
+        v_new = _project(x, p["wv"], "kv")
 
-    k, v = cache["k"], cache["v"]
-    cap = k.shape[1]
-    slot = pos % cap if window > 0 else pos
-    set_slot_(k, 1, slot, k_new[:, 0])
-    set_slot_(v, 1, slot, v_new[:, 0])
+        k, v = cache["k"], cache["v"]
+        cap = k.shape[1]
+        slot = pos % cap if window > 0 else pos
+        set_slot_(k, 1, slot, k_new[:, 0])
+        set_slot_(v, 1, slot, v_new[:, 0])
 
-    n_prefix = cache["k_pre"].shape[1] if "k_pre" in cache else 0
-    idx = torch.arange(cap, device=x.device)
-    if window > 0:
-        age = torch.remainder(slot - idx, cap)       # 0 == just written
-        # ring slots are valid iff their absolute position (pos - age) has
-        # been written; prefix positions live in k_pre, never in the ring
-        valid = age <= pos - n_prefix
-    else:
-        valid = idx <= pos
-    mask = valid[None, None, :]                      # [1,1,S]
+        n_prefix = cache["k_pre"].shape[1] if "k_pre" in cache else 0
+        idx = torch.arange(cap, device=x.device)
+        if window > 0:
+            age = torch.remainder(slot - idx, cap)       # 0 == just written
+            # ring slots are valid iff their absolute position (pos - age) has
+            # been written; prefix positions live in k_pre, never in the ring
+            valid = age <= pos - n_prefix
+        else:
+            valid = idx <= pos
+        mask = valid[None, None, :]                      # [1,1,S]
 
-    pl = shardctx.placements(k.shape, _CACHE)        # None outside a scope
-    if pl is not None and any(d.is_shard(1) for d in pl):
-        # a sequence-split cache (flash-decoding): each rank attends over its
-        # shard of the cache, the mask split with it
-        y = _sdpa_over_keys(q, k, v, mask, dh ** -0.5, "kv_seq",
-                            cache.get("k_pre"), cache.get("v_pre"))
-    else:
-        if "k_pre" in cache:                         # never-evicted prefix (meta)
-            k = torch.cat([cache["k_pre"], k], dim=1)
-            v = torch.cat([cache["v_pre"], v], dim=1)
-            pre = torch.ones((1, 1, n_prefix), dtype=torch.bool, device=x.device)
-            mask = torch.cat([pre, mask], dim=-1)
-        y = _sdpa(q, k, v, mask, dh ** -0.5)
-    return _out_project(y, p["wo"]), cache
+        pl = shardctx.placements(k.shape, _CACHE)        # None outside a scope
+        if pl is not None and any(d.is_shard(1) for d in pl):
+            # a sequence-split cache (flash-decoding): each rank attends over its
+            # shard of the cache, the mask split with it
+            y = _sdpa_over_keys(q, k, v, mask, dh ** -0.5, "kv_seq",
+                                cache.get("k_pre"), cache.get("v_pre"))
+        else:
+            if "k_pre" in cache:                         # never-evicted prefix (meta)
+                k = torch.cat([cache["k_pre"], k], dim=1)
+                v = torch.cat([cache["v_pre"], v], dim=1)
+                pre = torch.ones((1, 1, n_prefix), dtype=torch.bool, device=x.device)
+                mask = torch.cat([pre, mask], dim=-1)
+            y = _sdpa(q, k, v, mask, dh ** -0.5)
+        return _out_project(y, p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -385,32 +400,33 @@ def mla_forward(cfg: ModelConfig, p, x, positions, *, n_meta: int = 0,
                 return_latent: bool = False):
     """x: [B,T,D]; positions: [T].  Returns y, and under ``return_latent``
     the decode cache's latent ``(c [B,T,rank], k_rope [B,T,rope])``."""
-    m = cfg.mla
-    b, t, _ = x.shape
-    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    with trace.span("attention.forward"):
+        m = cfg.mla
+        b, t, _ = x.shape
+        scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
 
-    q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    q = _project_local(q, p["wq_b"], "heads")
-    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+        q = _project_local(q, p["wq_b"], "heads")
+        q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    c, k_rope = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
-    c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
-    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # one head
+        c, k_rope = (x @ p["wkv_a"]).split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+        c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
+        k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)  # one head
 
-    kvd = _project_local(c, p["wkv_b"], "heads")                  # decompress
-    k_nope, v = kvd.split([m.qk_nope_dim, m.v_head_dim], dim=-1)
-    k = torch.cat([k_nope, k_rope.expand(b, t, cfg.n_heads, m.qk_rope_dim)], dim=-1)
-    q_full = torch.cat([q_nope, q_rope], dim=-1)
-    # placed once, as the scores take them: each of _attend's query chunks
-    # would otherwise resolve a pending sum of k and v again
-    k, v = constrain(k, _HEADS), constrain(v, _HEADS)
+        kvd = _project_local(c, p["wkv_b"], "heads")                  # decompress
+        k_nope, v = kvd.split([m.qk_nope_dim, m.v_head_dim], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b, t, cfg.n_heads, m.qk_rope_dim)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        # placed once, as the scores take them: each of _attend's query chunks
+        # would otherwise resolve a pending sum of k and v again
+        k, v = constrain(k, _HEADS), constrain(v, _HEADS)
 
-    y = _attend(q_full, k, v, positions, 0, n_meta, scale)
-    out = torch.einsum("bthk,hkd->btd", y, p["wo"])
-    if return_latent:
-        return out, (c, k_rope[:, :, 0, :])
-    return out
+        y = _attend(q_full, k, v, positions, 0, n_meta, scale)
+        out = torch.einsum("bthk,hkd->btd", y, p["wo"])
+        if return_latent:
+            return out, (c, k_rope[:, :, 0, :])
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -425,35 +441,36 @@ def mla_decode(cfg: ModelConfig, p, x, cache, pos: int):
     ``q_lat`` in the activation dtype, scores, softmax and ``o_lat`` in
     fp32, ``o_lat`` back in the activation dtype before ``w_uv``.
     """
-    m = cfg.mla
-    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
-    positions = torch.arange(pos, pos + 1, device=x.device)   # no host copy
+    with trace.span("attention.decode"):
+        m = cfg.mla
+        scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+        positions = torch.arange(pos, pos + 1, device=x.device)   # no host copy
 
-    q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    q = torch.einsum("btr,rhk->bthk", q, p["wq_b"])[:, 0]        # [B,H,nope+rope]
-    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
-    q_rope = apply_rope(q_rope[:, None], positions, cfg.rope_theta)[:, 0]
+        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+        q = torch.einsum("btr,rhk->bthk", q, p["wq_b"])[:, 0]        # [B,H,nope+rope]
+        q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+        q_rope = apply_rope(q_rope[:, None], positions, cfg.rope_theta)[:, 0]
 
-    c_new, kr_new = (x @ p["wkv_a"])[:, 0].split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
-    c_new = rms_norm(c_new, p["kv_norm"], cfg.norm_eps)
-    kr_new = apply_rope(kr_new[:, None, None, :], positions, cfg.rope_theta)[:, 0, 0]
+        c_new, kr_new = (x @ p["wkv_a"])[:, 0].split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+        c_new = rms_norm(c_new, p["kv_norm"], cfg.norm_eps)
+        kr_new = apply_rope(kr_new[:, None, None, :], positions, cfg.rope_theta)[:, 0, 0]
 
-    ckv, krope = cache["ckv"], cache["krope"]
-    set_slot_(ckv, 1, pos, c_new)
-    set_slot_(krope, 1, pos, kr_new)
+        ckv, krope = cache["ckv"], cache["krope"]
+        set_slot_(ckv, 1, pos, c_new)
+        set_slot_(krope, 1, pos, kr_new)
 
-    # absorbed projections
-    w_uk, w_uv = p["wkv_b"].split([m.qk_nope_dim, m.v_head_dim], dim=-1)
-    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, w_uk)
-    ckv32 = ckv.float()
-    s = torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv32)
-    s = s + torch.einsum("bhn,bsn->bhs", q_rope.float(), krope.float())
-    s = s * scale
-    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
-    s = s.masked_fill(~valid[None, None], torch.finfo(torch.float32).min)
-    probs = torch.softmax(s, dim=-1)
+        # absorbed projections
+        w_uk, w_uv = p["wkv_b"].split([m.qk_nope_dim, m.v_head_dim], dim=-1)
+        q_lat = torch.einsum("bhn,rhn->bhr", q_nope, w_uk)
+        ckv32 = ckv.float()
+        s = torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv32)
+        s = s + torch.einsum("bhn,bsn->bhs", q_rope.float(), krope.float())
+        s = s * scale
+        valid = torch.arange(ckv.shape[1], device=x.device) <= pos
+        s = s.masked_fill(~valid[None, None], torch.finfo(torch.float32).min)
+        probs = torch.softmax(s, dim=-1)
 
-    o_lat = torch.einsum("bhs,bsr->bhr", probs, ckv32)
-    v = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), w_uv)
-    out = torch.einsum("bhv,hvd->bd", v, p["wo"])[:, None]
-    return out, cache
+        o_lat = torch.einsum("bhs,bsr->bhr", probs, ckv32)
+        v = torch.einsum("bhr,rhv->bhv", o_lat.to(x.dtype), w_uv)
+        out = torch.einsum("bhv,hvd->bd", v, p["wo"])[:, None]
+        return out, cache

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec, activation
+from repro_torch.runtime import trace
 from repro_torch.runtime.shardctx import constrain, local, placed_like
 
 
@@ -67,18 +68,19 @@ def moe_apply(cfg: ModelConfig, p, x: torch.Tensor, router_mode: str = "softmax"
     routed per group (local routing with per-group capacity); the aux loss
     is then the groups' mean.
     """
-    b, t, d = x.shape
-    nt = b * t
-    if nt > MAX_DISPATCH_TOKENS and nt % MAX_DISPATCH_TOKENS == 0:
-        xg0 = x.reshape(nt // MAX_DISPATCH_TOKENS, 1, MAX_DISPATCH_TOKENS, d)
-        # under a mesh the loop walks an axis no rank splits: each group's
-        # tokens split over the batch axes, as its dispatch places them
-        # (one all-to-all), and the result goes back to x's layout
-        xg = constrain(xg0, (None, None, "moe_tokens", None))
-        ys, auxs = zip(*(_moe_dispatch(cfg, p, xc, router_mode) for xc in xg))
-        y = placed_like(torch.stack(ys), xg0)
-        return y.reshape(b, t, d), torch.stack(auxs).mean()
-    return _moe_dispatch(cfg, p, x, router_mode)
+    with trace.span("moe.apply"):
+        b, t, d = x.shape
+        nt = b * t
+        if nt > MAX_DISPATCH_TOKENS and nt % MAX_DISPATCH_TOKENS == 0:
+            xg0 = x.reshape(nt // MAX_DISPATCH_TOKENS, 1, MAX_DISPATCH_TOKENS, d)
+            # under a mesh the loop walks an axis no rank splits: each group's
+            # tokens split over the batch axes, as its dispatch places them
+            # (one all-to-all), and the result goes back to x's layout
+            xg = constrain(xg0, (None, None, "moe_tokens", None))
+            ys, auxs = zip(*(_moe_dispatch(cfg, p, xc, router_mode) for xc in xg))
+            y = placed_like(torch.stack(ys), xg0)
+            return y.reshape(b, t, d), torch.stack(auxs).mean()
+        return _moe_dispatch(cfg, p, x, router_mode)
 
 
 def _gather_slots(xf, gidx):

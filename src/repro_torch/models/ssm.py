@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamSpec, rms_norm
-from repro_torch.runtime import shardctx
+from repro_torch.runtime import shardctx, trace
 from repro_torch.runtime.shardctx import constrain, grad_placed, local
 
 
@@ -161,74 +161,75 @@ def ssd_forward(cfg: ModelConfig, p, x, *, initial_state=None,
 
     With ``return_state`` it also returns the decode handoff
     ``{"state": [B,nh,hd,N] fp32, "conv": [B,K-1,conv_dim]}``."""
-    s, d_in, nh, conv_dim = _dims(cfg)
-    b, t0, _ = x.shape
-    g, n, hd = s.n_groups, s.d_state, s.head_dim
-    cl = min(s.chunk, t0)
-    pad = (-t0) % cl
-    t = t0 + pad
-    nc = t // cl
+    with trace.span("ssd.forward"):
+        s, d_in, nh, conv_dim = _dims(cfg)
+        b, t0, _ = x.shape
+        g, n, hd = s.n_groups, s.d_state, s.head_dim
+        cl = min(s.chunk, t0)
+        pad = (-t0) % cl
+        t = t0 + pad
+        nc = t // cl
 
-    # the projection placed as in_proj is: DTensor may otherwise settle a
-    # pending sum here by a reduce-scatter that splits the product, and so
-    # the heads of dt and x, unevenly (hymba's 50 heads over a model axis of
-    # 16), which the chunk reshapes and einsums then refuse
-    zxbcdt = constrain(x @ p["in_proj"], ("batch", None, "ffn"))
-    z, xbc_raw, dt = _split_zxbcdt(cfg, zxbcdt)
-    # padded steps must be identity for the state: xBC = 0 and dt = 0
-    # (decay 1, input 0)
-    xbc = _pad_steps(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"]), pad)
-    # torch's softplus is the identity above its threshold of 20, where
-    # jax.nn.softplus adds log1p(exp(-x)) < 2.1e-9: below fp32's resolution
-    # at 20 (1.9e-6), so the two agree to the last bit that fp32 holds
-    dt = _pad_steps(F.softplus(dt.float() + p["dt_bias"]), pad)     # [B,T,nh]
-    xs, bm, cm = _split_xbc(cfg, xbc)
-    xs = xs.reshape(b, nc, cl, nh, hd).float()
-    bm = bm.reshape(b, nc, cl, g, n).float()
-    cm = cm.reshape(b, nc, cl, g, n).float()
-    dt = dt.reshape(b, nc, cl, nh)
-    a = -torch.exp(p["a_log"].float())                           # [nh]
-    da_h = (dt * a).permute(0, 1, 3, 2).contiguous()             # [B,nc,nh,cl]
-    # on the batch shard: torch 2.11's DTensor has no rule for the flip in
-    # a cumsum's backward
-    cum = local(torch.cumsum, (("batch", None, None, None), None),
-                out_like=0)(da_h, -1)                            # [B,nc,nh,cl]
-    xdt = xs * dt[..., None]                                     # [B,nc,cl,nh,hd]
+        # the projection placed as in_proj is: DTensor may otherwise settle a
+        # pending sum here by a reduce-scatter that splits the product, and so
+        # the heads of dt and x, unevenly (hymba's 50 heads over a model axis of
+        # 16), which the chunk reshapes and einsums then refuse
+        zxbcdt = constrain(x @ p["in_proj"], ("batch", None, "ffn"))
+        z, xbc_raw, dt = _split_zxbcdt(cfg, zxbcdt)
+        # padded steps must be identity for the state: xBC = 0 and dt = 0
+        # (decay 1, input 0)
+        xbc = _pad_steps(_causal_conv(xbc_raw, p["conv_w"], p["conv_b"]), pad)
+        # torch's softplus is the identity above its threshold of 20, where
+        # jax.nn.softplus adds log1p(exp(-x)) < 2.1e-9: below fp32's resolution
+        # at 20 (1.9e-6), so the two agree to the last bit that fp32 holds
+        dt = _pad_steps(F.softplus(dt.float() + p["dt_bias"]), pad)     # [B,T,nh]
+        xs, bm, cm = _split_xbc(cfg, xbc)
+        xs = xs.reshape(b, nc, cl, nh, hd).float()
+        bm = bm.reshape(b, nc, cl, g, n).float()
+        cm = cm.reshape(b, nc, cl, g, n).float()
+        dt = dt.reshape(b, nc, cl, nh)
+        a = -torch.exp(p["a_log"].float())                           # [nh]
+        da_h = (dt * a).permute(0, 1, 3, 2).contiguous()             # [B,nc,nh,cl]
+        # on the batch shard: torch 2.11's DTensor has no rule for the flip in
+        # a cumsum's backward
+        cum = local(torch.cumsum, (("batch", None, None, None), None),
+                    out_like=0)(da_h, -1)                            # [B,nc,nh,cl]
+        xdt = xs * dt[..., None]                                     # [B,nc,cl,nh,hd]
 
-    # the [cl x cl] blocks and the chunk end-states, chunk by chunk: rank by
-    # rank on the chunk axis ("ssm_chunks" -> model, as the reference
-    # constrains them; SSM head counts, hymba's 50, rarely divide the mesh).
-    # Each chunk needs only its own inputs, so the region is exact with no
-    # collective; DTensor's batched products flatten the split batch and
-    # chunk dims, which torch 2.11 (and 2.13's backward) refuse.  The
-    # recurrence over the chunks then runs on the batch shard
-    chunks = ("batch", "ssm_chunks", None, None, None)
-    y, states = local(_chunk_block, (chunks, chunks, chunks[:4], chunks[:4], chunks),
-                      out_like=[((b, nc, cl, nh, hd), chunks),
-                                ((b, nc, nh, hd, n), chunks)])(cm, bm, da_h, cum, xdt)
-    seqs = ("batch", None, None, None, None)
-    y_off, carry = local(_inter_chunk, (seqs, seqs, seqs[:4], seqs[:4]),
-                         out_like=[((b, nc, cl, nh, hd), seqs), ((b, nh, hd, n), seqs[:4])])(
-        cm, states, cum, None if initial_state is None else initial_state.float())
+        # the [cl x cl] blocks and the chunk end-states, chunk by chunk: rank by
+        # rank on the chunk axis ("ssm_chunks" -> model, as the reference
+        # constrains them; SSM head counts, hymba's 50, rarely divide the mesh).
+        # Each chunk needs only its own inputs, so the region is exact with no
+        # collective; DTensor's batched products flatten the split batch and
+        # chunk dims, which torch 2.11 (and 2.13's backward) refuse.  The
+        # recurrence over the chunks then runs on the batch shard
+        chunks = ("batch", "ssm_chunks", None, None, None)
+        y, states = local(_chunk_block, (chunks, chunks, chunks[:4], chunks[:4], chunks),
+                          out_like=[((b, nc, cl, nh, hd), chunks),
+                                    ((b, nc, nh, hd, n), chunks)])(cm, bm, da_h, cum, xdt)
+        seqs = ("batch", None, None, None, None)
+        y_off, carry = local(_inter_chunk, (seqs, seqs, seqs[:4], seqs[:4]),
+                             out_like=[((b, nc, cl, nh, hd), seqs), ((b, nh, hd, n), seqs[:4])])(
+            cm, states, cum, None if initial_state is None else initial_state.float())
 
-    # the merges of (nc, cl) and of (nh, hd) keep their own placements for
-    # the backward's split (``grad_placed``)
-    y = grad_placed((y + y_off).reshape(b, t, nh, hd))
-    y = y + p["d_skip"][:, None] * grad_placed(xs.reshape(b, t, nh, hd))
-    # the sequence split of the chunks' merge given up for d_in's before the
-    # steps are cut and the product flattens the batch and sequence dims
-    y = constrain(grad_placed(y.reshape(b, t, d_in)), ("batch", None, "ffn"))
-    y = y[:, :t0].to(x.dtype)
+        # the merges of (nc, cl) and of (nh, hd) keep their own placements for
+        # the backward's split (``grad_placed``)
+        y = grad_placed((y + y_off).reshape(b, t, nh, hd))
+        y = y + p["d_skip"][:, None] * grad_placed(xs.reshape(b, t, nh, hd))
+        # the sequence split of the chunks' merge given up for d_in's before the
+        # steps are cut and the product flattens the batch and sequence dims
+        y = constrain(grad_placed(y.reshape(b, t, d_in)), ("batch", None, "ffn"))
+        y = y[:, :t0].to(x.dtype)
 
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
-    if return_state:
-        # conv tail for the decode handoff: the last K-1 pre-activation,
-        # unpadded conv inputs, copied: a view would hold the whole input
-        # projection until the prefill stacks every layer's cache (torch
-        # 2.11's DTensor slices to a view)
-        return out, {"state": carry, "conv": xbc_raw[:, -(s.d_conv - 1):].clone()}
-    return out
+        y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+        out = y @ p["out_proj"]
+        if return_state:
+            # conv tail for the decode handoff: the last K-1 pre-activation,
+            # unpadded conv inputs, copied: a view would hold the whole input
+            # projection until the prefill stacks every layer's cache (torch
+            # 2.11's DTensor slices to a view)
+            return out, {"state": carry, "conv": xbc_raw[:, -(s.d_conv - 1):].clone()}
+        return out
 
 
 def _state_step(state, xs, dt, a, bm, cm, hpg: int):
@@ -257,31 +258,32 @@ def ssd_decode(cfg: ModelConfig, p, x, cache):
     The JAX version returns an updated copy of the cache.  This one writes
     the new state and the shifted conv window into ``cache`` in place (so a
     view into a stacked cache is updated) and returns the same tensors."""
-    s, d_in, nh, conv_dim = _dims(cfg)
-    b = x.shape[0]
-    g, n, hd = s.n_groups, s.d_state, s.head_dim
-    hpg = nh // g
+    with trace.span("ssd.decode"):
+        s, d_in, nh, conv_dim = _dims(cfg)
+        b = x.shape[0]
+        g, n, hd = s.n_groups, s.d_state, s.head_dim
+        hpg = nh // g
 
-    z, xbc_new, dt = _split_zxbcdt(cfg, (x @ p["in_proj"])[:, 0])      # [B,...]
-    conv_in = torch.cat([cache["conv"], xbc_new[:, None]], dim=1)     # [B,K,C]
-    xbc = F.silu(torch.einsum("bkc,kc->bc", conv_in, p["conv_w"]) + p["conv_b"])
-    cache["conv"].copy_(conv_in[:, 1:])
+        z, xbc_new, dt = _split_zxbcdt(cfg, (x @ p["in_proj"])[:, 0])      # [B,...]
+        conv_in = torch.cat([cache["conv"], xbc_new[:, None]], dim=1)     # [B,K,C]
+        xbc = F.silu(torch.einsum("bkc,kc->bc", conv_in, p["conv_w"]) + p["conv_b"])
+        cache["conv"].copy_(conv_in[:, 1:])
 
-    xs, bm, cm = _split_xbc(cfg, xbc)
-    xs = xs.reshape(b, nh, hd).float()
-    bm = bm.reshape(b, g, 1, n).float()
-    cm = cm.reshape(b, g, 1, n).float()
+        xs, bm, cm = _split_xbc(cfg, xbc)
+        xs = xs.reshape(b, nh, hd).float()
+        bm = bm.reshape(b, g, 1, n).float()
+        cm = cm.reshape(b, g, 1, n).float()
 
-    dt = F.softplus(dt.float() + p["dt_bias"])                   # [B,nh]
-    a = -torch.exp(p["a_log"].float())
-    # rank by rank on the state's batch and heads shard, written in place:
-    # DTensor's grouped product flattens the split batch and heads
-    heads = ("batch", "heads", None, None)
-    y = local(_state_step, (heads, heads[:3], heads[:2], heads[1:2],
-                            ("batch", None, None, None), ("batch", None, None, None), None),
-              out_like=((b, nh, hd), heads[:3]))(cache["state"], xs, dt, a, bm, cm, hpg)
-    y = y + p["d_skip"][:, None] * xs
-    y = y.reshape(b, 1, d_in).to(x.dtype)
+        dt = F.softplus(dt.float() + p["dt_bias"])                   # [B,nh]
+        a = -torch.exp(p["a_log"].float())
+        # rank by rank on the state's batch and heads shard, written in place:
+        # DTensor's grouped product flattens the split batch and heads
+        heads = ("batch", "heads", None, None)
+        y = local(_state_step, (heads, heads[:3], heads[:2], heads[1:2],
+                                ("batch", None, None, None), ("batch", None, None, None), None),
+                  out_like=((b, nh, hd), heads[:3]))(cache["state"], xs, dt, a, bm, cm, hpg)
+        y = y + p["d_skip"][:, None] * xs
+        y = y.reshape(b, 1, d_in).to(x.dtype)
 
-    y = rms_norm(y * F.silu(z[:, None]), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], cache
+        y = rms_norm(y * F.silu(z[:, None]), p["norm"], cfg.norm_eps)
+        return y @ p["out_proj"], cache

@@ -47,7 +47,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (ParamSpec, cross_entropy, embedding, mlp,
                                        mlp_spec, rms_norm)
-from repro_torch.runtime import shardctx
+from repro_torch.runtime import shardctx, trace
 from repro_torch.runtime.shardctx import constrain, local
 
 
@@ -351,6 +351,12 @@ def _remat(cfg: ModelConfig, collect: bool):
     return kw
 
 
+def _in_backward() -> bool:
+    """Whether autograd is running a backward on this thread (remat's
+    re-run of a layer)."""
+    return torch._C._current_graph_task_id() != -1
+
+
 def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
                   collect=False, use_flash=False):
     entries = {f"u{j}": [] for j in range(len(stage.unit))}
@@ -358,10 +364,11 @@ def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
     remat = _remat(cfg, collect)
     mesh_scope = shardctx.current()
 
-    def recomputable(h, lp, d):
+    def recomputable(h, lp, d, i):
         # the backward reruns this on autograd's device thread: it takes up
-        # the mesh scope of the forward
-        with shardctx.reenter(mesh_scope):
+        # the mesh scope of the forward, and its span tells the re-run apart
+        with shardctx.reenter(mesh_scope), trace.span(
+                "model.recompute" if _in_backward() else "model.layer", i):
             return layer_forward(cfg, d, lp, h, positions, n_meta,
                                  use_flash=use_flash)[::2]
     late = stage.repeat == 1 and torch.is_grad_enabled()
@@ -375,14 +382,16 @@ def stage_forward(cfg, stage: Stage, sp, x, positions, n_meta, *,
             # places it as soon as the layer's backward has made it, where
             # a placement made before the loop would wait for every layer's
             p = layers[j][r] if late else _placed(layers[j][r])
+            i = r * len(stage.unit) + j
             if remat is not None:
                 # the layer has no randomness: no RNG state to keep; the
                 # aux loss comes out with x, as in the JAX package's carry
-                x, a = checkpoint(recomputable, x, p, desc, **remat)
+                x, a = checkpoint(recomputable, x, p, desc, i, **remat)
                 e = {}
             else:
-                x, e, a = layer_forward(cfg, desc, p, x, positions, n_meta,
-                                        collect=collect, use_flash=use_flash)
+                with trace.span("model.layer", i):
+                    x, e, a = layer_forward(cfg, desc, p, x, positions, n_meta,
+                                            collect=collect, use_flash=use_flash)
             entries[f"u{j}"].append(e)
             aux = aux + a
     caches = {u: {k: torch.stack([e[k] for e in es]) for k in es[0]}
@@ -435,8 +444,9 @@ def lm_head(cfg: ModelConfig, params, x):
     else:
         eq, w, w_axes = "btd,dv->btv", params["head"], (None, "vocab")
         out = (b, t, w.shape[1]), ("batch", None, "vocab")
-    return local(lambda x, w: torch.einsum(eq, x, w), (("batch", None, None), w_axes),
-                 out_like=out)(x, w)
+    with trace.span("model.head"):
+        return local(lambda x, w: torch.einsum(eq, x, w), (("batch", None, None), w_axes),
+                     out_like=out)(x, w)
 
 
 # ---------------------------------------------------------------------------
@@ -533,13 +543,14 @@ def decode_step(cfg: ModelConfig, params, cache, tokens_new):
     The caches in ``cache`` are written in place; the returned cache holds
     the same tensors with ``pos`` advanced by one.
     """
-    x = embed_tokens(cfg, params, tokens_new)
     pos = cache["pos"]
-    for si, st in enumerate(build_stages(cfg)):
-        x, _ = stage_decode(cfg, st, params["stages"][si], x,
-                            cache["stages"][si], pos)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_head(cfg, params, x), {"stages": cache["stages"], "pos": pos + 1}
+    with trace.span("decode.step", pos):
+        x = embed_tokens(cfg, params, tokens_new)
+        for si, st in enumerate(build_stages(cfg)):
+            x, _ = stage_decode(cfg, st, params["stages"][si], x,
+                                cache["stages"][si], pos)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return lm_head(cfg, params, x), {"stages": cache["stages"], "pos": pos + 1}
 
 
 def grow_cache(cfg: ModelConfig, cache, capacity: int):

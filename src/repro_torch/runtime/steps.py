@@ -36,7 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import ParamSpec
-from repro_torch.runtime import shardctx
+from repro_torch.runtime import shardctx, trace
 from repro_torch.runtime.shardctx import constrain
 from repro_torch.runtime.optim import cosine_schedule, opt_update
 from repro_torch.runtime.tree import leaves, unflatten
@@ -144,31 +144,36 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
         counts the leaves taken."""
         def hook_for(i):
             def take(p):
-                g, p.grad = p.grad, None
-                if shard_ctx is not None and tuple(g.placements) != tuple(p.placements):
-                    # a stacked leaf's gradient comes placed from the layers'
-                    # backward (``transformer.stage_forward``), the others
-                    # (tok_emb, head, norms) may come as pending sums
-                    g = g.redistribute(p.device_mesh, p.placements)
-                if n_micro == 1:
-                    acc[i] = g
-                else:
-                    acc[i] = _accumulate(None if acc[i] is None else [acc[i]], [g], acc_dt)[0]
-                added[0] += 1
+                with trace.span("train.accumulate", i):
+                    g, p.grad = p.grad, None
+                    if shard_ctx is not None and tuple(g.placements) != tuple(p.placements):
+                        # a stacked leaf's gradient comes placed from the layers'
+                        # backward (``transformer.stage_forward``), the others
+                        # (tok_emb, head, norms) may come as pending sums
+                        g = g.redistribute(p.device_mesh, p.placements)
+                    if n_micro == 1:
+                        acc[i] = g
+                    else:
+                        acc[i] = _accumulate(None if acc[i] is None else [acc[i]], [g],
+                                             acc_dt)[0]
+                    added[0] += 1
             return take
         return [p.register_post_accumulate_grad_hook(hook_for(i)) for i, p in enumerate(flat)]
 
-    def micro_backward(params, flat, mb, added):
-        loss, _ = tf.train_loss(cfg, params, mb, use_flash=use_flash)
-        added[0] = 0
-        torch.autograd.backward(loss, inputs=flat)
+    def micro_backward(params, flat, mb, added, m):
+        with trace.span("train.microbatch", m):
+            with trace.span("train.forward", m):
+                loss, _ = tf.train_loss(cfg, params, mb, use_flash=use_flash)
+            added[0] = 0
+            with trace.span("train.backward", m):
+                torch.autograd.backward(loss, inputs=flat)
         if added[0] != len(flat):
             raise RuntimeError(f"{len(flat) - added[0]} of {len(flat)} parameter leaves "
                                "got no gradient")
         return loss.detach()
 
     def train_step(params, opt_state, batch, step):
-        with _maybe_scope(shard_ctx):
+        with _maybe_scope(shard_ctx), trace.span("train.step", step):
             return _step(params, opt_state, batch, step)
 
     def _step(params, opt_state, batch, step):
@@ -182,12 +187,13 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
         hooks = accumulate_as_made(flat, grads, added)
         try:
             if n_micro == 1:
-                loss = micro_backward(params, flat, {k: v[0] for k, v in batch.items()}, added)
+                loss = micro_backward(params, flat, {k: v[0] for k, v in batch.items()},
+                                      added, 0)
             else:
                 lsum = None
                 for m in range(n_micro):
                     loss = micro_backward(params, flat, {k: v[m] for k, v in batch.items()},
-                                          added)
+                                          added, m)
                     lsum = loss.float() if lsum is None else lsum + loss
                 loss = lsum / n_micro
                 for a in grads:
@@ -200,7 +206,10 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams = TrainHParams(), *,
         grads = unflatten(params, grads)
         if compress_fn is not None:
             grads = compress_fn(grads)
-        params, opt_state, gnorm = opt_update(cfg, grads, opt_state, params, lr)
+        # the span is around the call, so it times whatever this module's
+        # ``opt_update`` is when the step runs (a harness may replace it)
+        with trace.span("train.optimizer", step):
+            params, opt_state, gnorm = opt_update(cfg, grads, opt_state, params, lr)
         return params, opt_state, {"loss": _plain(loss), "gnorm": _plain(gnorm),
                                    "lr": lr, "step": int(step) + 1}
 

@@ -15,7 +15,10 @@ do not overlap), the same share against the untraced step's wall time
 fast), the device time of the flash-attention kernels (K2 forward, K2
 bwd, each kernel of a group on its own line), of the GEMMs, of the zero
 fills and of the bf16 adds, and the kernels that take the most device
-time.
+time; then, from the program's spans (``runtime/trace.py``, on for the
+traced step), the device and idle time by span path, and the shares of
+device time under the optimizer, the gradients' accumulation and remat's
+recomputation.
 
 ``--mesh`` runs the step as ``chip_smoke.py``'s phase 23 does: through
 ``make_train_step(shard_ctx=...)`` on a 1x1 ("data", "model") mesh over
@@ -41,7 +44,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import torch  # noqa: E402
-from profile_torch_serve import _device_us, report  # noqa: E402
+from profile_torch_serve import _device_us, holding, print_spans, report  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
@@ -50,6 +53,7 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch import mesh as mesh_launch  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.runtime.elastic import make_plan_mesh, plan_mesh  # noqa: E402
+from repro_torch.runtime import trace  # noqa: E402
 from repro_torch.runtime.pipeline import DataPipeline, PipelineConfig  # noqa: E402
 
 # kernel-name fragments of each group (mangled C++ names; cuBLAS's GEMMs)
@@ -132,16 +136,24 @@ def _profile(args, cfg, shape, mesh, device) -> int:
     params, opt, _, untraced = train.run_step(step_fn, params, opt, next(pipe), 1, device)
     batch = next(pipe)
     torch.cuda.synchronize()
+    trace.enable()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         params, opt, metrics, _ = train.run_step(step_fn, params, opt, batch, 2, device)
         wall = time.perf_counter() - t0
+    trace.disable()
     print(f"[train-step] yi-6b widths, {args.layers} layers, {args.microbatches} x "
           f"{args.global_batch // args.microbatches} x {args.seq} tokens, flash="
           f"{not args.no_flash}, "
           f"{'1x1 mesh (DTensor)' if mesh is not None else 'plain tensors'}: warm-up "
           f"{warm * 1e3:.1f} ms, loss {float(metrics['loss']):.4f}")
     report("train-step", prof, wall, cfg.ssm.chunk if cfg.ssm else 0, top=12)
+    spans, idle, _ = print_spans("train-step", prof)
+    busy_s = sum(spans.values())
+    print("[train-step] shares of device time: " + ", ".join(
+        f"{name} {holding(spans, name) / busy_s:.1%}"
+        for name in ("train.optimizer", "train.accumulate", "model.recompute"))
+        + f"; idle under train.step {holding(idle, 'train.step') * 1e3:.3f} ms")
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
     busy = sum(_device_us(e) for e in events)
